@@ -1,0 +1,231 @@
+"""Capacity planner — the paper's "rules of thumb", made executable.
+
+CombBLAS 2.0 sizes SpGEMM outputs with a symbolic phase before the numeric
+phase (§4.1) and gives scenario rules for picking data structures and
+algorithm variants (§5, §7). Every buffer of the port is a capacity, as in
+the JAX package, so a wrong guess either overflows (too small) or wastes
+memory (too large). This module centralizes the guessing:
+
+  1. **Estimate** flops and nnz(C) from tile nnz statistics — a cheap
+     symbolic pass over the host copy of ``DistSpMat.nnz``.
+  2. **Derive** ``prod_cap`` / ``out_cap`` with a safety factor, quantized
+     to powers of two.
+  3. **Bound** every cap by a true worst case (products can never exceed
+     nnz(A-tile)·nnz(B-tile) per stage; outputs never exceed the dense
+     tile), so overflow-retry terminates.
+  4. **Retry on overflow**: the kernels' ``ok`` flags are checked on the
+     host; a failed attempt re-runs with grown caps instead of returning
+     truncated results.
+  5. **Pick variants** by the paper's rules of thumb (DESIGN.md §4.6).
+
+Apps call ``spgemm`` below with NO capacity arguments; explicit caps remain
+available as overrides. The audits, deadlines and the degradation ladder of
+the JAX package wait for the port's robustness slice: where the JAX planner
+would take a ladder rung, this one raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+
+from ..obs import recorder as _obs
+from .dist import DistSpMat, Grid
+from .semiring import ARITHMETIC, Semiring
+from .spgemm import spgemm_2d as _spgemm_2d
+
+# Per-device scratch budget for planner decisions, in *entries* (a COO entry
+# is ~16 bytes with indices): ~64 MB. Crossing it flips the memory-saving
+# variant choices; it never bounds correctness (caps still grow on retry).
+MEM_BUDGET_ENTRIES = 1 << 22
+
+# Below this many total product slots (q·prod_cap) the legacy single
+# concat-and-sort merge beats the merge tree (DESIGN.md §4.4/§4.6).
+SORT_MERGE_ENTRIES = 1 << 13
+
+
+def _pow2(x: float, lo: int = 64) -> int:
+    """Round up to a power of two (cap quantization)."""
+    return max(lo, 1 << math.ceil(math.log2(max(float(x), 1.0))))
+
+
+def _host_nnz(a: DistSpMat) -> np.ndarray:
+    return a.nnz.cpu().numpy().astype(np.float64)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpGEMMPlan:
+    prod_cap: int          # per-stage expansion slots per device
+    out_cap: int           # merged output entries per device
+    variant: str           # 'rotation' | 'allgather'
+    merge: str             # 'sort' | 'deferred' | 'incremental' (§4.4)
+    prod_ceiling: int      # worst-case bound — retry growth stops here
+    out_ceiling: int
+    est_flops: float       # estimated peak per-device per-stage products
+    est_out: float         # estimated peak per-device nnz(C)
+    attempts: int = 1      # how many numeric attempts the retry loop used
+    degraded: tuple = ()   # ladder rungs taken (none in this slice)
+    # exchange schedule (§4.8): None derives from the variant
+    schedule: object = None
+    overlap: bool = True   # double-buffered stage loops (False = bulk-sync)
+    compress: Optional[str] = None   # 'int8' wire compression of values
+
+    def at_ceiling(self) -> bool:
+        return (self.prod_cap >= self.prod_ceiling
+                and self.out_cap >= self.out_ceiling)
+
+    def grown(self, factor: int = 4) -> "SpGEMMPlan":
+        if self.at_ceiling():
+            raise RuntimeError(
+                "SpGEMM overflow at worst-case capacities "
+                f"(prod_cap={self.prod_cap}, out_cap={self.out_cap}) — "
+                "the ok flags disagree with the symbolic bound")
+        return dataclasses.replace(
+            self,
+            prod_cap=min(self.prod_cap * factor, self.prod_ceiling),
+            out_cap=min(self.out_cap * factor, self.out_ceiling),
+            attempts=self.attempts + 1)
+
+
+def plan_spgemm(a: DistSpMat, b: DistSpMat | None = None, *,
+                safety: float = 4.0,
+                prod_cap: int | None = None, out_cap: int | None = None,
+                variant: str | None = None, merge: str | None = None,
+                mask=None, schedule=None, overlap: bool = True,
+                compress: str | None = None,
+                mem_budget: int = MEM_BUDGET_ENTRIES) -> SpGEMMPlan:
+    """Size and configure a 2D SpGEMM from tile nnz statistics.
+
+    The estimate assumes entries spread uniformly over tile columns (the
+    random-permutation load-balance story of §2.3); skewed inputs are caught
+    by the overflow flags and absorbed by the safety factor + retry growth.
+
+    ``mask`` (a ``mask.MaskSpec``): a pattern mask bounds the per-tile
+    output EXACTLY — a structural mask's C tile holds at most its mask
+    tile's nnz, a complement mask's at most dense-tile − nnz — so both the
+    out estimate and the retry ceiling intersect with the mask stats (§4.7).
+    """
+    b = a if b is None else b
+    q = a.pr
+    na = _host_nnz(a).reshape(q, q)
+    nb_ = _host_nnz(b).reshape(q, q)
+    inner = float(max(a.nb, 1))            # contraction dim of one tile pair
+
+    # stage (i, j, k) multiplies A(i,k) · B(k,j): expected products under
+    # uniform column occupancy, exact upper bound nnz_a * nnz_b
+    pair = na[:, :, None] * nb_[None, :, :]
+    stage_est = float(pair.max()) / inner
+    stage_bound = float(pair.max())
+    # per-device output: flops estimate summed over stages, capped by the
+    # dense C tile (distinct (row, col) pairs cannot exceed it)
+    flops_dev = np.einsum("ik,kj->ij", na, nb_) / inner
+    dense_tile = float(a.mb) * float(b.nb)
+    out_bound = min(stage_bound * q, dense_tile)
+    if mask is not None and mask.mat is not None:
+        mn = _host_nnz(mask.mat).reshape(q, q)
+        if not mask.complement:
+            mask_bound = float(mn.max())
+        elif mask.pred is None:
+            mask_bound = float(dense_tile - mn.min())
+        else:
+            mask_bound = dense_tile
+        out_bound = min(out_bound, max(mask_bound, 1.0))
+    out_est = float(min(flops_dev.max(), out_bound))
+
+    p_ceil = _pow2(stage_bound)
+    o_ceil = _pow2(out_bound)
+    p_cap = min(_pow2(prod_cap or safety * stage_est), p_ceil)
+    o_cap = min(_pow2(out_cap or safety * out_est), o_ceil)
+    if prod_cap:
+        p_cap = max(p_cap, _pow2(prod_cap))   # explicit override wins
+        p_ceil = max(p_ceil, p_cap)
+    if out_cap:
+        o_cap = max(o_cap, _pow2(out_cap))
+        o_ceil = max(o_ceil, o_cap)
+
+    # rules of thumb (DESIGN.md §4.6): allgather materializes q stage
+    # operands at once — fine on small grids, memory-hostile at scale.
+    # Merge strategy (§4.4): tiny product volume -> 'sort'; q·prod_cap
+    # beyond the scratch budget -> 'incremental'; 'deferred' where the
+    # engine's cap slack and tree work pay off; else 'sort'. The per-stage
+    # hybrid schedule needs q >= 2, so q = 1 never picks it.
+    if variant is None and schedule is not None:
+        variant = ("rotation" if schedule == "rotate" else
+                   "allgather" if schedule == "alltoall" else "hybrid")
+    if variant is None:
+        variant = "allgather" if q * (a.cap + b.cap) <= mem_budget \
+            else "rotation"
+    if merge is None:
+        tree_slots = o_cap * max(math.log2(max(q, 2)), 1.0)
+        if q * p_cap <= SORT_MERGE_ENTRIES:
+            merge = "sort"
+        elif q * p_cap > mem_budget:
+            merge = "incremental"
+        elif p_cap >= 4 * stage_est and tree_slots <= q * p_cap / 4:
+            merge = "deferred"
+        else:
+            merge = "sort"
+    return SpGEMMPlan(p_cap, o_cap, variant, merge, p_ceil, o_ceil,
+                      stage_est, out_est, schedule=schedule, overlap=overlap,
+                      compress=compress)
+
+
+def spgemm(a: DistSpMat, b: DistSpMat | None = None,
+           sr: Semiring = ARITHMETIC, *, mesh: Grid,
+           plan: SpGEMMPlan | None = None,
+           prod_cap: int | None = None, out_cap: int | None = None,
+           variant: str | None = None, merge: str | None = None,
+           mask=None, schedule=None, overlap: bool = True,
+           compress: str | None = None,
+           safety: float = 4.0, max_attempts: int = 6, growth: int = 4):
+    """Planned C = A ⊕.⊗ B (optionally C⟨M⟩ via ``mask``). Returns
+    (C, plan-with-attempt-count).
+
+    An overflowing attempt (any device's ``ok`` flag false) is retried with
+    caps grown ×``growth`` toward the worst-case ceiling — never a silently
+    truncated result. Pattern masks shrink the planned out/stage capacities
+    to the mask-intersected estimate (§4.7), with the same retry loop as
+    the safety net. When retries run out (attempts exhausted or caps at the
+    ceiling), this raises: the JAX package's degradation ladder is not
+    ported yet.
+    """
+    b = a if b is None else b
+    p = plan if plan is not None else plan_spgemm(
+        a, b, safety=safety, prod_cap=prod_cap, out_cap=out_cap,
+        variant=variant, merge=merge, mask=mask, schedule=schedule,
+        overlap=overlap, compress=compress)
+    _plan_event("plan.spgemm", p)
+    while True:
+        c, ok = _spgemm_2d(a, b, sr, mesh=mesh, prod_cap=p.prod_cap,
+                           out_cap=p.out_cap, variant=p.variant,
+                           merge=p.merge, mask=mask, schedule=p.schedule,
+                           overlap=p.overlap, compress=p.compress)
+        if bool(ok.all()):
+            if p.attempts > 1:
+                _plan_event("plan.spgemm.done", p)
+            return c, p
+        if p.attempts < max_attempts and not p.at_ceiling():
+            _obs.event("plan.overflow_retry", op="spgemm",
+                       attempt=p.attempts, prod_cap=p.prod_cap,
+                       out_cap=p.out_cap)
+            _obs.counter_add("plan.overflow_retries")
+            p = p.grown(growth)
+            continue
+        raise RuntimeError(
+            f"SpGEMM still overflowing after {p.attempts} attempts "
+            f"(prod_cap={p.prod_cap}, out_cap={p.out_cap}) — "
+            f"degradation ladder exhausted (degraded={p.degraded})")
+
+
+def _plan_event(kind: str, p):
+    """One structured obs event carrying a plan's full decision record."""
+    if not _obs.enabled():
+        return
+    s = p.schedule
+    _obs.event(kind, variant=p.variant, merge=p.merge,
+               schedule=s if (s is None or isinstance(s, str)) else "hybrid",
+               overlap=p.overlap, compress=p.compress,
+               prod_cap=p.prod_cap, out_cap=p.out_cap,
+               attempts=p.attempts, degraded=",".join(p.degraded))

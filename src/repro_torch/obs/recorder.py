@@ -1,0 +1,241 @@
+"""Host-side flight recorder: spans, counters and structured events.
+
+The port's own copy of ``repro``'s recorder, with the same span and event
+names, so traces of the two packages read alike. Design rules:
+
+1. **Near-zero overhead when disabled.** Every hook starts with one read
+   of the module-level ``_enabled`` boolean and returns immediately —
+   ``span()`` hands back a shared no-op singleton, ``counter_add``/``event``
+   return before touching any state. Raw values are stored and stringified
+   only when read.
+2. **Host boundaries only.** Hooks sit in host-level code. PyTorch runs
+   eagerly, so there is no trace to guard against; instead :func:`sync`
+   waits for the GPU while recording, so a span covers device execution,
+   not just the asynchronous launch.
+3. **Deterministic metrics.** Counter and event values derive only from
+   data sizes and control-flow decisions (caps, retry counts), so two
+   identically-seeded runs produce identical totals.
+
+Enable with :func:`enable` or the scoped :func:`capture`.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+import sys
+import threading
+import time
+from typing import Any
+
+_lock = threading.Lock()
+_tls = threading.local()
+
+_enabled = False                 # THE fast-path check — one module global
+_epoch_perf = 0.0                # perf_counter() at enable-time (t=0)
+
+# finished spans: (name, tid, t0, dur, depth, attrs)   [t0 rel. epoch_perf]
+_spans: list[tuple] = []
+# instant events: (name, tid, t, attrs)
+_events: list[tuple] = []
+# counters: monotonic totals
+_counters: dict[str, float] = {}
+
+_MAX_RECORDS = 1_000_000         # backstop against unbounded growth
+
+
+def enabled() -> bool:
+    """The raw switch — cheapest possible read."""
+    return _enabled
+
+
+# --------------------------------------------------------------------------
+# spans
+# --------------------------------------------------------------------------
+
+def _stack() -> list:
+    s = getattr(_tls, "stack", None)
+    if s is None:
+        s = _tls.stack = []
+    return s
+
+
+class _NoopSpan:
+    """Shared do-nothing span — what ``span()`` returns when disabled."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP = _NoopSpan()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "t0", "depth")
+
+    def __init__(self, name: str, attrs):
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self):
+        stack = _stack()
+        self.depth = len(stack)
+        stack.append(self)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dur = time.perf_counter() - self.t0
+        stack = _stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:                    # exited out of order
+            stack.remove(self)
+        with _lock:
+            if len(_spans) < _MAX_RECORDS:
+                _spans.append((self.name, threading.get_ident(),
+                               self.t0 - _epoch_perf, dur, self.depth,
+                               self.attrs))
+        return False
+
+
+def span(name: str, **attrs):
+    """Context manager timing one host-side region (thread-safe, nestable);
+    a shared no-op when disabled."""
+    if not _enabled:
+        return _NOOP
+    return _Span(name, attrs)
+
+
+def timed(name: str, **attrs):
+    """Decorator form of :func:`span` for whole host-level functions."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            if not _enabled:
+                return fn(*a, **kw)
+            with span(name, **attrs):
+                return fn(*a, **kw)
+        return wrapper
+    return deco
+
+
+def sync(device) -> None:
+    """``torch.cuda.synchronize(device)`` while recording on a CUDA device
+    (else free), so the enclosing span covers the device's work."""
+    if _enabled and getattr(device, "type", device) == "cuda":
+        import torch
+        torch.cuda.synchronize(device)
+
+
+# --------------------------------------------------------------------------
+# metrics: counters / instant events
+# --------------------------------------------------------------------------
+
+def counter_add(name: str, value: float = 1):
+    """Add to a monotonic counter."""
+    if not _enabled:
+        return
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + value
+
+
+def event(name: str, **attrs):
+    """Record an instant structured event (planner decision, retry)."""
+    if not _enabled:
+        return
+    t = time.perf_counter() - _epoch_perf
+    with _lock:
+        if len(_events) < _MAX_RECORDS:
+            _events.append((name, threading.get_ident(), t, attrs))
+
+
+def events(name: str | None = None) -> list[dict]:
+    """Recorded instant events as plain dicts (newest last)."""
+    with _lock:
+        evs = list(_events)
+    return [dict(name=n, t=t, **a) for n, _tid, t, a in evs
+            if name is None or n == name]
+
+
+# --------------------------------------------------------------------------
+# lifecycle
+# --------------------------------------------------------------------------
+
+def enable():
+    """Start recording (idempotent). The epoch anchors timestamps."""
+    global _enabled, _epoch_perf
+    if _enabled:
+        return
+    _epoch_perf = time.perf_counter()
+    _enabled = True
+
+
+@contextlib.contextmanager
+def capture():
+    """Scoped recording into fresh buffers; prior state restored on exit.
+
+    ``with recorder.capture() as rec: ... rec.snapshot()`` never leaks
+    spans into (or inherits spans from) the surrounding run. Yields this
+    module.
+    """
+    global _enabled
+    with _lock:
+        saved = (_enabled, list(_spans), list(_events), dict(_counters))
+        _spans.clear()
+        _events.clear()
+        _counters.clear()
+    _enabled = False
+    enable()
+    try:
+        yield sys.modules[__name__]
+    finally:
+        with _lock:
+            _enabled = saved[0]
+            _spans[:] = saved[1]
+            _events[:] = saved[2]
+            _counters.clear()
+            _counters.update(saved[3])
+
+
+# --------------------------------------------------------------------------
+# aggregation
+# --------------------------------------------------------------------------
+
+def _percentile(sorted_vals: list[float], q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))
+    return sorted_vals[i]
+
+
+def snapshot() -> dict[str, Any]:
+    """Plain-dict summary: per-site span stats + counter totals.
+
+    ``{"spans": {site: {count, total_us, p50_us, p99_us}},
+       "counters": {...}, "events": {name: count}}``
+    """
+    with _lock:
+        spans = list(_spans)
+        evs = list(_events)
+        cts = dict(_counters)
+    per_site: dict[str, list[float]] = {}
+    for name, _tid, _t0, dur, _depth, _attrs in spans:
+        per_site.setdefault(name, []).append(dur * 1e6)
+    span_stats = {}
+    for name, durs in sorted(per_site.items()):
+        durs.sort()
+        span_stats[name] = {
+            "count": len(durs),
+            "total_us": round(sum(durs), 1),
+            "p50_us": round(_percentile(durs, 0.50), 1),
+            "p99_us": round(_percentile(durs, 0.99), 1),
+        }
+    ev_counts: dict[str, int] = {}
+    for name, _tid, _t, _attrs in evs:
+        ev_counts[name] = ev_counts.get(name, 0) + 1
+    return {"spans": span_stats, "counters": cts, "events": ev_counts}

@@ -1,0 +1,136 @@
+"""Helpers for the parity tests of ``repro_torch`` against ``repro``.
+
+Both packages get the same numpy inputs; results are compared as numpy
+arrays. Index structure (row, col, nnz, ok flags, order tag) and every
+non-sum value must match bitwise. Float sums are compared with
+``SUM_RTOL``: the two packages may add a segment's values in another order,
+and for the few values per segment these tests use, reordering moves a
+float32 sum by a few ulps at most.
+"""
+import contextlib
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import repro.core.plan as _jplan
+import repro.core.spgemm as _jspgemm
+from repro.core.coo import COO as JCOO
+from repro_torch.core.coo import COO as TCOO
+
+SUM_RTOL = 1e-6
+CPU = torch.device("cpu")
+
+
+def np_of(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def coo_pair(shape, r, c, v, cap, fill=0.0, order="none"):
+    """The same tile in both packages (canonical padding to ``cap``)."""
+    j = JCOO.from_entries(shape, r, c, v, cap=cap, fill=fill, order=order)
+    t = TCOO.from_entries(shape, r, c, v, cap=cap, fill=fill, order=order,
+                          device=CPU)
+    return j, t
+
+
+def rand_entries(n=24, k=60, seed=0, dtype=np.float32, vdims=()):
+    """Random coordinates with duplicates and positive values."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, n, k)
+    c = rng.integers(0, n, k)
+    v = (rng.random((k,) + vdims) + 0.25).astype(dtype)
+    return r, c, v
+
+
+def assert_values(got, want, exact=False):
+    got, want = np_of(got), np_of(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    if exact or not np.issubdtype(got.dtype, np.floating):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=SUM_RTOL, atol=0)
+
+
+def assert_coo_equal(got: TCOO, want: JCOO, exact=False):
+    """Whole tiles, padding included: coordinates, nnz and tag bitwise."""
+    assert got.shape == tuple(want.shape)
+    assert got.order == want.order, (got.order, want.order)
+    assert int(got.nnz) == int(want.nnz)
+    np.testing.assert_array_equal(np_of(got.row), np_of(want.row))
+    np.testing.assert_array_equal(np_of(got.col), np_of(want.col))
+    assert_values(got.val, want.val, exact)
+
+
+def assert_dist_equal(got, want, exact=False):
+    """A repro_torch DistSpMat against a repro DistSpMat, field by field."""
+    assert got.shape == tuple(want.shape) and got.grid == tuple(want.grid)
+    assert got.order == want.order, (got.order, want.order)
+    for f in ("row", "col", "nnz"):
+        np.testing.assert_array_equal(np_of(getattr(got, f)),
+                                      np_of(getattr(want, f)))
+    assert_values(got.val, want.val, exact)
+
+
+_JITTED = {}
+
+
+def jit_ref(fn, static, *args, **kwargs):
+    """``fn(*args, **static, **kwargs)`` of the JAX package under one jit
+    per (fn, static): op-by-op dispatch compiles every primitive (and
+    retraces every ``lax.cond``) and takes several times longer for these
+    small inputs."""
+    key = (fn, tuple(sorted(static.items())))
+    if key not in _JITTED:
+        _JITTED[key] = jax.jit(functools.partial(fn, **static))
+    return _JITTED[key](*args, **kwargs)
+
+
+_JSPGEMM = {}
+
+
+def jax_spgemm_2d(a, b, sr, *, mesh, prod_cap, out_cap, variant="rotation",
+                  merge="deferred", mask=None, schedule=None, overlap=True,
+                  compress=None):
+    """``repro.core.spgemm.spgemm_2d`` under one jit per configuration (the
+    eager shard_map dispatch takes several times longer to compile)."""
+    key = (sr, mesh, prod_cap, out_cap, variant, merge, schedule, overlap,
+           compress, mask is None,
+           None if mask is None else (mask.complement, mask.pred,
+                                      mask.val_pred))
+    if key not in _JSPGEMM:
+        def run(a, b, mat):
+            m = None if mask is None else dataclasses.replace(mask, mat=mat)
+            return _jspgemm.spgemm_2d(
+                a, b, sr, mesh=mesh, prod_cap=prod_cap, out_cap=out_cap,
+                variant=variant, merge=merge, mask=m, schedule=schedule,
+                overlap=overlap, compress=compress)
+        _JSPGEMM[key] = jax.jit(run)
+    return _JSPGEMM[key](a, b, None if mask is None else mask.mat)
+
+
+@contextlib.contextmanager
+def jax_reference():
+    """Run the JAX package's 2D SpGEMM as the reference on jax >= 0.9.
+
+    Its ``compat.shard_map`` is ``jax.shard_map`` with the varying-axes
+    check on, which rejects the merge engine's ``lax.cond`` inside the
+    stage body; the check is the successor of the ``check_rep`` that compat
+    turns off on jax 0.4.x, so it is turned off here too (the computation is
+    unchanged). The planner's multiply goes through ``jax_spgemm_2d``.
+    """
+    mp = pytest.MonkeyPatch()
+    mp.setattr(_jspgemm, "shard_map",
+               functools.partial(jax.shard_map, check_vma=False))
+    mp.setattr(_jplan, "_spgemm_2d", jax_spgemm_2d)
+    try:
+        yield
+    finally:
+        mp.undo()
