@@ -16,9 +16,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from .semiring import Monoid, segment_reduce
+from .semiring import Monoid, scatter_onto_identity, segment_reduce
 
 SENTINEL = 2**31 - 1
 
@@ -42,6 +43,21 @@ def _vmask(m: torch.Tensor, vdims) -> torch.Tensor:
 def sentinel_like(x: torch.Tensor) -> torch.Tensor:
     """A 0-d int32 SENTINEL on ``x``'s device (for ``torch.where``)."""
     return torch.tensor(SENTINEL, dtype=torch.int32, device=x.device)
+
+
+def first_present(present: torch.Tensor, cap: int):
+    """Flat positions of the first ``cap`` True entries of the 1-d
+    ``present``, in order, padded with -1 (``jnp.nonzero(size=cap)``), and
+    their count ``min(sum(present), cap)`` as an int32 scalar. A prefix sum
+    places each entry, so nothing is read back to the host."""
+    dev = present.device
+    pos = torch.cumsum(present, 0) - 1
+    keep = present & (pos < cap)
+    tgt = torch.where(keep, pos, cap)           # the rest: a spare slot
+    out = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
+    out[tgt] = torch.arange(present.shape[0], device=dev)
+    nnz = torch.clamp(present.sum(), max=cap).to(torch.int32)
+    return out[:cap], nnz
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +128,49 @@ class COO:
                                                fill)])
         return COO(row, col, val, nnz, tuple(shape), order).canonicalize(fill)
 
+    @staticmethod
+    def from_numpy(row, col, val, nnz, shape, order="none",
+                   device=None) -> "COO":
+        """A tile from host arrays taken verbatim, padding included — e.g.
+        the arrays of a ``repro`` COO, so both packages compute on the same
+        tile."""
+        dev = resolve_device(device)
+        return COO(torch.tensor(np.asarray(row, np.int32), device=dev),
+                   torch.tensor(np.asarray(col, np.int32), device=dev),
+                   torch.tensor(np.asarray(val), device=dev),
+                   torch.tensor(int(np.asarray(nnz)), dtype=torch.int32,
+                                device=dev),
+                   (int(shape[0]), int(shape[1])), order)
+
+    @staticmethod
+    def from_dense(dense: torch.Tensor, cap: int, zero=0,
+                   order="row") -> "COO":
+        """The first ``cap`` entries of ``dense`` that differ from ``zero``,
+        row-major, SENTINEL-padded, ``nnz = min(count, cap)``. A vector-valued
+        tile (m, n, *vdims) counts an entry present where any element differs
+        from ``zero``. For ``order='col'`` the same entries are sorted
+        col-major, so the tile matches its tag (the JAX package tags them
+        'col' in row-major order)."""
+        m, n = dense.shape[:2]
+        vdims = tuple(dense.shape[2:])
+        present = dense != zero
+        if vdims:
+            present = present.reshape(m, n, -1).any(dim=-1)
+        lin, nnz = first_present(present.reshape(-1), cap)
+        live = lin >= 0
+        src = lin.clamp(min=0)
+        s = sentinel_like(lin)
+        row = torch.where(live, (src // n).to(torch.int32), s)
+        col = torch.where(live, (src % n).to(torch.int32), s)
+        val = torch.where(_vmask(live, vdims),
+                          dense.reshape((m * n,) + vdims)[src],
+                          torch.tensor(zero, dtype=dense.dtype,
+                                       device=dense.device))
+        shape = (int(m), int(n))
+        if order == "col":
+            return COO(row, col, val, nnz, shape, "none").sort("col")
+        return COO(row, col, val, nnz, shape, order)
+
     # ------------------------------------------------------------------
     # canonicalization / sorting / dedup
     # ------------------------------------------------------------------
@@ -153,6 +212,20 @@ class COO:
         out[self.row.long().clamp(max=m), self.col.long().clamp(max=n)] = \
             self.val
         return out[:m, :n]
+
+    def to_dense_add(self, add: Monoid) -> torch.Tensor:
+        """Dense with duplicate merging (for non-canonical tiles): entries
+        combine onto an identity-filled tile, as JAX's ``.at[].add/min/max``;
+        tagged monoids on the segmented-reduce kernel, others through a
+        dedup."""
+        m, n = self.shape
+        if add.tag not in ("sum", "min", "max"):
+            return self.dedup(add).to_dense(add.identity)
+        inside = (self.row >= 0) & (self.row < m) & (self.col >= 0) \
+            & (self.col < n)
+        ids = torch.where(inside, self.row.long() * n + self.col.long(), -1)
+        flat = scatter_onto_identity(self.val, ids, m * n, add)
+        return flat.reshape((m, n) + self.vdims)
 
     def apply(self, fn) -> "COO":
         """Elementwise apply on stored values (GraphBLAS apply)."""

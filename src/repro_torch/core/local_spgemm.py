@@ -1,23 +1,27 @@
 """Local (single-tile) SpGEMM under arbitrary semirings (paper §4.1).
 
-The paper's structure — an O(flops) expansion followed by a merge — with
-the merge engine of ``merge.py``:
+The paper's structure — an O(flops) expansion followed by a merge whose
+data structure is chosen by compression ratio:
 
- - ``spgemm_esc``   expand → packed-key sort → segmented reduce (the
-                    segmented-reduce kernel on the GPU).
+ - ``spgemm_esc``   expand → packed-key sort → segmented reduce (the heap's
+                    role: wins at LOW compression ratio; the segmented-reduce
+                    kernel on the GPU).
+ - ``spgemm_dense`` accumulate into a dense output tile (the hash table's
+                    role: O(1) accumulation, wins at HIGH compression ratio;
+                    the ``semiring_matmul`` kernel on the GPU).
+ - ``spgemm_auto``  the paper's hybrid: picks by estimated compression ratio.
 
 The flops estimate (phase 1 of the paper's three-phase scheme) is computed
-exactly as nnz-weighted column counts. The dense-accumulator path
-(``spgemm_dense``/``spgemm_auto``) comes with the ``semiring_matmul`` kernel.
+exactly as nnz-weighted column counts.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .coo import COO, SENTINEL, _vmask, column_range, row_range, sentinel_like
-from .semiring import ARITHMETIC, Semiring
+from .semiring import ARITHMETIC, Semiring, dense_semiring_matmul
 
 
 def spgemm_flops(a: COO, b: COO) -> torch.Tensor:
@@ -139,3 +143,67 @@ def compression_ratio(a: COO, b: COO) -> torch.Tensor:
     mn = float(a.shape[0] * b.shape[1])
     est_nnz = torch.clamp(fl, max=mn)
     return fl / torch.clamp(est_nnz, min=1.0)
+
+
+def spgemm_dense(a: COO, b: COO, sr: Semiring = ARITHMETIC, *,
+                 out_cap: int, order: str = "row",
+                 mask=None, val_pred=None) -> Tuple[COO, torch.Tensor]:
+    """Dense-accumulator SpGEMM (the hash-table analogue).
+
+    Densifies the inputs into tiles and contracts them with
+    ``dense_semiring_matmul`` — the ``semiring_matmul`` kernel for its four
+    algebras on the GPU. Masks apply on the dense accumulator (the member
+    matrix is the mask's natural dense view). Returns (C, ok_flag).
+    """
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"inner dimensions differ: {a.shape} @ {b.shape}")
+    zero = sr.add.identity
+    cd = dense_semiring_matmul(a.to_dense(zero), b.to_dense(zero), sr)
+    zt = torch.tensor(zero, dtype=cd.dtype, device=cd.device)
+    if mask is not None:
+        from .mask import mask_dense
+        cd = torch.where(mask_dense(mask, (a.shape[0], b.shape[1])), cd, zt)
+    if val_pred is not None:
+        cd = torch.where(val_pred(cd), cd, zt)
+    c = COO.from_dense(cd, out_cap, zero=zero, order=order)
+    return c, (cd != zero).sum() <= out_cap
+
+
+def local_algo(a: COO, b: COO, *, dense_threshold: float = 4.0,
+               dense_tile_limit: int = 1 << 22,
+               ratio: Optional[float] = None) -> str:
+    """The hybrid's policy, shared by ``spgemm_auto`` and
+    ``plan_local_spgemm``: ``"dense"`` when the output tile fits
+    ``dense_tile_limit`` and the compression ratio is at least
+    ``dense_threshold``, else ``"esc"``. The ratio is read back to the host
+    once, unless the caller passes it."""
+    if a.shape[0] * b.shape[1] > dense_tile_limit:
+        return "esc"
+    if ratio is None:
+        ratio = float(compression_ratio(a, b))
+    return "dense" if ratio >= dense_threshold else "esc"
+
+
+def spgemm_auto(a: COO, b: COO, sr: Semiring = ARITHMETIC, *,
+                prod_cap: int, out_cap: int, order: str = "row",
+                dense_threshold: float = 4.0,
+                dense_tile_limit: int = 1 << 22,
+                mask=None, val_pred=None,
+                algo: Optional[str] = None) -> Tuple[COO, torch.Tensor]:
+    """Hybrid selector (the paper's hash/heap hybrid, adapted).
+
+    Dense-accumulator path when the estimated compression ratio is at least
+    ``dense_threshold`` and the output tile fits ``dense_tile_limit``; ESC
+    otherwise. PyTorch has no ``lax.cond``: the branch is resolved here by
+    ``local_algo``, unless the caller passes the ``algo`` of its
+    ``plan_local_spgemm`` plan, which saves the ratio's host read.
+    """
+    if algo is None:
+        algo = local_algo(a, b, dense_threshold=dense_threshold,
+                          dense_tile_limit=dense_tile_limit)
+    if algo not in ("dense", "esc"):
+        raise ValueError(f"algo must be 'dense' or 'esc', not {algo!r}")
+    kw = dict(out_cap=out_cap, order=order, mask=mask, val_pred=val_pred)
+    if algo == "dense":
+        return spgemm_dense(a, b, sr, **kw)
+    return spgemm_esc(a, b, sr, prod_cap=prod_cap, **kw)

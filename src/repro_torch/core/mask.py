@@ -30,7 +30,7 @@ import torch
 
 from .coo import COO, SENTINEL, _vmask
 from .dist import DistSpMat
-from .merge import key_dtype, pack_keys
+from .merge import _unpack, key_dtype, pack_keys
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +102,20 @@ def filter_products(rows, cols, vals, shape, m: LocalMask, identity):
             torch.where(_vmask(keep, vals.shape[1:]), vals,
                         torch.tensor(identity, dtype=vals.dtype,
                                      device=vals.device)))
+
+
+def mask_dense(m: LocalMask, shape) -> torch.Tensor:
+    """Dense boolean member matrix (the dense-accumulator path's view)."""
+    rows, cols = shape
+    valid = m.keys != torch.iinfo(m.keys.dtype).max
+    if m.allow is not None:
+        valid = valid & m.allow
+    row, col = _unpack(m.keys, shape, m.order)
+    lin = torch.where(valid, row.long() * cols + col.long(), rows * cols)
+    mem = torch.zeros(rows * cols + 1, dtype=torch.bool, device=m.keys.device)
+    mem[lin] = True                       # non-members land in a spare slot
+    mem = mem[:-1].reshape(rows, cols)
+    return ~mem if m.complement else mem
 
 
 def apply_val_pred(c: COO, val_pred: Callable | None, identity) -> COO:

@@ -32,7 +32,9 @@ from typing import Optional
 import numpy as np
 
 from ..obs import recorder as _obs
+from .coo import COO
 from .dist import DistSpMat, Grid
+from .local_spgemm import compression_ratio, local_algo, spgemm_flops
 from .semiring import ARITHMETIC, Semiring
 from .spgemm import spgemm_2d as _spgemm_2d
 
@@ -229,3 +231,74 @@ def _plan_event(kind: str, p):
                overlap=p.overlap, compress=p.compress,
                prod_cap=p.prod_cap, out_cap=p.out_cap,
                attempts=p.attempts, degraded=",".join(p.degraded))
+
+
+def spmspv_variant_for_density(density: float) -> str:
+    """Fig-3 rule of thumb (§4.5): sort ≲0.5%, bucket ≲10%, SPA above."""
+    if density < 0.005:
+        return "sort"
+    if density < 0.10:
+        return "bucket"
+    return "spa"
+
+
+# --------------------------------------------------------------------------
+# local (single-tile) planning — benchmarks and non-distributed callers
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LocalSpGEMMPlan:
+    prod_cap: int
+    out_cap: int
+    algo: str              # 'esc' | 'dense'
+    flops: int             # exact symbolic count
+    ratio: float           # estimated compression ratio
+
+
+def plan_local_spgemm(a: COO, b: COO, *, safety: float = 1.25,
+                      dense_threshold: float = 4.0,
+                      dense_tile_limit: int = 1 << 22,
+                      mask_nnz: int | None = None) -> LocalSpGEMMPlan:
+    """Exact symbolic phase for one tile pair (paper §4.1 phase 1).
+
+    ``spgemm_flops`` is exact, so ``prod_cap`` cannot overflow; ``out_cap``
+    is bounded by min(flops, dense tile) — and by ``mask_nnz`` when the
+    caller multiplies under a structural mask (the masked output pattern is
+    a subset of the mask, §4.7). The algo pick mirrors ``spgemm_auto``'s
+    compression-ratio hybrid (one policy, ``local_algo``).
+    """
+    m, n = a.shape[0], b.shape[1]
+    fl = int(spgemm_flops(a, b))
+    ratio = float(compression_ratio(a, b))
+    prod_cap = _pow2(max(fl, 1) * safety)
+    out_bound = min(max(fl, 1), m * n)
+    if mask_nnz is not None:
+        out_bound = min(out_bound, max(int(mask_nnz), 1))
+    out_cap = min(_pow2(out_bound * safety), _pow2(m * n))
+    algo = local_algo(a, b, dense_threshold=dense_threshold,
+                      dense_tile_limit=dense_tile_limit, ratio=ratio)
+    return LocalSpGEMMPlan(prod_cap, out_cap, algo, fl, ratio)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalSpMSpVPlan:
+    prod_cap: int
+    out_cap: int
+    variant: str
+    use_spmv: bool
+    density: float
+
+
+def plan_local_spmspv(a: COO, frontier_nnz: int, *,
+                      safety: float = 4.0) -> LocalSpMSpVPlan:
+    """Size a local y = A·x for a sparse x with ``frontier_nnz`` entries and
+    pick its variant by density (``spmspv_variant_for_density``)."""
+    n = max(a.shape[1], 1)
+    density = max(int(frontier_nnz), 1) / n
+    nnz = int(a.nnz)
+    est = max(nnz * density, 1.0)
+    prod_cap = min(_pow2(safety * est), _pow2(max(nnz, 1)))
+    out_cap = min(_pow2(safety * est), _pow2(a.shape[0]))
+    return LocalSpMSpVPlan(prod_cap, out_cap,
+                           spmspv_variant_for_density(density),
+                           density > 0.30, density)

@@ -8,7 +8,9 @@ different dtypes and produce a third; the add monoid only ever sees the
 output type.
 
 Any torch callable works as ``add``/``mul``; tagged monoids additionally get
-the segmented-reduce kernel (``kernels/segreduce.py``) on the GPU.
+the segmented-reduce kernel (``kernels/segreduce.py``) on the GPU, and the
+four algebras of the dense-tile kernel (``kernels/semiring_matmul.py``) get
+it in ``dense_semiring_matmul``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Any, Callable
 import torch
 
 from ..kernels import segreduce as _segreduce
+from ..kernels import semiring_matmul as _smm
 
 _FAST_TAGS = ("sum", "min", "max")
 
@@ -157,3 +160,95 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
         seg_ids = seg_ids[order]
         values = values[order]
     return _segmented_scan_reduce(values, seg_ids, num_segments, monoid)
+
+
+def scatter_onto_identity(values: torch.Tensor, seg_ids: torch.Tensor,
+                          num_segments: int, monoid: Monoid) -> torch.Tensor:
+    """JAX's ``full(identity).at[ids].add/min/max(values, mode='drop')`` for
+    a tagged monoid, on the segmented-reduce kernel.
+
+    ``segment_reduce`` reduces the touched values alone; the JAX scatter
+    combines them onto the identity. The two differ only where a value lies
+    beyond a declared identity that is not the dtype extreme (a value below
+    ``MAX_INT``'s -(2^31)+1), so the identity is combined in afterwards.
+    ids outside ``[0, num_segments)`` are dropped; the ids need not be sorted.
+    """
+    out = segment_reduce(values, seg_ids, num_segments, monoid)
+    return monoid.op(torch.tensor(monoid.identity, dtype=out.dtype,
+                                  device=out.device), out)
+
+
+# --------------------------------------------------------------------------
+# Dense semiring contraction (the dense-accumulator SpGEMM's multiply)
+# --------------------------------------------------------------------------
+
+def _kernel_kind(sr: Semiring) -> str | None:
+    """The dense-tile kernel's algebra for ``sr``, read from its parts (never
+    its name), or None when no kernel algebra matches."""
+    add = sr.add
+    if add.tag == "sum" and add.identity == 0 and sr.mul is torch.mul:
+        return "plus_times"
+    if (add.tag == "min" and add.op is torch.minimum
+            and add.identity == math.inf and sr.mul is torch.add):
+        return "min_plus"
+    if (add.tag == "max" and add.op is torch.maximum
+            and add.identity == -math.inf and sr.mul is torch.minimum):
+        return "max_min"
+    if (add.tag == "max" and add.op is torch.logical_or
+            and add.identity is False and sr.mul is torch.logical_and):
+        return "or_and"
+    return None
+
+
+def dense_semiring_matmul(a: torch.Tensor, b: torch.Tensor, sr: Semiring,
+                          k_chunk: int = 512) -> torch.Tensor:
+    """C[i,j] = add_k mul(A[i,k], B[k,j]) for dense A (m,k), B (k,n).
+
+    The four kernel algebras (``_kernel_kind``) go to
+    ``kernels/semiring_matmul.semiring_matmul``: the Hopper kernel for CUDA
+    tensors, its plain version for CPU tensors. Every other semiring
+    (MAX_PLUS, MIN_MAX, the select2nd and pair semirings, user semirings)
+    runs the k-chunked broadcast-reduce below on either device, as torch
+    ops: it is the JAX package's own pure-JAX path, which no TPU kernel
+    covers either, not a fallback of the kernel. Its peak memory is
+    m*n*k_chunk elements.
+    """
+    kind = _kernel_kind(sr)
+    if kind is not None:
+        return _smm.semiring_matmul(a, b, kind)
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"inner dimensions differ: {a.shape} @ {b.shape}")
+    out_dtype = sr.out_dtype(a.dtype, b.dtype)
+    ident = torch.tensor(sr.add.identity, dtype=out_dtype, device=a.device)
+    nchunk = max(1, -(-k // k_chunk))
+    kp = nchunk * k_chunk
+    # zero padding to whole chunks; its products are masked to the identity
+    a_p = torch.cat([a, a.new_zeros((m, kp - k))], 1)
+    b_p = torch.cat([b, b.new_zeros((kp - k, n))], 0)
+    kc_pow2 = 1 << max(0, math.ceil(math.log2(k_chunk)))
+    out = torch.full((m, n), sr.add.identity, dtype=out_dtype,
+                     device=a.device)
+    for idx in range(nchunk):
+        lo = idx * k_chunk
+        prod = sr.mul(a_p[:, lo:lo + k_chunk, None],
+                      b_p[None, lo:lo + k_chunk, :]).to(out_dtype)
+        kk = lo + torch.arange(k_chunk, device=a.device)
+        red = torch.where((kk < k)[None, :, None], prod, ident)
+        red = red.expand(m, k_chunk, n)
+        if kc_pow2 != k_chunk:
+            red = torch.cat([red, ident.expand(m, kc_pow2 - k_chunk, n)], 1)
+        # log-depth pairwise tree over the chunk axis
+        while red.shape[1] > 1:
+            half = red.shape[1] // 2
+            red = sr.add.op(red[:, :half, :], red[:, half:, :])
+        out = sr.add.op(out, red[:, 0, :])
+    return out
+
+
+def dense_semiring_matvec(a: torch.Tensor, x: torch.Tensor,
+                          sr: Semiring) -> torch.Tensor:
+    """y[i] = add_k mul(A[i,k], x[k]): ``dense_semiring_matmul`` of ``x`` as
+    one column, so the kernel algebras run on the dense-tile kernel."""
+    return dense_semiring_matmul(a, x[:, None], sr)[:, 0]

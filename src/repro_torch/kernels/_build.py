@@ -22,7 +22,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                 # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": build time (0.0 when loaded from the cache),
 #              "log": nvcc's output, including ptxas' register report}
@@ -56,8 +57,13 @@ def _compile(src: Path, out: Path) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu`` (built on first use)."""
+    """The library built from ``csrc/<name>.cu`` (built on first use).
+
+    Each source has its own lock, so threads loading different sources run
+    their ``nvcc`` builds at the same time."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -40,6 +40,12 @@ def coo_pair(shape, r, c, v, cap, fill=0.0, order="none"):
     return j, t
 
 
+def coo_from_jax(j: JCOO) -> TCOO:
+    """The port's copy of a JAX tile, its arrays taken verbatim."""
+    return TCOO.from_numpy(np_of(j.row), np_of(j.col), np_of(j.val),
+                           np_of(j.nnz), j.shape, j.order, CPU)
+
+
 def rand_entries(n=24, k=60, seed=0, dtype=np.float32, vdims=()):
     """Random coordinates with duplicates and positive values."""
     rng = np.random.default_rng(seed)
