@@ -22,7 +22,28 @@ Phases (any failure exits non-zero and prints no result line):
    scipy, the port's ESC path and the plain oracle;
 5. local SpMV/SpMSpV on phase 3's tile: ``spmv_row``/``spmv_col`` and
    ``plan_local_spmspv`` -> ``spmspv_auto`` at three frontier densities,
-   held against scipy.
+   held against scipy;
+6. flash_attention vs plain: the attention kernel against its plain version
+   over causal and not, f32 and bf16, ragged S, head dims 16-128 and GQA,
+   with times at (4, 2048, 16, 128) bf16 causal beside the bound and
+   ``F.scaled_dot_product_attention``;
+7. serve: qwen2-moe-a2.7b at full width and depth (24 layers, bf16
+   parameters from ``init_params(seed=0)``) through ``greedy_generate``:
+   batch 4, a 2,048-token prompt, 32 greedy tokens; cold and warm prefill,
+   decode wall per token, peak memory, kernel launches per forward, a
+   profile of one prefill and one decode step, and a teacher-forced forward
+   against the decode-step logits, with the config's capacity and with one
+   that drops no token;
+6b. bsr_spmm vs plain (after phase 7, whose operands it takes): the
+   blocked-ELL kernel against its plain version on layer 0's ``we_g``
+   product of phase 7's prefill and first decode step and on random
+   blocked-ELL operands, with times at both shapes beside the bound and
+   ``torch.bmm``;
+7b. kernels against plain versions end to end: qwen2-moe-a2.7b cut to 2
+   layers (every width kept) in f32, ``greedy_generate`` on the CPU (plain
+   versions) and on the card (kernels) from the same parameters; then, on
+   the card with a capacity that drops no token, the decode-step logits
+   against a teacher-forced forward.
 
 The two lines before the last are a JSON object with one record per kernel
 and the card's name and power limit; the last line is
@@ -47,6 +68,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM data-sheet peaks (the bound is stated against these)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12                  # dense, tensor cores
 
 RMAT_SCALE, RMAT_EDGE_FACTOR, RMAT_SEED = 15, 16, 0
 EXPECTED_TRIANGLES = 6_688_911
@@ -54,7 +76,14 @@ EXPECTED_TRIANGLES = 6_688_911
 DENSE_SCALE, DENSE_EDGE_FACTOR = 11, 64
 EXPECTED_DENSE = dict(nnz_a=130_560, nnz_c=2_893_522, max_c=1_310)
 
-KERNELS = ("segreduce", "semiring_matmul")
+# phase 7: the serving cell
+SERVE_ARCH = "qwen2-moe-a2.7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
+# phase 7b: kernels against plain versions end to end, float32
+E2E_LAYERS, E2E_BATCH, E2E_PROMPT, E2E_TOKENS = 2, 2, 64, 4
+E2E_LOGIT_TOL = 1e-3      # logits of order 1; two summation orders in f32
+
+KERNELS = ("segreduce", "semiring_matmul", "flash_attention", "bsr_spmm")
 
 
 def log(*a):
@@ -748,6 +777,474 @@ def spmv_path(dist_a) -> int:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 6: flash_attention kernel vs plain
+# --------------------------------------------------------------------------
+
+FLASH_MAIN = (4, 2048, 16, 128)      # (B, S, H, d) of phase 7's prefill
+
+
+def _close(got, want, rtol, atol, what):
+    """Max abs error; raises unless |got - want| <= atol + rtol |want|."""
+    err = (got.double() - want.double()).abs()
+    if not bool((err <= atol + rtol * want.double().abs()).all()):
+        raise AssertionError(f"{what}: max err {float(err.max())} beyond "
+                             f"{atol} + {rtol} |want|")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_flash_attention() -> dict:
+    """Phase 6. Tolerance: f32 within 2e-5 (+ 2e-5 relative): another order
+    of the same float32 sums; bf16 within 2^-7 (+ 2^-7 relative): the kernel
+    rounds p to bf16 before P V (as the Pallas kernel) and both round the
+    output once, so they part by about one bf16 ulp."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: (2e-5, 2e-5), bf16: (2.0 ** -7, 2.0 ** -7)}
+    H = 16
+    cases = [(2 if S < 2048 else 1, S, S, kvh, d, dtype, causal)
+             for S in (1, 77, 2048, 2080) for d in (16, 64, 128)
+             for kvh in (16, 4) for dtype in (f32, bf16)
+             for causal in (True, False)]
+    cases += [(1, 5, 300, 4, 128, f32, True), (2, 33, 40, 2, 64, bf16, True)]
+    max_err = 0.0
+    for i, (B, S, skv, kvh, d, dtype, causal) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(200 + i)
+        q = torch.randn(B, S, H, d, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, skv, kvh, d, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, skv, kvh, d, generator=g, device="cuda").to(dtype)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"flash_attention {tuple(got.shape)}/"
+                                 f"{got.dtype} vs {tuple(want.shape)}/"
+                                 f"{want.dtype}")
+        err = _close(got, want, *tol[dtype],
+                     f"flash_attention B={B} S={S} Skv={skv} KVH={kvh} "
+                     f"d={d} {dtype} causal={causal}")
+        max_err = max(max_err, err)
+    log(f"flash_attention: {len(cases)} cases match the plain version (max "
+        f"abs err {max_err:.3g}; causal and not, f32 and bf16, S in 1, 77, "
+        f"2048, 2080, d in 16, 64, 128, KVH 16 and 4 at H = 16)")
+
+    B, S, H, d = FLASH_MAIN
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(B, S, H, d, generator=g, device="cuda")
+               .to(bf16) for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    max_err = max(max_err, _close(got, want, *tol[bf16], "flash main"))
+    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                      iters=20)
+    plain_ms = cuda_time_ms(
+        lambda: fa.flash_attention_plain(q, k, v, causal=True), iters=5,
+        warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=20)
+    # the causal pairs: S(S+1)/2 per (b, h), 2 d FLOP each for QK and for PV
+    flops = 4 * B * H * d * S * (S + 1) / 2
+    nbytes = 4 * B * S * H * d * q.element_size()
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    log(f"flash_attention {FLASH_MAIN} bf16 causal: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{library_ms:.4f} ms; bound {bound:.4f} ms by "
+        f"{'operations' if t_ops >= t_bytes else 'bytes'} ({flops / 1e9:.2f} "
+        f"GFLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s: {t_ops:.4f} ms; "
+        f"{nbytes / 1e6:.1f} MB: {t_bytes:.4f} ms), {100 * bound / ms:.1f}% "
+        f"of it")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:62",
+            "launches": None, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
+# --------------------------------------------------------------------------
+# phase 6b: bsr_spmm kernel vs plain (on phase 7's operands)
+# --------------------------------------------------------------------------
+
+def _bsr_close(got, want, cols, vals, x):
+    """Max abs error; raises unless within the bound of any summation order,
+    2 bk u (|A| @ |x|) with u = 2^-24 (both sum in float32), plus one
+    rounding of a bf16 output on each side (2^-7 |want|)."""
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_plain
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)}/{got.dtype} vs "
+                             f"{tuple(want.shape)}/{want.dtype}")
+    bk = vals.shape[3]
+    bound = 2 * bk * 2.0 ** -24 * bsr_spmm_plain(
+        cols, vals.float().abs(), x.float().abs()).double()
+    if got.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * want.double().abs()
+    err = (got.double() - want.double()).abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"beyond the summation-order bound: max err "
+                             f"{float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _bsr_bound(cols, vals, x):
+    """Least time of y = A @ x for these operands: the stored blocks whose id
+    is not -1 (the work this data needs), 2 bm bk n FLOP each at the bf16
+    tensor-core peak; or bytes: those blocks and the x blocks they name,
+    read once, the ids, and y written once, at 3.35 TB/s."""
+    R, K, bm, bk = vals.shape
+    n = x.shape[1]
+    real = cols >= 0
+    nblocks = int(real.sum())
+    named = int(torch.unique(cols[real].clamp(max=x.shape[0] // bk - 1))
+                .numel())
+    flops = 2 * bm * bk * n * nblocks
+    nbytes = (nblocks * bm * bk + named * bk * n + R * bm * n) \
+        * vals.element_size() + cols.numel() * 4
+    peak = BF16_FLOPS if vals.dtype == torch.bfloat16 else F32_FLOPS
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops, nbytes, nblocks
+
+
+def check_bsr_spmm(main_ops, decode_ops) -> dict:
+    """Phase 6b: ``main_ops`` and ``decode_ops`` are (block_cols, block_vals,
+    x) of layer 0's ``we_g`` product in phase 7's prefill and first decode
+    step."""
+    from repro_torch.kernels import bsr_spmm as bs
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("phase 7 layer 0 we_g", *main_ops),
+             ("phase 7 decode layer 0 we_g", *decode_ops)]
+    E, _, C, D = main_ops[1].shape
+    cases.append(("phase 7 layer 0 we_g, f32",
+                  main_ops[0], main_ops[1].float(), main_ops[2].float()))
+    # random blocked-ELL at three densities with -1 padding, ragged shapes
+    for i, (R, K, bm, bk, n, nblk, density, dtype) in enumerate(
+            [(32, 4, 128, 128, 256, 8, 0.1, f32), (32, 4, 128, 128, 256, 8,
+                                                  0.5, bf16),
+             (32, 4, 128, 128, 256, 8, 1.0, f32), (7, 3, 5, 7, 9, 4, 0.6,
+                                                   bf16),
+             (64, 1, 8, 2048, 1408, 64, 0.25, bf16),    # decode's shape
+             (9, 2, 100, 64, 130, 6, 0.7, f32), (3, 1, 640, 48, 200, 2, 1.0,
+                                                  bf16)]):
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        cols = torch.randint(0, nblk, (R, K), generator=g, device="cuda",
+                             dtype=torch.int32)
+        cols = torch.where(torch.rand(R, K, generator=g, device="cuda")
+                           < density, cols, -1)
+        vals = torch.randn(R, K, bm, bk, generator=g, device="cuda").to(dtype)
+        x = torch.randn(nblk * bk, n, generator=g, device="cuda").to(dtype)
+        cases.append((f"R={R} K={K} bm={bm} bk={bk} n={n} density "
+                      f"{density} {dtype}", cols, vals, x))
+    max_err = 0.0
+    for name, cols, vals, x in cases:
+        got = bs.bsr_spmm(cols, vals, x)
+        want = bs.bsr_spmm_plain(cols, vals, x)
+        torch.cuda.synchronize()
+        try:
+            max_err = max(max_err, _bsr_close(got, want, cols, vals, x))
+        except AssertionError as e:
+            raise AssertionError(f"bsr_spmm {name}: {e}") from e
+    log(f"bsr_spmm: {len(cases)} cases match the plain version (max abs err "
+        f"{max_err:.3g}, within 2 bk u |A||x| + one bf16 rounding)")
+
+    cols, vals, x = main_ops
+    ms = cuda_time_ms(lambda: bs.bsr_spmm(cols, vals, x), iters=10)
+    plain_ms = cuda_time_ms(lambda: bs.bsr_spmm_plain(cols, vals, x),
+                            iters=3, warmup=1)
+    xe, w = vals[:, 0], x.reshape(E, D, -1)
+    library_ms = cuda_time_ms(lambda: torch.bmm(xe, w), iters=10)
+    bound, by, flops, nbytes, nblocks = _bsr_bound(cols, vals, x)
+    log(f"bsr_spmm prefill we_g (R={E} K=1 bm=C={C} bk={D} n={x.shape[1]} "
+        f"bf16, {nblocks} experts with tokens): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms; bound "
+        f"{bound:.4f} ms by {by} ({flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB), {100 * bound / ms:.1f}% of it")
+    dc, dv, dx = decode_ops
+    d_ms = cuda_time_ms(lambda: bs.bsr_spmm(dc, dv, dx), iters=20)
+    d_lib = cuda_time_ms(lambda: torch.bmm(dv[:, 0], dx.reshape(E, D, -1)),
+                         iters=20)
+    d_bound, d_by, _, d_bytes, d_blocks = _bsr_bound(dc, dv, dx)
+    log(f"bsr_spmm decode we_g (bm=C={dv.shape[2]}, {d_blocks} experts with "
+        f"tokens): kernel {d_ms:.4f} ms, torch.bmm (all {E} experts) "
+        f"{d_lib:.4f} ms; bound {d_bound:.4f} ms by {d_by} "
+        f"({d_bytes / 1e6:.1f} MB), {100 * d_bound / d_ms:.1f}% of it")
+    return {"name": "bsr_spmm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bsr_spmm.cu",
+            "replaces": "src/repro/kernels/bsr_spmm.py:41",
+            "launches": None, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms}
+
+
+# --------------------------------------------------------------------------
+# phase 7: qwen2-moe-a2.7b serving at full width and depth
+# --------------------------------------------------------------------------
+
+class _Clock:
+    """``on_logits`` hook of ``greedy_generate``: the host-clock wall of each
+    forward (ended by a synchronize), the kernel launches it made, and its
+    logits on the host."""
+
+    def __init__(self, keep_logits=True):
+        from repro_torch.kernels import bsr_spmm, flash_attention
+        self._mods = (flash_attention, bsr_spmm)
+        self.keep = keep_logits
+        self.walls, self.launches, self.logits = [], [], []
+
+    def start(self):
+        torch.cuda.synchronize()
+        self._last = time.perf_counter()
+        self._count = [m.launches for m in self._mods]
+
+    def __call__(self, logits):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.walls.append(now - self._last)
+        count = [m.launches for m in self._mods]
+        self.launches.append(tuple(c - p for c, p in zip(count,
+                                                          self._count)))
+        self._last, self._count = now, count
+        if self.keep:
+            self.logits.append(logits.float().cpu())
+
+
+def serve_path():
+    """Phase 7. Returns (flash_attention launches, bsr_spmm launches) of the
+    warm run, and the operands of layer 0's ``we_g`` product in the prefill
+    and in the first decode step (for 6b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bsr_spmm as bs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segreduce
+    from repro_torch.kernels import semiring_matmul as smm
+    from repro_torch.models import Model, init_params
+    from repro_torch.models.model import vocab_padded
+    from repro_torch.serve import greedy_generate, make_prefill, \
+        make_serve_step
+
+    cfg = get_config(SERVE_ARCH).scaled(param_dtype="bfloat16")
+    model = Model(cfg)
+    B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    max_len = S + T + 1
+    vp = vocab_padded(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    nparam = sum(v.numel() for v in _leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}x{cfg.hd} heads, {cfg.n_experts} experts (padded "
+        f"{params['blocks']['pos0']['router'].shape[-1]}) top-{cfg.top_k} + "
+        f"{cfg.n_shared_experts} shared, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+        f"(padded {vp}); {nparam / 1e9:.3f} B stored parameters in bf16 "
+        f"({nparam * 2 / 1e9:.2f} GB), init_params "
+        f"{time.perf_counter() - t0:.2f} s")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
+
+    # cold run; phase 6b takes the operands of layer 0's we_g product (the
+    # first bsr_spmm call) of its prefill and of its first decode step,
+    # kept on the host so that they stay out of the peak memory below
+    moe_layers = sum(cfg.layer_moe())
+    ops, calls = [], [0]
+    wrapped = bs.bsr_spmm
+
+    def capture(cols, vals, x):
+        if calls[0] in (0, 3 * moe_layers):
+            ops.append(tuple(t.cpu() for t in (cols, vals, x)))
+        calls[0] += 1
+        return wrapped(cols, vals, x)
+
+    cold = _Clock(keep_logits=False)
+    bs.bsr_spmm = capture
+    try:
+        cold.start()
+        greedy_generate(model, params, prompt, max_len, T, device="cuda",
+                        on_logits=cold)
+    finally:
+        bs.bsr_spmm = wrapped
+
+    # the main path: one warm run, every launch count set to 0 just before
+    # and read just after
+    torch.cuda.reset_peak_memory_stats()
+    clock = _Clock()
+    segreduce.launches = smm.launches = fa.launches = bs.launches = 0
+    clock.start()
+    t0 = time.perf_counter()
+    tokens = greedy_generate(model, params, prompt, max_len, T,
+                             device="cuda", on_logits=clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = (fa.launches, bs.launches)
+    other = segreduce.launches + smm.launches
+    peak = torch.cuda.max_memory_allocated()
+    decode = sorted(clock.walls[1:])
+    med = decode[len(decode) // 2]
+    log(f"serve {B}x{S} prompt + {T} tokens: prefill cold "
+        f"{cold.walls[0] * 1e3:.1f} ms, warm {clock.walls[0] * 1e3:.1f} ms; "
+        f"decode per token (median of {len(decode)} steps) {med * 1e3:.2f} ms "
+        f"(min {decode[0] * 1e3:.2f}, max {decode[-1] * 1e3:.2f}), "
+        f"{B / med:.1f} tokens/s; whole run {wall:.3f} s, "
+        f"{B * T / wall:.1f} tokens/s; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"launches per forward (flash_attention, bsr_spmm): prefill "
+        f"{clock.launches[0]}, decode steps {sorted(set(clock.launches[1:]))}"
+        f"; whole run {launched}; segreduce + semiring_matmul {other}")
+    tok = tokens.cpu().numpy()
+    log(f"tokens (first sequence): {tok[0].tolist()}")
+    if clock.launches[0] != (cfg.n_layers, 3 * moe_layers):
+        raise AssertionError(f"prefill launched {clock.launches[0]}, not "
+                             f"({cfg.n_layers}, {3 * moe_layers})")
+    if any(c != (0, 3 * moe_layers) for c in clock.launches[1:]):
+        raise AssertionError(f"a decode step launched "
+                             f"{set(clock.launches[1:])}")
+    if other or launched != (cfg.n_layers, 3 * moe_layers * T):
+        raise AssertionError(f"the run launched {launched} and {other} "
+                             f"sparse-core kernels")
+    if not all(bool(torch.isfinite(lg).all()) for lg in clock.logits):
+        raise AssertionError("non-finite logits")
+    if tok.shape != (B, T) or tok.min() < 0 or tok.max() >= vp:
+        raise AssertionError(f"tokens out of [0, {vp}) or of shape "
+                             f"{tok.shape}")
+
+    # a teacher-forced forward over prompt + generated tokens, against the
+    # decode-step logits: printed, not gated (bf16 routing flips near ties,
+    # and capacity drops differ between an 8,192-token prefill, 4-token
+    # decode steps and an 8,320-token forward); then the same with a
+    # capacity of every token (no drops anywhere)
+    _teacher_forced(model, params, prompt, tokens, clock.logits,
+                    "capacity_factor 1.25")
+    E = params["blocks"]["pos0"]["router"].shape[-1]
+    nodrop = Model(cfg.scaled(capacity_factor=E / cfg.top_k))
+    nd = _Clock()
+    nd.start()
+    nd_tokens = greedy_generate(nodrop, params, prompt, max_len, T,
+                                device="cuda", on_logits=nd)
+    _teacher_forced(nodrop, params, prompt, nd_tokens, nd.logits,
+                    f"capacity_factor {E / cfg.top_k:g}, no drops")
+    del nd
+
+    prefill, step = make_prefill(model), make_serve_step(model)
+    prompt_t = torch.as_tensor(prompt, device="cuda").to(torch.int32)
+    with torch.inference_mode():
+        log("profile of one warm prefill:")
+        profile_breakdown(lambda: prefill(
+            params, model.init_cache(B, max_len, device="cuda"), prompt_t))
+        _, caches = prefill(params, model.init_cache(B, max_len,
+                                                     device="cuda"), prompt_t)
+        offset = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        log("profile of one decode step:")
+        profile_breakdown(lambda: step(params, caches, tokens[:, :1], offset))
+    del params, caches
+    torch.cuda.empty_cache()
+    return launched, tuple(ops)
+
+
+def _teacher_forced(model, params, prompt, tokens, step_logits, what):
+    """One forward without a cache over prompt + generated tokens, held
+    against the logits of the greedy run's forwards (prefill, then each
+    decode step) at the same positions."""
+    S, T = prompt.shape[1], tokens.shape[1]
+    full = torch.cat([torch.as_tensor(prompt, device="cuda")
+                      .to(torch.int32), tokens], dim=1)
+    with torch.inference_mode():
+        tf, _, _ = model(params, dict(tokens=full))
+        tf = tf[:, S - 1:S - 1 + T].float().cpu()
+    steps = torch.stack(step_logits, dim=1)                  # (B, T, V)
+    same = (tf.argmax(-1) == steps.argmax(-1)).float().mean()
+    diff = (tf - steps).abs()
+    log(f"teacher-forced forward over {S + T} tokens vs the {T} decode-step "
+        f"logits ({what}): max |dlogit| {float(diff.max()):.4g}, mean "
+        f"{float(diff.mean()):.4g} (logits up to "
+        f"{float(steps.abs().max()):.2f}), argmax agrees at "
+        f"{100 * float(same):.1f}% of positions")
+    return float(diff.max())
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+# --------------------------------------------------------------------------
+# phase 7b: kernels against plain versions, end to end at full width
+# --------------------------------------------------------------------------
+
+def kernels_vs_plain_e2e() -> None:
+    """qwen2-moe-a2.7b cut to E2E_LAYERS layers (every width kept) in f32:
+    ``greedy_generate`` on the CPU, where every kernel takes its plain
+    version, and on the card, where the kernels run; the device alone picks
+    the path. Logits within E2E_LOGIT_TOL, tokens equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bsr_spmm as bs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model, init_params
+    from repro_torch.serve import greedy_generate
+
+    cfg = get_config(SERVE_ARCH).scaled(n_layers=E2E_LAYERS, dtype="float32",
+                                        param_dtype="float32")
+    model = Model(cfg)
+    B, S, T = E2E_BATCH, E2E_PROMPT, E2E_TOKENS
+    t0 = time.perf_counter()
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    gpu_params = _to(cpu_params, "cuda")
+    log(f"e2e: {cfg.name} with {cfg.n_layers} layers in f32, "
+        f"{sum(v.numel() for v in _leaves(cpu_params)) / 1e9:.3f} B "
+        f"parameters made on the CPU and copied to the card "
+        f"({time.perf_counter() - t0:.1f} s); "
+        f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (B, S))
+    out = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+        logits = []
+        before = (fa.launches, bs.launches)
+        t0 = time.perf_counter()
+        tok = greedy_generate(model, p, prompt, S + T + 1, T, device=dev,
+                              on_logits=lambda lg: logits.append(
+                                  lg.float().cpu()))
+        out[dev] = (tok.cpu(), torch.stack(logits))
+        log(f"e2e {dev}: {time.perf_counter() - t0:.2f} s, launches "
+            f"(flash_attention, bsr_spmm) "
+            f"{(fa.launches - before[0], bs.launches - before[1])}")
+        if dev == "cpu" and (fa.launches, bs.launches) != before:
+            raise AssertionError("the CPU run launched a kernel")
+    (tc, lc), (tg, lg) = out["cpu"], out["cuda"]
+    err = float((lc - lg).abs().max())
+    log(f"e2e: tokens {tg.tolist()} (card) vs {tc.tolist()} (cpu); max "
+        f"|dlogit| {err:.3g} (tolerance {E2E_LOGIT_TOL}, logits up to "
+        f"{float(lc.abs().max()):.2f})")
+    if not torch.equal(tc, tg):
+        raise AssertionError("card and CPU tokens differ")
+    if not err <= E2E_LOGIT_TOL:
+        raise AssertionError(f"card and CPU logits differ by {err}")
+    # the cached path against a forward without a cache, on the card, with
+    # a capacity that drops no token (as phase 7's last comparison, in f32)
+    E = gpu_params["blocks"]["pos0"]["router"].shape[-1]
+    nodrop = Model(cfg.scaled(capacity_factor=E / cfg.top_k))
+    logits = []
+    tok = greedy_generate(nodrop, gpu_params, prompt, S + T + 1, T,
+                          device="cuda", on_logits=lambda lg: logits.append(
+                              lg.float().cpu()))
+    err = _teacher_forced(nodrop, gpu_params, prompt, tok, logits,
+                          "f32, no drops")
+    if not err <= E2E_LOGIT_TOL:
+        raise AssertionError(f"decode and teacher-forced logits differ by "
+                             f"{err}")
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 def main() -> int:
     smi = setup()
     seg_record = check_segreduce()
@@ -766,7 +1263,17 @@ def main() -> int:
     segreduce.launches = smm.launches = 0
     if spmv_path(dist_a) < 1 or smm.launches:
         raise AssertionError("phase 5 launched no segreduce, or a matmul")
-    log(json.dumps({"kernels": [seg_record, smm_record]}))
+    del dist_a
+    fa_record = check_flash_attention()
+    (fa_record["launches"], bsr_launches), ops = serve_path()
+    with torch.inference_mode():      # phase 7's operands are inference
+        bsr_record = check_bsr_spmm(       # tensors
+            *(tuple(t.cuda() for t in op) for op in ops))
+    bsr_record["launches"] = bsr_launches
+    del ops
+    kernels_vs_plain_e2e()
+    log(json.dumps({"kernels": [seg_record, smm_record, fa_record,
+                                bsr_record]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

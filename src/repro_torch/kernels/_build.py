@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, loaded with :mod:`ctypes` — no PyTorch
 headers, so a build takes seconds. Libraries land in ``build/repro_torch/``
-at the root of the checkout, named by the source's content hash, so an
-edited source rebuilds and an unchanged one is loaded as it is.
+at the root of the checkout, named by the hash of the source and the
+shared headers (``csrc/*.cuh``), so an edited source rebuilds and an
+unchanged one is loaded as it is.
 """
 from __future__ import annotations
 
@@ -68,7 +69,10 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        h = hashlib.sha256(src.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):      # shared includes
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:16]
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         t0 = time.perf_counter()
         log = "" if out.is_file() else _compile(src, out)

@@ -1,0 +1,270 @@
+"""Model layers: norms, RoPE, GQA attention, MLP and MoE (port of
+``repro/models/layers.py``).
+
+Functions over explicit parameter dictionaries, in the reference's layout
+(``x @ w``, ``wq`` is (D, H * hd)). Attention without a cache runs on the
+``flash_attention`` kernel and the routed experts on the ``bsr_spmm``
+kernel (each wrapper takes its plain version for CPU tensors); the rest is
+torch ops, as it is plain XLA in JAX.
+
+MoE dispatch is the reference's sort-based, capacity-bounded bucketing: the
+router's top-k choices form a block-sparse tokens -> (expert, slot) matrix,
+and the expert FFNs are a block-diagonal SpMM (``bsr_spmm``).
+
+Not ported yet (ROADMAP §1, "Still to port", item 7: the LM stack):
+M-RoPE, MLA, expert-parallel MoE and the Mamba2 mixer. Their entry points
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import bsr_spmm as _bsr
+from ..kernels import flash_attention as _flash
+from .config import ModelConfig
+
+
+def _not_ported(name: str):
+    def stub(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} is not ported yet (ROADMAP §1, still to port, item 7: "
+            f"the LM stack)")
+    stub.__name__ = name
+    return stub
+
+
+apply_mrope = _not_ported("apply_mrope")
+mla_block = _not_ported("mla_block")
+moe_block_ep = _not_ported("moe_block_ep")
+ssd_chunked = _not_ported("ssd_chunked")
+ssd_decode_step = _not_ported("ssd_decode_step")
+mamba_block = _not_ported("mamba_block")
+_causal_conv = _not_ported("_causal_conv")
+
+
+# --------------------------------------------------------------------------
+# norms / rope
+# --------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    nrm = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (nrm * w.float()).to(x.dtype)
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); pos: (B, S) integer. Half-split rotation, float32
+    angles."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    ang = pos[..., None].float() * freqs                     # (B, S, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention (GQA)
+# --------------------------------------------------------------------------
+
+def attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """q: (B, S, H, hd), k/v: (B, Skv, KVH, hd) -> (B, S, H, hd).
+
+    The ``flash_attention`` kernel for every S (its plain version on the
+    CPU): KV heads are read in place for GQA, and the causal mask is aligned
+    at the bottom right, as the reference's ``tril(k=Skv - S)``."""
+    return _flash.flash_attention(q, k, v, causal=causal)
+
+
+def gqa_block(x, params, cfg: ModelConfig, pos, *, cache=None,
+              pos3=None) -> tuple[torch.Tensor, Any]:
+    """GQA attention sublayer. cache: None (no cache) or dict(k, v, offset)
+    with ``offset`` a host integer; k and v are written in place. Returns
+    (out, new_cache).
+
+    A first fill of the cache (offset 0, S > 1) is causal attention over the
+    fresh q/k/v (the cache holds nothing older, and positions at or past S
+    are masked in the reference's ``_decode_attention``), so it runs on
+    ``attention``; later chunks and single-token decode attend over the
+    cache with ``_decode_attention``.
+    """
+    if pos3 is not None:                 # M-RoPE positions: not ported
+        apply_mrope(x, pos3, cfg.rope_theta, cfg.mrope_sections)
+    B, S, D = x.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = apply_rope(q.reshape(B, S, H, hd), pos, cfg.rope_theta)
+    k = apply_rope(k.reshape(B, S, KVH, hd), pos, cfg.rope_theta)
+    v = v.reshape(B, S, KVH, hd)
+    new_cache = None
+    if cache is not None:
+        off = int(cache["offset"])
+        ck, cv = cache["k"], cache["v"]
+        if off + S > ck.shape[1]:
+            raise ValueError(f"the cache holds {ck.shape[1]} positions; "
+                             f"{off} + {S} do not fit")
+        k = k.to(ck.dtype)
+        v = v.to(cv.dtype)
+        ck[:, off:off + S] = k
+        cv[:, off:off + S] = v
+        new_cache = dict(k=ck, v=cv, offset=off + S)
+        if off == 0 and S > 1:
+            out = attention(q, k, v, causal=True)
+        else:
+            out = _decode_attention(q, ck[:, :off + S], cv[:, :off + S],
+                                    off + S)
+    else:
+        out = attention(q, k, v, causal=cfg.causal)
+    out = out.reshape(B, S, H * hd) @ params["wo"]
+    return out, new_cache
+
+
+def _decode_attention(q, k, v, valid_len: int) -> torch.Tensor:
+    """Query attention over a (possibly padded) cache, causal w.r.t. the
+    absolute query positions ``valid_len - S + i``. Query heads are grouped
+    by KV head and contracted against the unrepeated cache; scores in
+    float32, p in v's type for the PV product, as the reference."""
+    B, S, H, hd = q.shape
+    kvh = k.shape[2]
+    rep = H // kvh
+    dv = v.shape[-1]
+    qg = q.reshape(B, S, kvh, rep, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) / \
+        math.sqrt(hd)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    qpos = valid_len - S + torch.arange(S, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]                    # (S, Skv)
+    s = s.masked_fill(~mask, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return out.reshape(B, S, kvh * rep, dv).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP / MoE
+# --------------------------------------------------------------------------
+
+def mlp_block(x, params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp_act == "gelu":            # jax.nn.gelu's default: tanh form
+        return F.gelu(x @ params["w1"], approximate="tanh") @ params["w2"]
+    return (F.silu(x @ params["wg"]) * (x @ params["w1"])) @ params["w2"]
+
+
+def _expert_ffn(xe, wg, w1, w2, block_cols) -> torch.Tensor:
+    """xe: (E, C, D); w*: (E, D, F)/(E, F, D); block_cols: (E, 1) int32,
+    e for an expert with tokens and -1 for one without.
+
+    Each einsum of the reference is one ``bsr_spmm`` over the block-diagonal
+    A with R = E block-rows of one (C x D) block each: x is the weight stack
+    seen as (E * D, F), and block e multiplies its own D rows. An expert
+    with no token is padding: the kernel reads none of its weights, and its
+    rows (never gathered back) are zeros."""
+    E, C, D = xe.shape
+    Fd = wg.shape[-1]
+    vals = xe[:, None]                                       # (E, 1, C, D)
+    g = _bsr.bsr_spmm(block_cols, vals, wg.reshape(E * D, Fd))
+    u = _bsr.bsr_spmm(block_cols, vals, w1.reshape(E * D, Fd))
+    h = (F.silu(g) * u).reshape(E, 1, C, Fd)
+    return _bsr.bsr_spmm(block_cols, h, w2.reshape(E * Fd, D)).reshape(E, C, D)
+
+
+def router_top_k(probs: torch.Tensor, k: int):
+    """The k largest probabilities of each row and their experts, lowest
+    expert first among equal values (``jax.lax.top_k``'s order; bf16
+    router logits tie often, and ``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def moe_block(x, params, cfg: ModelConfig):
+    """Top-k MoE with capacity-bounded, sort-based dispatch. Returns
+    (out, aux_loss)."""
+    B, S, D = x.shape
+    T = B * S
+    E = params["router"].shape[-1]      # padded to a multiple of 16
+    K = cfg.top_k
+    dev = x.device
+    xt = x.reshape(T, D)
+    logits = (xt @ params["router"]).float()                 # (T, E)
+    if E > cfg.n_experts:               # padding experts never win
+        logits[:, cfg.n_experts:] = -1e30
+    probs = torch.softmax(logits, -1)
+    gate_vals, gate_idx = router_top_k(probs, K)             # (T, K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    # ---- dispatch: the sparse tokens x experts matrix, radix-bucketed ----
+    C = max(8, min(int(cfg.capacity_factor * T * K / E + 0.999), T))
+    flat_e = gate_idx.reshape(-1)                            # (T*K,)
+    order = torch.argsort(flat_e, stable=True)               # by expert
+    e_sorted = flat_e[order]
+    seg = torch.searchsorted(e_sorted, torch.arange(E + 1, device=dev)) \
+        .to(torch.int32)
+    count = seg[1:] - seg[:-1]          # choices per expert, dropped ones too
+    # aux load-balancing loss (Switch-style)
+    me = probs.mean(0)
+    ce = count.float() / (T * K)
+    aux = cfg.router_aux_weight * E * torch.sum(me * ce)
+    within = torch.arange(T * K, dtype=torch.int32, device=dev) - \
+        e_sorted_start(seg, e_sorted)
+    keep = within < C
+    slot = torch.where(keep, e_sorted * C + within, E * C)   # E*C: dropped
+    tok_of = order // K
+    # row E*C of each buffer takes the dropped entries and is cut off
+    xe = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
+    xe[slot] = xt[tok_of]
+    xe = xe[:E * C].reshape(E, C, D)
+    gates = torch.zeros(E * C + 1, dtype=torch.float32, device=dev)
+    gates[slot] = gate_vals.reshape(-1)[order]
+    gates = gates[:E * C]
+    # experts that kept a token, from the bucket bounds (no host read)
+    block_cols = torch.where(count > 0, torch.arange(E, device=dev), -1) \
+        .to(torch.int32).reshape(E, 1)
+    ye = _expert_ffn(xe, params["we_g"], params["we_1"], params["we_2"],
+                     block_cols)
+    # combine: y[t] += gate * ye[slot(t)] (the transpose SpMM), in ye's
+    # type, each token's contributions added in ascending expert order as
+    # the reference's scatter-add applies them
+    ye_flat = ye.reshape(E * C, D) * gates.reshape(E * C, 1).to(ye.dtype)
+    contrib = ye_flat[slot.clamp(max=E * C - 1)]             # sorted order
+    contrib = torch.where(keep[:, None], contrib, 0)
+    rank = torch.empty_like(order)                           # entry -> sorted
+    rank[order] = torch.arange(T * K, device=dev)
+    by_expert = torch.sort(rank.reshape(T, K), dim=1).values  # (T, K)
+    y = torch.zeros((T, D), dtype=ye.dtype, device=dev)
+    for j in range(K):
+        y = y + contrib[by_expert[:, j]]
+    if cfg.n_shared_experts:
+        y = y + _shared_experts(xt, params).to(y.dtype)
+    return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def _shared_experts(xt, params):
+    """Sum over shared experts == one dense FFN with F-concatenated weights
+    (plain matmuls)."""
+    Ns, D, Fd = params["ws_g"].shape
+    wsg = params["ws_g"].transpose(0, 1).reshape(D, Ns * Fd)
+    ws1 = params["ws_1"].transpose(0, 1).reshape(D, Ns * Fd)
+    ws2 = params["ws_2"].reshape(Ns * Fd, D)
+    h = F.silu(xt @ wsg) * (xt @ ws1)
+    return h @ ws2
+
+
+def e_sorted_start(seg, e_sorted):
+    return seg[e_sorted.clamp(0, seg.shape[0] - 2)]

@@ -1,0 +1,288 @@
+"""Model assembly: parameter shapes and init, and the forward pass (port of
+``repro/models/model.py``).
+
+Parameters are the reference's tree, as a nested dict of tensors: layers
+are grouped into *periods* (the smallest repeating signature of mixer kind
+and MoE), and each leaf of ``blocks/pos<i>`` is stacked over the period's
+repeats. JAX scans over that stack; here a Python loop walks it. Shapes,
+leaf names and layouts are the reference's (``x @ w``), so
+``weights.params_from_numpy`` carries a JAX tree across as it is.
+
+Init is deterministic in (seed, path) with the reference's distributions,
+not its numbers: one ``torch.Generator`` per leaf, seeded with the CRC-32
+of the seed and the leaf's path.
+
+Ported families: decoders with GQA attention and a dense or MoE FFN. MLA,
+Mamba2 mixers and the audio/vision frontends raise ``NotImplementedError``
+(ROADMAP §1, still to port, item 7).
+"""
+from __future__ import annotations
+
+import math
+import zlib
+
+import torch
+from torch import nn
+
+from ..core.coo import resolve_device
+from . import layers as L
+from .config import ModelConfig
+
+
+def _dtype(name):
+    return dict(bfloat16=torch.bfloat16, float32=torch.float32,
+                float16=torch.float16)[name]
+
+
+def vocab_padded(cfg: ModelConfig, mult: int = 256) -> int:
+    return -(-cfg.vocab // mult) * mult
+
+
+def period_of(cfg: ModelConfig) -> int:
+    sig = list(zip(cfg.layer_kinds(), cfg.layer_moe()))
+    for p in range(1, cfg.n_layers + 1):
+        if cfg.n_layers % p:
+            continue
+        if all(sig[i] == sig[i % p] for i in range(cfg.n_layers)):
+            return p
+    return cfg.n_layers
+
+
+def experts_padded(cfg: ModelConfig, mult: int = 16) -> int:
+    return -(-cfg.n_experts // mult) * mult if cfg.is_moe else 0
+
+
+# --------------------------------------------------------------------------
+# parameter construction
+# --------------------------------------------------------------------------
+
+def _layer_param_shapes(cfg: ModelConfig, kind: str, moe: bool):
+    """Shapes for one layer position (unstacked)."""
+    D = cfg.d_model
+    shapes: dict[str, tuple] = {"ln1": (D,)}
+    if kind == "attn":
+        if cfg.use_mla:
+            dq = cfg.qk_nope_dim + cfg.qk_rope_dim
+            shapes.update(
+                wq=(D, cfg.n_heads * dq),
+                w_dkv=(D, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                kv_ln=(cfg.kv_lora_rank,),
+                w_ukv=(cfg.kv_lora_rank,
+                       cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)),
+                wo=(cfg.n_heads * cfg.v_head_dim, D))
+        else:
+            hd = cfg.hd
+            shapes.update(wq=(D, cfg.n_heads * hd),
+                          wk=(D, cfg.n_kv_heads * hd),
+                          wv=(D, cfg.n_kv_heads * hd),
+                          wo=(cfg.n_heads * hd, D))
+            if cfg.qkv_bias:
+                shapes.update(bq=(cfg.n_heads * hd,),
+                              bk=(cfg.n_kv_heads * hd,),
+                              bv=(cfg.n_kv_heads * hd,))
+    else:  # mamba
+        Din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        shapes.update(in_z=(D, Din), in_xbc=(D, Din + 2 * N), in_dt=(D, H),
+                      conv_w=(cfg.d_conv, Din + 2 * N),
+                      dt_bias=(H,), A_log=(H,), D_skip=(H,),
+                      out_proj=(Din, D))
+    if cfg.kind != "ssm":
+        shapes["ln2"] = (D,)
+        F = cfg.d_ff
+        if moe:
+            E = experts_padded(cfg)
+            shapes.update(router=(D, E),
+                          we_g=(E, D, F), we_1=(E, D, F), we_2=(E, F, D))
+            if cfg.n_shared_experts:
+                Ns = cfg.n_shared_experts
+                shapes.update(ws_g=(Ns, D, F), ws_1=(Ns, D, F),
+                              ws_2=(Ns, F, D))
+        elif cfg.mlp_act == "gelu":
+            shapes.update(w1=(D, F), w2=(F, D))
+        else:
+            shapes.update(wg=(D, F), w1=(D, F), w2=(F, D))
+    return shapes
+
+
+def param_shapes(cfg: ModelConfig):
+    """Full model parameter shape tree (stacked periods)."""
+    Vp = vocab_padded(cfg)
+    D = cfg.d_model
+    period = period_of(cfg)
+    reps = cfg.n_layers // period
+    kinds = cfg.layer_kinds()[:period]
+    moes = cfg.layer_moe()[:period]
+    blocks = {}
+    for pos in range(period):
+        lshapes = _layer_param_shapes(cfg, kinds[pos], moes[pos])
+        blocks[f"pos{pos}"] = {k: (reps,) + v for k, v in lshapes.items()}
+    tree = dict(embed=(Vp, D), final_norm=(D,), blocks=blocks)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = (Vp, D)
+    if cfg.frontend == "vision_patches":
+        tree["vision_proj"] = (D, D)     # stub projector for patch embeds
+    if cfg.frontend == "audio_frames":
+        tree["frame_proj"] = (D, D)
+    return tree
+
+
+def _leaf_generator(seed: int, path: str, device) -> torch.Generator:
+    """The leaf's own generator, seeded with the CRC-32 of seed and path: a
+    stable digest, as the reference folds ``crc32(path)`` into its key
+    (Python's ``hash`` is salted per process), and 32 bits, all that the
+    CPU generator reads of a seed."""
+    g = torch.Generator(device=device)
+    g.manual_seed(zlib.crc32(f"{seed}/{path}".encode()))
+    return g
+
+
+def _init_one(path: str, shape, pdt, device, seed: int) -> torch.Tensor:
+    """One leaf, with the reference's distribution. A normal leaf under
+    ``blocks/`` is drawn one stacked layer at a time in float32 and stored in
+    ``pdt``, so no float32 copy of a whole stack is ever held."""
+    name = path.split("/")[-1]
+    if name.startswith("ln") or name in ("final_norm", "kv_ln", "D_skip"):
+        return torch.ones(shape, dtype=pdt, device=device)
+    if name == "A_log":
+        row = torch.log(torch.linspace(1.0, 16.0, shape[-1], device=device))
+        return row.to(pdt).expand(shape).clone()
+    if name == "dt_bias":
+        # softplus^-1 of dt in [1e-3, 1e-1], log-spaced
+        dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1),
+                                      shape[-1], device=device))
+        return torch.log(torch.expm1(dt)).to(pdt).expand(shape).clone()
+    if name.startswith("b"):
+        return torch.zeros(shape, dtype=pdt, device=device)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = 0.02 if name in ("embed", "lm_head") else 1.0 / math.sqrt(fan_in)
+    g = _leaf_generator(seed, path, device)
+    out = torch.empty(shape, dtype=pdt, device=device)
+    parts = out if path.startswith("blocks/") else out[None]
+    for part in parts:
+        part.copy_(torch.randn(part.shape, generator=g, device=device) * std)
+    return out
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None):
+    """The parameter tree of ``param_shapes`` on ``device`` (None: the GPU,
+    raising when there is none), in ``dtype`` (None: ``cfg.param_dtype``)."""
+    dev = resolve_device(device)
+    pdt = dtype or _dtype(cfg.param_dtype)
+
+    def build(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else k
+            out[k] = build(v, path) if isinstance(v, dict) \
+                else _init_one(path, v, pdt, dev, seed)
+        return out
+
+    return build(param_shapes(cfg))
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+class Model(nn.Module):
+    """The decoder stack over an explicit parameter tree.
+
+    ``forward(params, batch, caches=None)`` returns (logits, aux_loss,
+    new_caches) as the reference's. Caches are updated in place and
+    returned: the KV cache is the largest buffer a server holds, and a copy
+    per step would double it. Their layout is the reference's, with each
+    position's ``offset`` kept on the host, where the eager loop reads it.
+    """
+
+    _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "ln1", "ln2", "kv_ln")
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.use_mla or cfg.frontend == "audio_frames" or \
+                any(k != "attn" for k in cfg.layer_kinds()):
+            raise NotImplementedError(
+                f"{cfg.name}: only GQA decoders are ported (MLA, Mamba2 and "
+                f"the audio frontend wait in ROADMAP §1, still to port, "
+                f"item 7)")
+        self.cfg = cfg
+
+    # ---------------- embedding ----------------
+    def embed(self, params, batch):
+        if "vision_embeds" in batch or "features" in batch:
+            raise NotImplementedError("the port embeds tokens only; the "
+                                      "vision and audio frontends wait in "
+                                      "ROADMAP §1, item 7")
+        x = nn.functional.embedding(batch["tokens"], params["embed"])
+        return x.to(_dtype(self.cfg.dtype))
+
+    # ---------------- one layer ----------------
+    def _cast_params(self, p):
+        adt = _dtype(self.cfg.dtype)
+        return {k: v if k in self._KEEP_F32 else v.to(adt)
+                for k, v in p.items()}
+
+    def _layer(self, x, p, moe, pos, cache):
+        cfg = self.cfg
+        p = self._cast_params(p)
+        h = L.rmsnorm(x, p["ln1"], cfg.rms_eps)
+        mix, new_cache = L.gqa_block(h, p, cfg, pos, cache=cache)
+        x = x + mix.to(x.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = L.rmsnorm(x, p["ln2"], cfg.rms_eps)
+        if moe:
+            ff, aux = L.moe_block(h, p, cfg)
+        else:
+            ff = L.mlp_block(h, p, cfg)
+        x = x + ff.to(x.dtype)
+        return x, aux, new_cache
+
+    # ---------------- full stack ----------------
+    def forward(self, params, batch, *, caches=None):
+        """Returns (logits (B, S, vocab_padded), aux_loss, new_caches)."""
+        cfg = self.cfg
+        if batch.get("pos3") is not None:
+            L.apply_mrope(None, batch["pos3"], cfg.rope_theta,
+                          cfg.mrope_sections)
+        period = period_of(cfg)
+        reps = cfg.n_layers // period
+        moes = cfg.layer_moe()[:period]
+        x = self.embed(params, batch)
+        B, S, _ = x.shape
+        steps = torch.arange(S, dtype=torch.int32, device=x.device)
+        offset = batch.get("offset")
+        pos = steps.expand(B, S) if offset is None \
+            else offset.to(x.device)[:, None] + steps[None]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for r in range(reps):
+            for i, moe in enumerate(moes):
+                blk = {k: v[r] for k, v in params["blocks"][f"pos{i}"].items()}
+                c = None
+                if caches is not None:
+                    cc = caches[f"pos{i}"]
+                    c = dict(k=cc["k"][r], v=cc["v"][r],
+                             offset=int(cc["offset"][r]))
+                x, a, nc = self._layer(x, blk, moe, pos, c)
+                aux = aux + a
+                if nc is not None:
+                    caches[f"pos{i}"]["offset"][r] = nc["offset"]
+        x = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
+        head = params.get("lm_head", params["embed"])
+        logits = x @ head.T.to(x.dtype)
+        return logits, aux, caches
+
+    # ---------------- kv caches ----------------
+    def init_cache(self, batch_size: int, max_len: int, device=None):
+        """Zeroed caches in the reference's layout: per period position,
+        k and v of (reps, B, max_len, KVH, hd) in the compute type on
+        ``device`` (None: the GPU) and ``offset`` (reps,) int32 on the
+        host."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        dt = _dtype(cfg.dtype)
+        period = period_of(cfg)
+        reps = cfg.n_layers // period
+        shape = (reps, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+        return {f"pos{i}": dict(k=torch.zeros(shape, dtype=dt, device=dev),
+                                v=torch.zeros(shape, dtype=dt, device=dev),
+                                offset=torch.zeros(reps, dtype=torch.int32))
+                for i in range(period)}

@@ -1,0 +1,183 @@
+"""Parity of the port's blocked-ELL SpMM and of its host helper.
+
+On the CPU ``repro_torch.kernels.bsr_spmm.bsr_spmm`` runs its plain version
+(the Hopper kernel runs only on the GPU: the ``gpu`` tests below, and
+``chip_smoke.py`` phase 6b). The same numpy inputs go to the JAX kernel in
+interpret mode (as ``tests/test_kernels.py`` runs it), to its oracle
+``repro.kernels.ref.bsr_spmm`` and to the port. Shapes the Pallas kernel
+refuses (n not a multiple of its tile) are held against ``ref`` only.
+
+Tolerances: float32 sums within 1e-4 relative and absolute (another
+summation order over up to 512 unit-normal products); bf16 outputs within
+2^-7 relative plus 2^-6 absolute (the port rounds once from float32, the
+JAX oracle sums in bf16).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ref
+from repro.kernels.bsr_spmm import bsr_spmm as pallas_bsr
+from repro.kernels.bsr_spmm import to_blocked_ell as jax_to_blocked_ell
+from repro_torch.kernels import bsr_spmm as bs
+
+from torch_parity import np_of
+
+F32_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -6)
+
+
+def port(cols, vals, x):
+    return np_of(bs.bsr_spmm(torch.as_tensor(cols), torch.as_tensor(vals),
+                             torch.as_tensor(x)))
+
+
+def both_refs(cols, vals, x, pallas=True):
+    jc, jv, jx = jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(x)
+    out = [np_of(ref.bsr_spmm(jc, jv, jx, x.shape[0]))]
+    if pallas:
+        out.append(np_of(pallas_bsr(jc, jv, jx, interpret=True)))
+    return out
+
+
+def blocky(rng, M, N, bm, bk, density):
+    mask = np.kron(rng.random((M // bm, N // bk)) < density,
+                   np.ones((bm, bk), bool))
+    return np.where(mask, rng.standard_normal((M, N)), 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("density", [0.1, 0.4, 1.0])
+def test_plain_vs_pallas_ref_and_dense(density):
+    rng = np.random.default_rng(4)
+    dense = blocky(rng, 256, 384, 128, 128, density)
+    cols, vals = bs.to_blocked_ell(dense, 128, 128)
+    x = rng.standard_normal((384, 128)).astype(np.float32)
+    got = port(cols, vals, x)
+    for want in both_refs(cols, vals, x) + [dense @ x]:
+        np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_ragged_rows_and_padding():
+    rng = np.random.default_rng(5)
+    dense = np.zeros((384, 512), np.float32)
+    dense[:128, :128] = rng.standard_normal((128, 128))    # row 0: 1 block
+    dense[128:256] = rng.standard_normal((128, 512))       # row 1: all
+    cols, vals = bs.to_blocked_ell(dense, 128, 128)        # row 2: empty
+    assert cols[2, 0] == -1 and (cols[0, 1:] == -1).all()
+    x = rng.standard_normal((512, 256)).astype(np.float32)
+    got = port(cols, vals, x)
+    for want in both_refs(cols, vals, x) + [dense @ x]:
+        np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_padding_contributes_zero_whatever_it_holds():
+    # a -1 block holding NaN, over an x block holding inf: still zero
+    rng = np.random.default_rng(6)
+    cols = np.array([[0, -1], [-1, 1]], np.int32)
+    vals = rng.standard_normal((2, 2, 8, 4)).astype(np.float32)
+    vals[0, 1] = np.nan
+    x = rng.standard_normal((8, 5)).astype(np.float32)
+    got = port(cols, vals, x)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got[:8], vals[0, 0] @ x[:4], **F32_TOL)
+    np.testing.assert_allclose(got[8:], vals[1, 1] @ x[4:], **F32_TOL)
+
+
+def test_grouped_matmul_moe_pattern():
+    """Block-diagonal A == grouped (per-expert) matmul, the call
+    ``models.layers._expert_ffn`` makes: R = E, K = 1, block e at e."""
+    rng = np.random.default_rng(6)
+    E, C, D, Fd = 4, 128, 128, 128
+    xe = rng.standard_normal((E, C, D)).astype(np.float32)
+    w = rng.standard_normal((E, D, Fd)).astype(np.float32)
+    cols = np.arange(E, dtype=np.int32)[:, None]
+    got = port(cols, xe[:, None], w.reshape(E * D, Fd))
+    want = np.einsum("ecd,edf->ecf", xe, w).reshape(E * C, Fd)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    for ref_out in both_refs(cols, xe[:, None], w.reshape(E * D, Fd)):
+        np.testing.assert_allclose(got, ref_out, **F32_TOL)
+
+
+@pytest.mark.parametrize("R,K,bm,bk,n", [(3, 2, 5, 7, 9), (8, 3, 10, 64, 130),
+                                         (4, 1, 640, 16, 24)])
+def test_ragged_blocks_and_columns_vs_ref(R, K, bm, bk, n):
+    # bm, bk and n that no tile divides; ids past x's last block are clipped
+    rng = np.random.default_rng(R * K + n)
+    nblk = 6
+    cols = rng.integers(-1, nblk + 2, (R, K)).astype(np.int32)
+    vals = rng.standard_normal((R, K, bm, bk)).astype(np.float32)
+    x = rng.standard_normal((nblk * bk, n)).astype(np.float32)
+    (want,) = both_refs(cols, vals, x, pallas=False)
+    np.testing.assert_allclose(port(cols, vals, x), want, **F32_TOL)
+
+
+def test_bf16_vs_ref():
+    rng = np.random.default_rng(9)
+    dense = blocky(rng, 128, 256, 64, 64, 0.5)
+    cols, vals = bs.to_blocked_ell(dense, 64, 64)
+    x = rng.standard_normal((256, 72)).astype(np.float32)
+    jv, jx = jnp.asarray(vals, jnp.bfloat16), jnp.asarray(x, jnp.bfloat16)
+    want = np_of(ref.bsr_spmm(jnp.asarray(cols), jv, jx, 256)) \
+        .astype(np.float32)
+    got = bs.bsr_spmm(torch.as_tensor(cols),
+                      torch.as_tensor(vals).bfloat16(),
+                      torch.as_tensor(x).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("bm,bk,max_blocks", [(64, 32, None), (32, 64, 2),
+                                              (128, 128, None)])
+def test_to_blocked_ell_bitwise_equal_to_jax(bm, bk, max_blocks):
+    rng = np.random.default_rng(bm + bk)
+    dense = blocky(rng, 256, 384, bm, bk, 0.35)
+    jc, jv = jax_to_blocked_ell(dense, bm, bk, max_blocks)
+    tc, tv = bs.to_blocked_ell(dense, bm, bk, max_blocks)
+    assert tc.dtype == jc.dtype and tv.dtype == jv.dtype
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_array_equal(tv, jv)
+
+
+def test_types_and_shapes_refused():
+    cols = torch.zeros((2, 1), dtype=torch.int32)
+    vals = torch.zeros((2, 1, 4, 4))
+    with pytest.raises(ValueError):
+        bs.bsr_spmm(cols, vals, torch.zeros((6, 3)))       # 6 % 4 != 0
+    with pytest.raises(TypeError):
+        bs.bsr_spmm(cols, vals.double(), torch.zeros((8, 3)).double())
+    with pytest.raises(TypeError):
+        bs.bsr_spmm(cols.float(), vals, torch.zeros((8, 3)))
+
+
+# --------------------------------------------------------------------------
+# the Hopper kernel (GPU only)
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,K,bm,bk,n", [(3, 2, 5, 7, 9), (8, 3, 100, 64, 130),
+                                         (16, 1, 8, 256, 88)])
+def test_kernel_vs_plain_on_gpu(cuda, dtype, R, K, bm, bk, n):
+    g = torch.Generator(device=cuda).manual_seed(R + n)
+    nblk = 5
+    cols = torch.randint(-1, nblk, (R, K), generator=g, device=cuda,
+                         dtype=torch.int32)
+    vals = torch.randn((R, K, bm, bk), generator=g, device=cuda).to(dtype)
+    x = torch.randn((nblk * bk, n), generator=g, device=cuda).to(dtype)
+    before = bs.launches
+    got = bs.bsr_spmm(cols, vals, x)
+    torch.cuda.synchronize()
+    assert bs.launches == before + 1
+    want = bs.bsr_spmm_plain(cols, vals, x)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)

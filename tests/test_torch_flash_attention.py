@@ -1,0 +1,145 @@
+"""Parity of the port's flash attention.
+
+On the CPU ``repro_torch.kernels.flash_attention.flash_attention`` runs its
+plain version (the Hopper kernel runs only on the GPU: the ``gpu`` tests
+below, and ``chip_smoke.py`` phase 6). The same numpy inputs go to the JAX
+kernel in interpret mode (as ``tests/test_kernels.py`` runs it), to its
+oracle ``repro.kernels.ref.flash_attention`` and to the port. Inputs the
+Pallas kernel refuses (S not a multiple of its blocks, GQA without a
+repeat, S != Skv) are held against ``ref`` or ``repro.models.layers``.
+
+Tolerances: float32 results within 2e-5 absolute and relative (two
+summation orders of softmax-weighted unit-normal values); bfloat16 results
+within 2^-7 relative plus 2^-7 absolute, two bf16 roundings of outputs of
+magnitude below 4 (the Pallas kernel rounds p to bf16, the oracle keeps it
+in float32).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import layers as jlayers
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import layers as tlayers
+
+from torch_parity import np_of
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -7)
+
+
+def qkv(B, S, H, d, seed, skv=None, kvh=None, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    skv, kvh = skv or S, kvh or H
+    return (rng.standard_normal((B, S, H, d)).astype(dtype),
+            rng.standard_normal((B, skv, kvh, d)).astype(dtype),
+            rng.standard_normal((B, skv, kvh, d)).astype(dtype))
+
+
+def port(q, k, v, causal, dtype=torch.float32):
+    t = [torch.as_tensor(x).to(dtype) for x in (q, k, v)]
+    return fa.flash_attention(*t, causal=causal).float().numpy()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,bq,bkv", [(128, 64, 64), (256, 128, 64)])
+def test_plain_vs_pallas_and_ref(causal, S, bq, bkv):
+    q, k, v = qkv(1, S, 2, 64, seed=S)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    want_pallas = np_of(pallas_flash(jq, jk, jv, causal=causal, bq=bq,
+                                     bkv=bkv, interpret=True))
+    want_ref = np_of(ref.flash_attention(jq, jk, jv, causal))
+    got = port(q, k, v, causal)
+    np.testing.assert_allclose(got, want_pallas, **F32_TOL)
+    np.testing.assert_allclose(got, want_ref, **F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_vs_pallas_bf16(causal):
+    q, k, v = qkv(1, 128, 2, 128, seed=8)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np_of(pallas_flash(jq, jk, jv, causal=causal, bq=64, bkv=64,
+                              interpret=True)).astype(np.float32)
+    got = port(q, k, v, causal, torch.bfloat16)
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("S", [1, 77])
+def test_ragged_sequence_vs_ref(S):
+    # no block divides 77 (the Pallas kernel asserts S % bq == 0)
+    q, k, v = qkv(2, S, 2, 16, seed=S)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    for causal in (True, False):
+        np.testing.assert_allclose(port(q, k, v, causal),
+                                   np_of(ref.flash_attention(jq, jk, jv,
+                                                             causal)),
+                                   **F32_TOL)
+
+
+@pytest.mark.parametrize("S,skv", [(33, 33), (5, 40), (1, 40)])
+def test_gqa_and_cache_alignment_vs_layers_attention(S, skv):
+    # 4 query heads over 2 KV heads, read in place; S < Skv aligns the
+    # causal mask at the bottom right, as layers.attention's tril(k=Skv-S)
+    q, k, v = qkv(2, S, 4, 16, seed=S + skv, skv=skv, kvh=2)
+    for causal in (True, False):
+        want = np_of(jlayers.attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), causal=causal,
+                                       chunked=False))
+        got = np_of(tlayers.attention(torch.as_tensor(q), torch.as_tensor(k),
+                                      torch.as_tensor(v), causal=causal))
+        np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_rows_that_see_no_key_give_zeros():
+    # S > Skv under the causal mask: query 0 sees no key (the online
+    # softmax's acc / max(l, 1e-30) = 0)
+    q, k, v = qkv(1, 4, 2, 16, seed=3, skv=2)
+    got = port(q, k, v, True)
+    np.testing.assert_array_equal(got[:, :2], 0.0)
+    want = np_of(ref.flash_attention(jnp.asarray(q[:, 2:]), jnp.asarray(k),
+                                     jnp.asarray(v), True))
+    np.testing.assert_allclose(got[:, 2:], want, **F32_TOL)
+
+
+def test_types_and_shapes_refused():
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, torch.zeros(1, 4, 3, 8), torch.zeros(1, 4, 3, 8))
+
+
+# --------------------------------------------------------------------------
+# the Hopper kernel (GPU only)
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,skv,H,kvh,d", [(77, 77, 4, 2, 64),
+                                           (130, 200, 4, 1, 128),
+                                           (1, 9, 2, 2, 16)])
+def test_kernel_vs_plain_on_gpu(cuda, dtype, S, skv, H, kvh, d):
+    q, k, v = (torch.as_tensor(x, device=cuda).to(dtype)
+               for x in qkv(2, S, H, d, seed=14, skv=skv, kvh=kvh))
+    for causal in (True, False):
+        before = fa.launches
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
