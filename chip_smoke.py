@@ -43,7 +43,23 @@ Phases (any failure exits non-zero and prints no result line):
    layers (every width kept) in f32, ``greedy_generate`` on the CPU (plain
    versions) and on the card (kernels) from the same parameters; then, on
    the card with a capacity that drops no token, the decode-step logits
-   against a teacher-forced forward.
+   against a teacher-forced forward;
+8. ssd_chunk vs plain: the SSD intra-chunk kernel against its plain version
+   at phase 9's prefill shape (G, q, H, P, N) = (64, 128, 80, 64, 128) in
+   bf16 and f32, the smoke widths, a 40-token and a 256-token chunk, with
+   the model's dt and A (exp overflows above the diagonal), and times at
+   the main shape beside the bound;
+9. serve: mamba2-2.7b at full width and depth (64 layers, bf16 parameters
+   from ``init_params(seed=0)``) through ``greedy_generate`` with phase 7's
+   traffic: cold and warm prefill, decode wall per token, peak memory,
+   ``ssd_chunk`` launches per prefill (64) and per decode step (0), a
+   profile of one prefill and one decode step, and a teacher-forced forward
+   against the decode-step logits;
+9b. mamba2-2.7b cut to 2 layers (every width kept) in f32: a 300-token
+   prompt (three chunks, the last padded) through ``greedy_generate`` on
+   the CPU (plain versions) and on the card (the kernel) from the same
+   parameters; then the card's decode-step logits against a teacher-forced
+   forward.
 
 The two lines before the last are a JSON object with one record per kernel
 and the card's name and power limit; the last line is
@@ -53,6 +69,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -83,7 +100,16 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
 E2E_LAYERS, E2E_BATCH, E2E_PROMPT, E2E_TOKENS = 2, 2, 64, 4
 E2E_LOGIT_TOL = 1e-3      # logits of order 1; two summation orders in f32
 
-KERNELS = ("segreduce", "semiring_matmul", "flash_attention", "bsr_spmm")
+# phase 8: (G, q, H, P, N) of phase 9's prefill (batch 4 x 2048 / 128 chunks)
+SSD_MAIN = (64, 128, 80, 64, 128)
+# phase 9: the mamba2 serving cell (phase 7's traffic)
+MAMBA_ARCH = "mamba2-2.7b"
+# phase 9b: the kernel against plain versions end to end, float32
+MAMBA_E2E_LAYERS, MAMBA_E2E_BATCH, MAMBA_E2E_PROMPT, MAMBA_E2E_TOKENS = \
+    2, 2, 300, 4
+
+KERNELS = ("segreduce", "semiring_matmul", "flash_attention", "bsr_spmm",
+           "ssd_chunk")
 
 
 def log(*a):
@@ -989,12 +1015,11 @@ def check_bsr_spmm(main_ops, decode_ops) -> dict:
 
 class _Clock:
     """``on_logits`` hook of ``greedy_generate``: the host-clock wall of each
-    forward (ended by a synchronize), the kernel launches it made, and its
-    logits on the host."""
+    forward (ended by a synchronize), the launches it made of each kernel
+    module in ``mods``, and its logits on the host."""
 
-    def __init__(self, keep_logits=True):
-        from repro_torch.kernels import bsr_spmm, flash_attention
-        self._mods = (flash_attention, bsr_spmm)
+    def __init__(self, mods, keep_logits=True):
+        self._mods = tuple(mods)
         self.keep = keep_logits
         self.walls, self.launches, self.logits = [], [], []
 
@@ -1060,7 +1085,7 @@ def serve_path():
         calls[0] += 1
         return wrapped(cols, vals, x)
 
-    cold = _Clock(keep_logits=False)
+    cold = _Clock((fa, bs), keep_logits=False)
     bs.bsr_spmm = capture
     try:
         cold.start()
@@ -1072,7 +1097,7 @@ def serve_path():
     # the main path: one warm run, every launch count set to 0 just before
     # and read just after
     torch.cuda.reset_peak_memory_stats()
-    clock = _Clock()
+    clock = _Clock((fa, bs))
     segreduce.launches = smm.launches = fa.launches = bs.launches = 0
     clock.start()
     t0 = time.perf_counter()
@@ -1121,7 +1146,7 @@ def serve_path():
                     "capacity_factor 1.25")
     E = params["blocks"]["pos0"]["router"].shape[-1]
     nodrop = Model(cfg.scaled(capacity_factor=E / cfg.top_k))
-    nd = _Clock()
+    nd = _Clock((fa, bs))
     nd.start()
     nd_tokens = greedy_generate(nodrop, params, prompt, max_len, T,
                                 device="cuda", on_logits=nd)
@@ -1245,6 +1270,293 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+# --------------------------------------------------------------------------
+# phase 8: ssd_chunk kernel vs plain
+# --------------------------------------------------------------------------
+
+def _ssd_inputs(G, q, H, P, N, xdt, ddt, seed):
+    """x, B, C ~ N(0, 1) in ``xdt``; dt and A in ``ddt``, drawn as mamba2's
+    init and mixer make them: A = -exp(log linspace(1, 16)) and dt =
+    softplus(N(0, 1) + dt_bias), dt_bias = softplus^-1 of a log-spaced
+    [1e-3, 1e-1]. Over a 128-step chunk the cumsum of dt A then passes 88
+    above the diagonal, where exp overflows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(G, q, H, P, generator=g, device="cuda").to(xdt)
+    B = torch.randn(G, q, N, generator=g, device="cuda").to(xdt)
+    C = torch.randn(G, q, N, generator=g, device="cuda").to(xdt)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    dt0 = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), H,
+                                   device="cuda"))
+    bias = torch.log(torch.expm1(dt0))
+    dt = torch.nn.functional.softplus(
+        torch.randn(G, q, H, generator=g, device="cuda") + bias)
+    return x, dt.to(ddt), A.to(ddt), B, C
+
+
+def _ssd_close(got, want, x, dt, A, B, C, what):
+    """Max abs error; raises unless finite and within 2^-10 of the sum of
+    the terms' magnitudes (the plain version on |x|, |B|, |C|, which bounds
+    sum |C_i . B_k| L dt |x| and sum |x| decay dt |B|), plus 1e-6. Both sum
+    in float32 in other orders, and the kernel's cumsum (per-lane runs and a
+    shuffle scan) parts from torch.cumsum's by a few ulps of |cA|, which
+    reaches a few hundred over a chunk: exp(cA_i - cA_k) then parts by up to
+    some 1e-4 relative near the diagonal."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_plain
+    bounds = ssd_chunk_plain(x.abs(), dt, A, B.abs(), C.abs())
+    err = 0.0
+    for name, g, w, b in zip(("y", "states"), got, want, bounds):
+        if g.shape != w.shape or g.dtype != torch.float32:
+            raise AssertionError(f"ssd_chunk {what} {name}: "
+                                 f"{tuple(g.shape)}/{g.dtype} vs "
+                                 f"{tuple(w.shape)}/{w.dtype}")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ssd_chunk {what} {name}: non-finite")
+        e = (g.double() - w.double()).abs()
+        if not bool((e <= 2.0 ** -10 * b.double() + 1e-6).all()):
+            raise AssertionError(f"ssd_chunk {what} {name}: max err "
+                                 f"{float(e.max())} beyond 2^-10 sum|terms|")
+        err = max(err, float(e.max()))
+    return err
+
+
+def check_ssd_chunk() -> dict:
+    """Phase 8: the kernel against its plain version over the main path's
+    shape (in the serving config's bf16, and in f32), the smoke widths, a
+    ragged chunk and the longest one; times at the main shape."""
+    from repro_torch.kernels import ssd_chunk as sc
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    G, q, H, P, N = SSD_MAIN
+    cases = [(G, q, H, P, N, bf16, bf16), (G, q, H, P, N, f32, f32),
+             (G, q, H, P, N, bf16, f32),
+             (6, 16, 16, 8, 16, f32, f32),          # mamba2's smoke widths
+             (8, 40, H, P, N, bf16, bf16),          # a 40-token prompt
+             (4, 256, H, P, N, bf16, bf16),         # the longest chunk
+             (3, 77, 5, 72, 200, f32, bf16), (2, 1, 3, 4, 5, bf16, f32)]
+    max_err, overflowed = 0.0, 0
+    for i, (G_, q_, H_, P_, N_, xdt, ddt) in enumerate(cases):
+        x, dt, A, B, C = _ssd_inputs(G_, q_, H_, P_, N_, xdt, ddt, 400 + i)
+        cA = torch.cumsum(dt.float() * A.float(), dim=1)
+        overflowed += bool(((cA[:, :1] - cA[:, -1:]) > 88.8).any())
+        got = sc.ssd_chunk(x, dt, A, B, C)
+        want = sc.ssd_chunk_plain(x, dt, A, B, C)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _ssd_close(
+            got, want, x, dt, A, B, C,
+            f"G={G_} q={q_} H={H_} P={P_} N={N_} x {xdt} dt {ddt}"))
+    if not overflowed:
+        raise AssertionError("no case overflows exp above the diagonal")
+    log(f"ssd_chunk: {len(cases)} cases match the plain version (max abs "
+        f"err {max_err:.3g}, within 2^-10 sum|terms|; {overflowed} cases "
+        f"overflow exp(cA_i - cA_k) above the diagonal, no NaN)")
+
+    x, dt, A, B, C = _ssd_inputs(G, q, H, P, N, bf16, bf16, 7)
+    ms = cuda_time_ms(lambda: sc.ssd_chunk(x, dt, A, B, C), iters=20)
+    plain_ms = cuda_time_ms(lambda: sc.ssd_chunk_plain(x, dt, A, B, C),
+                            iters=3, warmup=1)
+    # the work these inputs need: C B^T once per g and w x over the causal
+    # pairs, the states over every (k, p, n); float32 products (two of the
+    # three have float32 operands) at the float32 peak. Bytes: x, dt, A, B,
+    # C read once, y and the states (float32) written once.
+    pairs = q * (q + 1) // 2
+    flops = 2 * G * pairs * N + 2 * G * H * pairs * P + 2 * G * H * q * P * N
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, A, B, C)) \
+        + 4 * (G * q * H * P + G * H * P * N)
+    t_ops = flops / F32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"ssd_chunk {SSD_MAIN} (G, q, H, P, N) bf16: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, no one PyTorch call computes it; bound "
+        f"{bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s: {t_ops:.4f} ms; "
+        f"{nbytes / 1e6:.1f} MB: {t_bytes:.4f} ms), {100 * bound / ms:.1f}% "
+        f"of it")
+    return {"name": "ssd_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_chunk.py:51",
+            "launches": None, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+# --------------------------------------------------------------------------
+# phase 9: mamba2-2.7b serving at full width and depth
+# --------------------------------------------------------------------------
+
+def serve_mamba() -> int:
+    """Phase 9. Returns the ``ssd_chunk`` launches of the warm run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bsr_spmm as bs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segreduce
+    from repro_torch.kernels import semiring_matmul as smm
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models import Model, init_params
+    from repro_torch.models.model import vocab_padded
+    from repro_torch.serve import greedy_generate, make_prefill, \
+        make_serve_step
+
+    cfg = get_config(MAMBA_ARCH).scaled(param_dtype="bfloat16")
+    model = Model(cfg)
+    B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    max_len = S + T + 1
+    vp = vocab_padded(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    nparam = sum(v.numel() for v in _leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, {cfg.ssm_heads}x{cfg.ssm_headdim} heads, state "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, d_conv {cfg.d_conv}, vocab "
+        f"{cfg.vocab} (padded {vp}); {nparam / 1e9:.3f} B stored parameters "
+        f"in bf16 ({nparam * 2 / 1e9:.2f} GB), init_params "
+        f"{time.perf_counter() - t0:.2f} s")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
+
+    cold = _Clock((sc,), keep_logits=False)
+    cold.start()
+    greedy_generate(model, params, prompt, max_len, T, device="cuda",
+                    on_logits=cold)
+
+    # the main path: one warm run, every launch count set to 0 just before
+    # and read just after
+    torch.cuda.reset_peak_memory_stats()
+    clock = _Clock((sc,))
+    segreduce.launches = smm.launches = fa.launches = bs.launches = 0
+    sc.launches = 0
+    clock.start()
+    t0 = time.perf_counter()
+    tokens = greedy_generate(model, params, prompt, max_len, T,
+                             device="cuda", on_logits=clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = sc.launches
+    other = segreduce.launches + smm.launches + fa.launches + bs.launches
+    peak = torch.cuda.max_memory_allocated()
+    decode = sorted(clock.walls[1:])
+    med = decode[len(decode) // 2]
+    log(f"serve {B}x{S} prompt + {T} tokens: prefill cold "
+        f"{cold.walls[0] * 1e3:.1f} ms, warm {clock.walls[0] * 1e3:.1f} ms; "
+        f"decode per token (median of {len(decode)} steps) {med * 1e3:.2f} ms "
+        f"(min {decode[0] * 1e3:.2f}, max {decode[-1] * 1e3:.2f}), "
+        f"{B / med:.1f} tokens/s; whole run {wall:.3f} s, "
+        f"{B * T / wall:.1f} tokens/s; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"ssd_chunk launches: prefill {clock.launches[0][0]}, decode steps "
+        f"{sorted({c[0] for c in clock.launches[1:]})}; whole run {launched};"
+        f" other kernels {other}")
+    tok = tokens.cpu().numpy()
+    log(f"tokens (first sequence): {tok[0].tolist()}")
+    if clock.launches[0] != (cfg.n_layers,):
+        raise AssertionError(f"prefill launched {clock.launches[0]} "
+                             f"ssd_chunk, not {cfg.n_layers}")
+    if any(c != (0,) for c in clock.launches[1:]) or launched != \
+            cfg.n_layers or other:
+        raise AssertionError(f"decode steps launched "
+                             f"{set(clock.launches[1:])}; the run "
+                             f"{launched} ssd_chunk and {other} others")
+    if not all(bool(torch.isfinite(lg).all()) for lg in clock.logits):
+        raise AssertionError("non-finite logits")
+    if tok.shape != (B, T) or tok.min() < 0 or tok.max() >= vp:
+        raise AssertionError(f"tokens out of [0, {vp}) or of shape "
+                             f"{tok.shape}")
+    # a teacher-forced forward over prompt + generated tokens, against the
+    # decode-step logits: printed, not gated (in bf16 the forward without a
+    # cache runs the whole scan in bf16, as the reference does, while the
+    # cached path keeps a float32 state; phase 9b holds the two in f32)
+    _teacher_forced(model, params, prompt, tokens, clock.logits, "bf16")
+
+    prefill, step = make_prefill(model), make_serve_step(model)
+    prompt_t = torch.as_tensor(prompt, device="cuda").to(torch.int32)
+    with torch.inference_mode():
+        log("profile of one warm prefill:")
+        profile_breakdown(lambda: prefill(
+            params, model.init_cache(B, max_len, device="cuda"), prompt_t))
+        _, caches = prefill(params, model.init_cache(B, max_len,
+                                                     device="cuda"), prompt_t)
+        offset = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        log("profile of one decode step:")
+        profile_breakdown(lambda: step(params, caches, tokens[:, :1], offset),
+                          top=12)
+        # the cached path's y @ out_proj is a float32 product (y is float32
+        # because the state is, as in the reference): one layer's, at the
+        # prefill's shape, beside the same product in bf16
+        w = params["blocks"]["pos0"]["out_proj"][0]
+        y32 = torch.randn(B * S, cfg.d_inner, device="cuda")
+        y16 = y32.bfloat16()
+        f32_ms = cuda_time_ms(lambda: y32 @ w.float(), iters=10)
+        bf16_ms = cuda_time_ms(lambda: y16 @ w, iters=10)
+        log(f"y @ out_proj ({B * S} x {cfg.d_inner}) x ({cfg.d_inner} x "
+            f"{cfg.d_model}), one layer: float32 {f32_ms:.4f} ms (the "
+            f"weight's cast included, as on the path; "
+            f"{cfg.n_layers * f32_ms:.1f} ms a prefill), bf16 "
+            f"{bf16_ms:.4f} ms ({cfg.n_layers * bf16_ms:.1f} ms a prefill)")
+        del y32, y16
+    del params, caches
+    torch.cuda.empty_cache()
+    return launched
+
+
+# --------------------------------------------------------------------------
+# phase 9b: mamba2 kernel against plain versions, end to end at full width
+# --------------------------------------------------------------------------
+
+def mamba_vs_plain_e2e() -> None:
+    """mamba2-2.7b cut to MAMBA_E2E_LAYERS layers (every width kept) in
+    f32: ``greedy_generate`` on the CPU (plain versions) and on the card
+    (the kernel) from the same parameters, tokens equal and logits within
+    E2E_LOGIT_TOL; then the card's cached decode logits against a
+    teacher-forced forward, within E2E_LOGIT_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models import Model, init_params
+    from repro_torch.serve import greedy_generate
+
+    cfg = get_config(MAMBA_ARCH).scaled(
+        n_layers=MAMBA_E2E_LAYERS, dtype="float32", param_dtype="float32")
+    model = Model(cfg)
+    B, S, T = MAMBA_E2E_BATCH, MAMBA_E2E_PROMPT, MAMBA_E2E_TOKENS
+    t0 = time.perf_counter()
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    gpu_params = _to(cpu_params, "cuda")
+    log(f"e2e: {cfg.name} with {cfg.n_layers} layers in f32, "
+        f"{sum(v.numel() for v in _leaves(cpu_params)) / 1e9:.3f} B "
+        f"parameters made on the CPU and copied to the card "
+        f"({time.perf_counter() - t0:.1f} s); a {S}-token prompt is "
+        f"{-(-S // cfg.ssm_chunk)} chunks of {cfg.ssm_chunk}, the last "
+        f"padded")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (B, S))
+    out = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+        logits = []
+        before = sc.launches
+        t0 = time.perf_counter()
+        tok = greedy_generate(model, p, prompt, S + T + 1, T, device=dev,
+                              on_logits=lambda lg: logits.append(
+                                  lg.float().cpu()))
+        out[dev] = (tok.cpu(), torch.stack(logits))
+        log(f"e2e {dev}: {time.perf_counter() - t0:.2f} s, ssd_chunk "
+            f"launches {sc.launches - before}")
+        if (dev == "cpu") != (sc.launches == before):
+            raise AssertionError(f"the {dev} run launched "
+                                 f"{sc.launches - before} ssd_chunk")
+    (tc, lc), (tg, lg) = out["cpu"], out["cuda"]
+    err = float((lc - lg).abs().max())
+    log(f"e2e: tokens {tg.tolist()} (card) vs {tc.tolist()} (cpu); max "
+        f"|dlogit| {err:.3g} (tolerance {E2E_LOGIT_TOL}, logits up to "
+        f"{float(lc.abs().max()):.2f})")
+    if not torch.equal(tc, tg):
+        raise AssertionError("card and CPU tokens differ")
+    if not err <= E2E_LOGIT_TOL:
+        raise AssertionError(f"card and CPU logits differ by {err}")
+    err = _teacher_forced(model, gpu_params, prompt, tg.cuda(),
+                          list(lg.unbind(0)), "f32")
+    if not err <= E2E_LOGIT_TOL:
+        raise AssertionError(f"decode and teacher-forced logits differ by "
+                             f"{err}")
+
+
 def main() -> int:
     smi = setup()
     seg_record = check_segreduce()
@@ -1272,8 +1584,14 @@ def main() -> int:
     bsr_record["launches"] = bsr_launches
     del ops
     kernels_vs_plain_e2e()
+    torch.cuda.empty_cache()          # phase 7's 30 GB went with its params
+    log(f"device memory before phase 8: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    ssd_record = check_ssd_chunk()
+    ssd_record["launches"] = serve_mamba()
+    mamba_vs_plain_e2e()
     log(json.dumps({"kernels": [seg_record, smm_record, fa_record,
-                                bsr_record]}))
+                                bsr_record, ssd_record]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,16 @@
 
     python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
         --batch 4 --prompt-len 2048 --tokens 32
+    python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --batch 4 --prompt-len 2048 --tokens 32
 
 Without ``--smoke`` it serves the full configuration with bfloat16
 parameters on one GPU (no mesh); ``--smoke`` takes the reduced one.
 Parameters come from ``init_params(seed=0)``, the prompt from
 ``numpy.random.default_rng(0)``. ``--device`` defaults to the GPU and
 raises when there is none; ``--device cpu`` runs the plain versions of the
-kernels. Architectures whose layers are not ported raise
-``NotImplementedError``.
+kernels. GQA decoders, mamba2 and the jamba hybrid are ported;
+architectures with MLA or the audio frontend raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

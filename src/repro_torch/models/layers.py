@@ -1,19 +1,24 @@
-"""Model layers: norms, RoPE, GQA attention, MLP and MoE (port of
-``repro/models/layers.py``).
+"""Model layers: norms, RoPE, GQA attention, MLP, MoE and the Mamba2 mixer
+(port of ``repro/models/layers.py``).
 
 Functions over explicit parameter dictionaries, in the reference's layout
 (``x @ w``, ``wq`` is (D, H * hd)). Attention without a cache runs on the
-``flash_attention`` kernel and the routed experts on the ``bsr_spmm``
-kernel (each wrapper takes its plain version for CPU tensors); the rest is
-torch ops, as it is plain XLA in JAX.
+``flash_attention`` kernel, the routed experts on the ``bsr_spmm`` kernel
+and the SSD scan's intra-chunk part on the ``ssd_chunk`` kernel (each
+wrapper takes its plain version for CPU tensors); the rest is torch ops, as
+it is plain XLA in JAX.
 
 MoE dispatch is the reference's sort-based, capacity-bounded bucketing: the
 router's top-k choices form a block-sparse tokens -> (expert, slot) matrix,
 and the expert FFNs are a block-diagonal SpMM (``bsr_spmm``).
 
+JAX promotes mixed float types silently and torch's products refuse them,
+so the Mamba2 mixer writes each cast out (``_mm``, ``_promoted``) and
+returns the type the reference returns for the same input types.
+
 Not ported yet (ROADMAP §1, "Still to port", item 7: the LM stack):
-M-RoPE, MLA, expert-parallel MoE and the Mamba2 mixer. Their entry points
-raise ``NotImplementedError``.
+M-RoPE, MLA and expert-parallel MoE. Their entry points raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 
 from ..kernels import bsr_spmm as _bsr
 from ..kernels import flash_attention as _flash
+from ..kernels import ssd_chunk as _ssd
 from .config import ModelConfig
 
 
@@ -40,10 +46,6 @@ def _not_ported(name: str):
 apply_mrope = _not_ported("apply_mrope")
 mla_block = _not_ported("mla_block")
 moe_block_ep = _not_ported("moe_block_ep")
-ssd_chunked = _not_ported("ssd_chunked")
-ssd_decode_step = _not_ported("ssd_decode_step")
-mamba_block = _not_ported("mamba_block")
-_causal_conv = _not_ported("_causal_conv")
 
 
 # --------------------------------------------------------------------------
@@ -268,3 +270,153 @@ def _shared_experts(xt, params):
 
 def e_sorted_start(seg, e_sorted):
     return seg[e_sorted.clamp(0, seg.shape[0] - 2)]
+
+
+# --------------------------------------------------------------------------
+# Mamba2 (SSD — state space duality, arXiv:2405.21060)
+# --------------------------------------------------------------------------
+
+def _promoted(*ts) -> torch.dtype:
+    """The type JAX's promotion gives these tensors' types (float types
+    only: bf16 with f32 is f32, as in torch)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted type of the two, as ``jnp.matmul``."""
+    dt = _promoted(a, b)
+    return a.to(dt) @ b.to(dt)
+
+
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """Chunked SSD scan.
+
+    xh: (B, S, H, P) inputs; dt: (B, S, H) >= 0 step sizes; A: (H,) < 0
+    decay; Bm, Cm: (B, S, N) (single group); init_state: (B, H, P, N) or
+    None. Returns (y (B, S, H, P), final_state (B, H, P, N)).
+
+    The intra-chunk part (``y_diag`` and each chunk's state) is one
+    ``ssd_chunk`` call over all (batch * chunk, head) pairs; the inter-chunk
+    recurrence (a loop over chunks) and ``y_off`` stay outside, as in the
+    reference. Everything is computed in float32, as the kernel computes, and
+    both results are cast at the end to the promoted type of the inputs,
+    the reference's result type. The reference casts ``init_state`` to that
+    type; here its type joins the promotion, so a float32 state stays
+    float32 under bfloat16 inputs (no JAX path passes one: the port's cached
+    prefill does, where JAX runs a per-token scan with a float32 state).
+    """
+    Bsz, S, H, Pd = xh.shape
+    N = Bm.shape[-1]
+    nchunk = S // chunk
+    if nchunk * chunk != S:
+        raise ValueError(f"S = {S} is not a multiple of chunk = {chunk}")
+    out = _promoted(xh, dt, A, Bm, Cm,
+                    *(() if init_state is None else (init_state,)))
+    G = Bsz * nchunk
+    xbc_t = _promoted(xh, Bm, Cm)        # the kernel takes x, B, C alike
+    Cc = Cm.to(xbc_t).reshape(G, chunk, N)
+    y_diag, states = _ssd.ssd_chunk(
+        xh.to(xbc_t).reshape(G, chunk, H, Pd), dt.reshape(G, chunk, H), A,
+        Bm.to(xbc_t).reshape(G, chunk, N), Cc)
+
+    # ---- inter-chunk recurrence over the chunk index, in float32 ----
+    dA_cum = torch.cumsum(dt.float().reshape(Bsz, nchunk, chunk, H)
+                          * A.float(), dim=2)               # (B, c, q, H)
+    chunk_decay = torch.exp(dA_cum[:, :, -1, :])            # (B, c, H)
+    states = states.reshape(Bsz, nchunk, H, Pd, N)
+    st = torch.zeros((Bsz, H, Pd, N), dtype=torch.float32,
+                     device=xh.device) if init_state is None \
+        else init_state.float()
+    prev_states = torch.empty_like(states)                  # (B, c, H, P, N)
+    for c in range(nchunk):
+        prev_states[:, c] = st
+        st = st * chunk_decay[:, c, :, None, None] + states[:, c]
+
+    # ---- off-diagonal part: y += C . exp(dA_cum) . prev_state ----
+    in_decay = torch.exp(dA_cum)                            # (B, c, q, H)
+    y_off = torch.einsum("bcqn,bchpn->bcqhp",
+                         Cc.float().reshape(Bsz, nchunk, chunk, N),
+                         prev_states) * in_decay[..., None]
+    y = y_diag.reshape(Bsz, nchunk, chunk, H, Pd) + y_off
+    return y.reshape(Bsz, S, H, Pd).to(out), st.to(out)
+
+
+def ssd_decode_step(x1, dt1, A, B1, C1, state):
+    """One-token SSD recurrence. x1: (B, 1, H, P); dt1: (B, 1, H); B1/C1:
+    (B, 1, N); state (B, H, P, N). Returns (y (B, 1, H, P), new_state), in
+    the reference's types (the float32 state promotes both)."""
+    dA = torch.exp(dt1[:, 0, :] * A[None, :])               # (B, H)
+    ut = _promoted(B1, dt1, x1)
+    upd = B1[:, 0, None, None, :].to(ut) * (
+        dt1[:, 0, :, None].to(ut) * x1[:, 0].to(ut))[..., None]
+    new_state = state * dA[:, :, None, None] + upd          # (B, H, P, N)
+    yt = _promoted(C1, new_state)
+    y = torch.einsum("bn,bhpn->bhp", C1[:, 0].to(yt), new_state.to(yt))
+    return y[:, None], new_state
+
+
+def mamba_block(x, params, cfg: ModelConfig, *, cache=None):
+    """Mamba2 block: in_proj -> short conv -> SSD -> gated out_proj.
+
+    cache: None, or dict(conv (B, d_conv - 1, Din + 2N), state (B, H, P,
+    N)), both written in place. Returns (out, cache).
+
+    A prefill with a cache (S > 1) runs ``ssd_chunked`` from the cached
+    state, on the ``ssd_chunk`` kernel, where the reference runs a per-token
+    scan of ``ssd_decode_step``: the two are equal in exact arithmetic, and
+    the last chunk's padding (dt = 0) leaves the final state exact (its decay
+    is exp(0) = 1 and its dt x is 0). The reference's result types are kept:
+    with a cache, y is float32 (the state is), so ``y @ out_proj`` is a
+    float32 product, as in JAX.
+    """
+    B, S, D = x.shape
+    Din, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    z = _mm(x, params["in_z"])                               # (B, S, Din)
+    xbc = _mm(x, params["in_xbc"])                           # (B, S, Din+2N)
+    dt = _mm(x, params["in_dt"])                             # (B, S, H)
+    if cache is None:
+        xbc_conv = _causal_conv(xbc, params["conv_w"], cfg.d_conv)
+    else:
+        hist = torch.cat([cache["conv"], xbc], dim=1)
+        xbc_conv = _causal_conv(hist, params["conv_w"], cfg.d_conv)[:, -S:]
+        new_conv = hist[:, -(cfg.d_conv - 1):]
+    xbc_conv = F.silu(xbc_conv)
+    xin, Bm, Cm = torch.split(xbc_conv, [Din, N, N], dim=-1)
+    xin = xin.reshape(B, S, H, Pd)
+    dt = F.softplus(dt + params["dt_bias"])                  # (B, S, H)
+    A = -torch.exp(params["A_log"])                          # (H,)
+    if cache is not None and S == 1:
+        y, new_state = ssd_decode_step(xin, dt, A, Bm, Cm, cache["state"])
+    else:
+        chunk = min(cfg.ssm_chunk, S)
+        pad = -S % chunk
+        init = None if cache is None else cache["state"]
+        if pad:
+            y, new_state = ssd_chunked(
+                F.pad(xin, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)),
+                A, F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad)),
+                chunk, init_state=init)
+            y = y[:, :S]
+        else:
+            y, new_state = ssd_chunked(xin, dt, A, Bm, Cm, chunk,
+                                       init_state=init)
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(new_state)
+    y = y + xin * params["D_skip"][None, None, :, None]
+    y = y.reshape(B, S, Din)
+    y = y * F.silu(z)
+    return _mm(y, params["out_proj"]), cache
+
+
+def _causal_conv(x, w, width: int):
+    """Depthwise causal conv. x: (B, S, C); w: (width, C). The reference's
+    sum order: tap 0 (the oldest) first."""
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for t in range(width):
+        out = out + pad[:, t:t + x.shape[1]] * w[t][None, None, :]
+    return out

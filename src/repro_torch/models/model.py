@@ -12,9 +12,10 @@ Init is deterministic in (seed, path) with the reference's distributions,
 not its numbers: one ``torch.Generator`` per leaf, seeded with the CRC-32
 of the seed and the leaf's path.
 
-Ported families: decoders with GQA attention and a dense or MoE FFN. MLA,
-Mamba2 mixers and the audio/vision frontends raise ``NotImplementedError``
-(ROADMAP §1, still to port, item 7).
+Ported families: decoders with GQA attention and a dense or MoE FFN, the
+attention-free Mamba2 stack (``kind="ssm"``) and the Mamba/attention hybrid
+(``kind="hybrid"``). MLA, M-RoPE and the audio/vision frontends raise
+``NotImplementedError`` (ROADMAP §1, still to port, item 7).
 """
 from __future__ import annotations
 
@@ -191,19 +192,18 @@ class Model(nn.Module):
     new_caches) as the reference's. Caches are updated in place and
     returned: the KV cache is the largest buffer a server holds, and a copy
     per step would double it. Their layout is the reference's, with each
-    position's ``offset`` kept on the host, where the eager loop reads it.
+    attention position's ``offset`` kept on the host, where the eager loop
+    reads it; a mamba position's cache is its conv history and SSM state.
     """
 
     _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "ln1", "ln2", "kv_ln")
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.use_mla or cfg.frontend == "audio_frames" or \
-                any(k != "attn" for k in cfg.layer_kinds()):
+        if cfg.use_mla or cfg.frontend == "audio_frames":
             raise NotImplementedError(
-                f"{cfg.name}: only GQA decoders are ported (MLA, Mamba2 and "
-                f"the audio frontend wait in ROADMAP §1, still to port, "
-                f"item 7)")
+                f"{cfg.name}: MLA and the audio frontend are not ported yet "
+                f"(ROADMAP §1, still to port, item 7)")
         self.cfg = cfg
 
     # ---------------- embedding ----------------
@@ -221,19 +221,25 @@ class Model(nn.Module):
         return {k: v if k in self._KEEP_F32 else v.to(adt)
                 for k, v in p.items()}
 
-    def _layer(self, x, p, moe, pos, cache):
+    def _mixer(self, x, p, kind, pos, cache):
+        if kind == "attn":
+            return L.gqa_block(x, p, self.cfg, pos, cache=cache)
+        return L.mamba_block(x, p, self.cfg, cache=cache)
+
+    def _layer(self, x, p, kind, moe, pos, cache):
         cfg = self.cfg
         p = self._cast_params(p)
         h = L.rmsnorm(x, p["ln1"], cfg.rms_eps)
-        mix, new_cache = L.gqa_block(h, p, cfg, pos, cache=cache)
+        mix, new_cache = self._mixer(h, p, kind, pos, cache)
         x = x + mix.to(x.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        h = L.rmsnorm(x, p["ln2"], cfg.rms_eps)
-        if moe:
-            ff, aux = L.moe_block(h, p, cfg)
-        else:
-            ff = L.mlp_block(h, p, cfg)
-        x = x + ff.to(x.dtype)
+        if "ln2" in p:                   # mamba2 has no FFN sublayer
+            h = L.rmsnorm(x, p["ln2"], cfg.rms_eps)
+            if moe:
+                ff, aux = L.moe_block(h, p, cfg)
+            else:
+                ff = L.mlp_block(h, p, cfg)
+            x = x + ff.to(x.dtype)
         return x, aux, new_cache
 
     # ---------------- full stack ----------------
@@ -245,6 +251,7 @@ class Model(nn.Module):
                           cfg.mrope_sections)
         period = period_of(cfg)
         reps = cfg.n_layers // period
+        kinds = cfg.layer_kinds()[:period]
         moes = cfg.layer_moe()[:period]
         x = self.embed(params, batch)
         B, S, _ = x.shape
@@ -254,35 +261,49 @@ class Model(nn.Module):
             else offset.to(x.device)[:, None] + steps[None]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for r in range(reps):
-            for i, moe in enumerate(moes):
+            for i, (kind, moe) in enumerate(zip(kinds, moes)):
                 blk = {k: v[r] for k, v in params["blocks"][f"pos{i}"].items()}
                 c = None
                 if caches is not None:
                     cc = caches[f"pos{i}"]
                     c = dict(k=cc["k"][r], v=cc["v"][r],
-                             offset=int(cc["offset"][r]))
-                x, a, nc = self._layer(x, blk, moe, pos, c)
+                             offset=int(cc["offset"][r])) if kind == "attn" \
+                        else dict(conv=cc["conv"][r], state=cc["state"][r])
+                x, a, nc = self._layer(x, blk, kind, moe, pos, c)
                 aux = aux + a
-                if nc is not None:
+                if kind == "attn" and nc is not None:
                     caches[f"pos{i}"]["offset"][r] = nc["offset"]
         x = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
         head = params.get("lm_head", params["embed"])
         logits = x @ head.T.to(x.dtype)
         return logits, aux, caches
 
-    # ---------------- kv caches ----------------
+    # ---------------- kv / state caches ----------------
     def init_cache(self, batch_size: int, max_len: int, device=None):
-        """Zeroed caches in the reference's layout: per period position,
-        k and v of (reps, B, max_len, KVH, hd) in the compute type on
-        ``device`` (None: the GPU) and ``offset`` (reps,) int32 on the
-        host."""
+        """Zeroed caches in the reference's layout, on ``device`` (None: the
+        GPU), per period position: for attention, k and v of (reps, B,
+        max_len, KVH, hd) in the compute type and ``offset`` (reps,) int32
+        on the host; for mamba, ``conv`` (reps, B, d_conv - 1, Din + 2N) in
+        the compute type and ``state`` (reps, B, H, P, N) in float32."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = _dtype(cfg.dtype)
         period = period_of(cfg)
         reps = cfg.n_layers // period
-        shape = (reps, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
-        return {f"pos{i}": dict(k=torch.zeros(shape, dtype=dt, device=dev),
-                                v=torch.zeros(shape, dtype=dt, device=dev),
-                                offset=torch.zeros(reps, dtype=torch.int32))
-                for i in range(period)}
+        caches = {}
+        for i, kind in enumerate(cfg.layer_kinds()[:period]):
+            if kind == "attn":
+                shape = (reps, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+                caches[f"pos{i}"] = dict(
+                    k=torch.zeros(shape, dtype=dt, device=dev),
+                    v=torch.zeros(shape, dtype=dt, device=dev),
+                    offset=torch.zeros(reps, dtype=torch.int32))
+            else:
+                caches[f"pos{i}"] = dict(
+                    conv=torch.zeros((reps, batch_size, cfg.d_conv - 1,
+                                      cfg.d_inner + 2 * cfg.ssm_state),
+                                     dtype=dt, device=dev),
+                    state=torch.zeros((reps, batch_size, cfg.ssm_heads,
+                                       cfg.ssm_headdim, cfg.ssm_state),
+                                      dtype=torch.float32, device=dev))
+        return caches

@@ -1,7 +1,9 @@
-"""Serving: prefill and single-token decode with KV caches (port of
-``repro/serve/decode.py``).
+"""Serving: prefill and single-token decode with KV and SSM-state caches
+(port of ``repro/serve/decode.py``).
 
-No ``jit``: the loop is eager, and the caches are updated in place.
+No ``jit``: the loop is eager, and the caches are updated in place. The
+same loop serves every ported family: attention layers keep k/v caches,
+mamba layers their conv history and state (``Model.init_cache``).
 """
 from __future__ import annotations
 
