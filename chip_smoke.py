@@ -6,7 +6,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. setup: the card's name and power limit, the torch and CUDA versions, the
    kernels' build times (one nvcc per source, all started together, from
-   the sources in this checkout);
+   the sources in this checkout) and ptxas' registers and spills; then
+   ``cuobjdump -sass`` of the flash_attention and bsr_spmm libraries, which
+   fails unless each wgmma kernel holds HGMMA and UTMALDG;
 2. segreduce vs plain: the segmented-reduce kernel against its plain
    PyTorch version on the card, over tags, dtypes, id orders and sizes;
 2b. semiring_matmul vs plain: the dense-tile kernel against its plain
@@ -24,8 +26,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``plan_local_spmspv`` -> ``spmspv_auto`` at three frontier densities,
    held against scipy;
 6. flash_attention vs plain: the attention kernel against its plain version
-   over causal and not, f32 and bf16, ragged S, head dims 16-128 and GQA,
-   with times at (4, 2048, 16, 128) bf16 causal beside the bound and
+   over causal and not, f32 and bf16, ragged S (130 and 2080 leave a ragged
+   128-row tile), head dims 16-128, GQA and Skv beside S, with times at
+   (4, 2048, 16, 128) bf16 causal beside the bound and
    ``F.scaled_dot_product_attention``;
 7. serve: qwen2-moe-a2.7b at full width and depth (24 layers, bf16
    parameters from ``init_params(seed=0)``) through ``greedy_generate``:
@@ -35,10 +38,11 @@ Phases (any failure exits non-zero and prints no result line):
    against the decode-step logits, with the config's capacity and with one
    that drops no token;
 6b. bsr_spmm vs plain (after phase 7, whose operands it takes): the
-   blocked-ELL kernel against its plain version on layer 0's ``we_g``
-   product of phase 7's prefill and first decode step and on random
-   blocked-ELL operands, with times at both shapes beside the bound and
-   ``torch.bmm``;
+   blocked-ELL kernel against its plain version on layer 0's ``we_g`` and
+   ``we_2`` products of phase 7's prefill and ``we_g`` of its first decode
+   step, and on random blocked-ELL operands (K up to 4, ids past the last
+   block, rows of padding alone, bk = 48), with times at the three shapes
+   beside the bound and ``torch.bmm``;
 7b. kernels against plain versions end to end: qwen2-moe-a2.7b cut to 2
    layers (every width kept) in f32, ``greedy_generate`` on the CPU (plain
    versions) and on the card (kernels) from the same parameters; then, on
@@ -131,6 +135,27 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, match: str, iters: int = 20) -> float:
+    """Mean device time a launch of the kernels whose name holds ``match``
+    over ``iters`` calls of ``fn()``, from torch.profiler: for a call short
+    enough that the host's enqueue, not the device, paces back-to-back
+    calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and match in e.key]
+    count = sum(e.count for e in hits)     # the trace may miss one at its
+    if count == 0:                         # edges: the mean is over those
+        raise AssertionError(f"no {match} kernel in the trace")  # it holds
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
+
+
 # --------------------------------------------------------------------------
 # phase 1: setup
 # --------------------------------------------------------------------------
@@ -158,7 +183,51 @@ def setup() -> str:
             if "registers" in line or ("spill" in line
                                        and " 0 bytes spill" not in line):
                 log("    ptxas:", line.strip())
+    check_hopper_sass(_build)
     return smi.splitlines()[0]
+
+
+# the kernels redesigned on wgmma and TMA: each function whose name holds
+# "wgmma" must contain both instructions in its SASS
+HOPPER_KERNELS = ("flash_attention", "bsr_spmm")
+
+
+def cuobjdump_path() -> str:
+    """``$CUDA_HOME/bin/cuobjdump`` (else /usr/local/cuda's), else the copy in
+    Triton's ``backends/nvidia/bin``; raises if there is neither."""
+    import importlib.util
+    import os
+    home = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+    cands = [home / "bin" / "cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cands.append(Path(spec.origin).parent / "backends" / "nvidia" / "bin"
+                     / "cuobjdump")
+    for cand in cands:
+        if cand.is_file():
+            return str(cand)
+    raise RuntimeError(f"cuobjdump not found (tried {[str(c) for c in cands]})")
+
+
+def check_hopper_sass(_build) -> None:
+    """Phase 1: the redesigned kernels are Hopper's. Disassembles their
+    libraries and fails unless every wgmma kernel holds HGMMA (wgmma) and
+    UTMALDG (a TMA load)."""
+    tool = cuobjdump_path()
+    for name in HOPPER_KERNELS:
+        sass = subprocess.run([tool, "-sass", _build.build_info[name]["path"]],
+                              capture_output=True, text=True, check=True).stdout
+        funcs = [f for f in sass.split("Function : ")[1:]
+                 if "wgmma" in f.split(None, 1)[0]]
+        if not funcs:
+            raise AssertionError(f"{name}: no wgmma kernel in its library")
+        for f in funcs:
+            fname = f.split(None, 1)[0]
+            counts = {op: f.count(op) for op in ("HGMMA", "UTMALDG",
+                                                 "UTMASTG")}
+            log(f"  {name} SASS: {fname[:72]}... {counts}")
+            if not counts["HGMMA"] or not counts["UTMALDG"]:
+                raise AssertionError(f"{name}: {fname} lacks HGMMA or UTMALDG")
 
 
 # --------------------------------------------------------------------------
@@ -830,11 +899,19 @@ def check_flash_attention() -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     tol = {f32: (2e-5, 2e-5), bf16: (2.0 ** -7, 2.0 ** -7)}
     H = 16
+    # S = 130 and 2080 leave a ragged last 128-row query tile; the bf16 cases
+    # at d = 64 and 128 run the wgmma kernel
     cases = [(2 if S < 2048 else 1, S, S, kvh, d, dtype, causal)
-             for S in (1, 77, 2048, 2080) for d in (16, 64, 128)
+             for S in (1, 77, 130, 2048, 2080) for d in (16, 64, 128)
              for kvh in (16, 4) for dtype in (f32, bf16)
              for causal in (True, False)]
     cases += [(1, 5, 300, 4, 128, f32, True), (2, 33, 40, 2, 64, bf16, True)]
+    # Skv > S under the causal mask (a cache's alignment), Skv < S (rows that
+    # see no key), GQA, on the wgmma kernel
+    cases += [(2, 130, 300, 4, 64, bf16, True), (1, 130, 2080, 4, 128, bf16,
+                                                   True),
+              (1, 300, 2080, 2, 128, bf16, False), (2, 300, 40, 4, 64, bf16,
+                                                      True)]
     max_err = 0.0
     for i, (B, S, skv, kvh, d, dtype, causal) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(200 + i)
@@ -854,7 +931,8 @@ def check_flash_attention() -> dict:
         max_err = max(max_err, err)
     log(f"flash_attention: {len(cases)} cases match the plain version (max "
         f"abs err {max_err:.3g}; causal and not, f32 and bf16, S in 1, 77, "
-        f"2048, 2080, d in 16, 64, 128, KVH 16 and 4 at H = 16)")
+        f"130, 2048, 2080, d in 16, 64, 128, KVH 16 and 4 at H = 16; Skv of "
+        f"40 to 2080 beside S of 5 to 300)")
 
     B, S, H, d = FLASH_MAIN
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -938,36 +1016,49 @@ def _bsr_bound(cols, vals, x):
                                  else "bytes"), flops, nbytes, nblocks
 
 
-def check_bsr_spmm(main_ops, decode_ops) -> dict:
-    """Phase 6b: ``main_ops`` and ``decode_ops`` are (block_cols, block_vals,
-    x) of layer 0's ``we_g`` product in phase 7's prefill and first decode
+def check_bsr_spmm(main_ops, we2_ops, decode_ops) -> dict:
+    """Phase 6b: ``main_ops``, ``we2_ops`` and ``decode_ops`` are
+    (block_cols, block_vals, x) of layer 0's ``we_g`` and ``we_2`` products
+    in phase 7's prefill and of its ``we_g`` product in the first decode
     step."""
     from repro_torch.kernels import bsr_spmm as bs
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("phase 7 layer 0 we_g", *main_ops),
+             ("phase 7 layer 0 we_2", *we2_ops),
              ("phase 7 decode layer 0 we_g", *decode_ops)]
     E, _, C, D = main_ops[1].shape
     cases.append(("phase 7 layer 0 we_g, f32",
                   main_ops[0], main_ops[1].float(), main_ops[2].float()))
-    # random blocked-ELL at three densities with -1 padding, ragged shapes
-    for i, (R, K, bm, bk, n, nblk, density, dtype) in enumerate(
-            [(32, 4, 128, 128, 256, 8, 0.1, f32), (32, 4, 128, 128, 256, 8,
-                                                  0.5, bf16),
-             (32, 4, 128, 128, 256, 8, 1.0, f32), (7, 3, 5, 7, 9, 4, 0.6,
-                                                   bf16),
-             (64, 1, 8, 2048, 1408, 64, 0.25, bf16),    # decode's shape
-             (9, 2, 100, 64, 130, 6, 0.7, f32), (3, 1, 640, 48, 200, 2, 1.0,
-                                                  bf16)]):
+    # random blocked-ELL at three densities with -1 padding, ragged shapes;
+    # then, on the wgmma kernels (bf16, bk and n multiples of 8), K = 4
+    # stored blocks a row with ids past x's last block and rows of padding
+    # alone, at prefill's and decode's tile shapes, and bk = 48 (TMA fills
+    # the rest of a 64-deep slice with zeros)
+    for i, (R, K, bm, bk, n, nblk, density, dtype, oor, pad_rows) in enumerate(
+            [(32, 4, 128, 128, 256, 8, 0.1, f32, 0, ()),
+             (32, 4, 128, 128, 256, 8, 0.5, bf16, 0, ()),
+             (32, 4, 128, 128, 256, 8, 1.0, f32, 0, ()),
+             (7, 3, 5, 7, 9, 4, 0.6, bf16, 0, ()),
+             (64, 1, 8, 2048, 1408, 64, 0.25, bf16, 0, ()),  # decode's shape
+             (9, 2, 100, 64, 130, 6, 0.7, f32, 0, ()),
+             (3, 1, 640, 48, 200, 2, 1.0, bf16, 0, ()),
+             (16, 4, 256, 128, 512, 6, 0.8, bf16, 2, (3, 7)),
+             (16, 4, 8, 256, 512, 6, 0.8, bf16, 2, (0, 5)),
+             (8, 3, 130, 48, 136, 4, 0.9, bf16, 1, (2,)),
+             (8, 3, 8, 48, 136, 4, 0.9, bf16, 1, (6,))]):
         g = torch.Generator(device="cuda").manual_seed(300 + i)
-        cols = torch.randint(0, nblk, (R, K), generator=g, device="cuda",
-                             dtype=torch.int32)
+        cols = torch.randint(0, nblk + oor, (R, K), generator=g,
+                             device="cuda", dtype=torch.int32)
         cols = torch.where(torch.rand(R, K, generator=g, device="cuda")
                            < density, cols, -1)
+        if pad_rows:
+            cols[list(pad_rows)] = -1
         vals = torch.randn(R, K, bm, bk, generator=g, device="cuda").to(dtype)
         x = torch.randn(nblk * bk, n, generator=g, device="cuda").to(dtype)
         cases.append((f"R={R} K={K} bm={bm} bk={bk} n={n} density "
-                      f"{density} {dtype}", cols, vals, x))
+                      f"{density} {dtype}, ids up to {nblk + oor - 1} of "
+                      f"{nblk}, padding rows {pad_rows}", cols, vals, x))
     max_err = 0.0
     for name, cols, vals, x in cases:
         got = bs.bsr_spmm(cols, vals, x)
@@ -992,15 +1083,29 @@ def check_bsr_spmm(main_ops, decode_ops) -> dict:
         f"{plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms; bound "
         f"{bound:.4f} ms by {by} ({flops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB), {100 * bound / ms:.1f}% of it")
+    wc, wv, wx = we2_ops
+    w_ms = cuda_time_ms(lambda: bs.bsr_spmm(wc, wv, wx), iters=10)
+    w_lib = cuda_time_ms(lambda: torch.bmm(wv[:, 0], wx.reshape(
+        E, wv.shape[3], -1)), iters=10)
+    w_bound, w_by, w_flops, w_bytes, _ = _bsr_bound(wc, wv, wx)
+    log(f"bsr_spmm prefill we_2 (bk={wv.shape[3]} n={wx.shape[1]}): kernel "
+        f"{w_ms:.4f} ms, torch.bmm {w_lib:.4f} ms; bound {w_bound:.4f} ms by "
+        f"{w_by} ({w_flops / 1e9:.1f} GFLOP, {w_bytes / 1e6:.1f} MB), "
+        f"{100 * w_bound / w_ms:.1f}% of it")
     dc, dv, dx = decode_ops
     d_ms = cuda_time_ms(lambda: bs.bsr_spmm(dc, dv, dx), iters=20)
+    d_dev = kernel_device_ms(lambda: bs.bsr_spmm(dc, dv, dx),
+                             "bsr_spmm_wgmma_kernel")
     d_lib = cuda_time_ms(lambda: torch.bmm(dv[:, 0], dx.reshape(E, D, -1)),
                          iters=20)
     d_bound, d_by, _, d_bytes, d_blocks = _bsr_bound(dc, dv, dx)
     log(f"bsr_spmm decode we_g (bm=C={dv.shape[2]}, {d_blocks} experts with "
-        f"tokens): kernel {d_ms:.4f} ms, torch.bmm (all {E} experts) "
-        f"{d_lib:.4f} ms; bound {d_bound:.4f} ms by {d_by} "
-        f"({d_bytes / 1e6:.1f} MB), {100 * d_bound / d_ms:.1f}% of it")
+        f"tokens): kernel {d_ms:.4f} ms a call back to back (CUDA events; "
+        f"the host's enqueue paces it), {d_dev:.4f} ms of device time a "
+        f"launch (profiler); torch.bmm (all {E} experts) {d_lib:.4f} ms; "
+        f"bound {d_bound:.4f} ms by {d_by} ({d_bytes / 1e6:.1f} MB), "
+        f"{100 * d_bound / d_ms:.1f}% of it by events, "
+        f"{100 * d_bound / d_dev:.1f}% by device time")
     return {"name": "bsr_spmm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bsr_spmm.cu",
             "replaces": "src/repro/kernels/bsr_spmm.py:41",
@@ -1042,8 +1147,9 @@ class _Clock:
 
 def serve_path():
     """Phase 7. Returns (flash_attention launches, bsr_spmm launches) of the
-    warm run, and the operands of layer 0's ``we_g`` product in the prefill
-    and in the first decode step (for 6b)."""
+    warm run, and the operands of layer 0's ``we_g`` and ``we_2`` products in
+    the prefill and of its ``we_g`` product in the first decode step (for
+    6b)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import bsr_spmm as bs
     from repro_torch.kernels import flash_attention as fa
@@ -1072,15 +1178,16 @@ def serve_path():
         f"{time.perf_counter() - t0:.2f} s")
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
 
-    # cold run; phase 6b takes the operands of layer 0's we_g product (the
-    # first bsr_spmm call) of its prefill and of its first decode step,
-    # kept on the host so that they stay out of the peak memory below
+    # cold run; phase 6b takes the operands of layer 0's we_g and we_2
+    # products (the first and third bsr_spmm calls) of its prefill and of
+    # we_g in its first decode step, kept on the host so that they stay out
+    # of the peak memory below
     moe_layers = sum(cfg.layer_moe())
     ops, calls = [], [0]
     wrapped = bs.bsr_spmm
 
     def capture(cols, vals, x):
-        if calls[0] in (0, 3 * moe_layers):
+        if calls[0] in (0, 2, 3 * moe_layers):
             ops.append(tuple(t.cpu() for t in (cols, vals, x)))
         calls[0] += 1
         return wrapped(cols, vals, x)

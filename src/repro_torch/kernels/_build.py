@@ -27,7 +27,8 @@ _lock = threading.Lock()                 # guards _name_locks
 _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": build time (0.0 when loaded from the cache),
-#              "log": nvcc's output, including ptxas' register report}
+#              "log": nvcc's output, including ptxas' register report,
+#              "path": the shared library}
 build_info: dict[str, dict] = {}
 
 
@@ -76,6 +77,7 @@ def load(name: str) -> ctypes.CDLL:
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         t0 = time.perf_counter()
         log = "" if out.is_file() else _compile(src, out)
-        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log,
+                            "path": str(out)}
         lib = _libs[name] = ctypes.CDLL(str(out))
         return lib

@@ -15,7 +15,10 @@ a CUDA tensor launches the kernel in ``csrc/bsr_spmm.cu`` or raises. The
 kernel takes any bm, bk and n (the Pallas kernel asks n to divide its
 tile), float32 or bfloat16 (mixed inputs are cast to the output type
 first), and sums in float32 with one rounding at the store. An id past x's
-last block reads the last block, as ``ref.bsr_spmm``'s clip does.
+last block reads the last block, as ``ref.bsr_spmm``'s clip does. bf16
+with bk and n multiples of 8 (the experts' shapes) runs on Hopper's tensor
+cores (wgmma fed by TMA; a tile shaped for bm <= 64 at decode); float32 and
+other bf16 shapes run a float32 FMA kernel.
 """
 from __future__ import annotations
 

@@ -7,52 +7,65 @@
 // sequential, carrying the running max, denominator and accumulator in VMEM
 // scratch from one grid step to the next, and masks the KV tiles above the
 // diagonal instead of skipping them (a TPU grid cannot be triangular). Blocks
-// on Hopper run in no order and share nothing, so here:
+// on Hopper run in no order and share nothing, so here one thread block owns
+// one (batch, head, query tile) and walks the KV tiles itself, the running
+// max m, denominator l and output accumulator staying on chip for the whole
+// walk, and writes the output once; under the causal mask the walk stops at
+// the tile that holds the last visible key, so the tiles above the diagonal
+// are never loaded (half the work at S = Skv); GQA reads KV head
+// h / (H / KVH) in place; any S and Skv: rows and keys past the edge are
+// zeros, masked and never stored.
 //
-//   * one thread block owns one (batch, head, 64-row query tile) and walks
-//     the KV tiles itself in a loop; the running max m, denominator l and the
-//     output accumulator live in shared memory and registers for the whole
-//     walk, and the output is written once;
-//   * under the causal mask the loop stops at the tile that holds the tile's
-//     last visible key: the tiles above the diagonal are never loaded, which
-//     halves the work at S = Skv;
-//   * GQA without a repeat: query head h reads KV head h / (H / KVH);
-//   * any S, Skv and head dims up to 256: rows and keys past the edge load as
-//     zeros, are masked and never stored; the head dim is padded to the
-//     template's DM (32, 64, 128 or 256) with zeros, which add nothing.
+// Numerics, those of the Pallas kernel in both kernels below: scores, max,
+// sum and accumulator in float32; O rescaled by exp(m_old - m_new); p rounded
+// to v's type before P V (the Pallas kernel casts p before its PV dot) but
+// summed into l unrounded; a row that sees no key gives 0; the output is
+// acc / max(l, 1e-30), rounded once; query i sees keys j <= i + Skv - S.
 //
-// Two kernels share that walk. bf16 with d == dv in {64, 128} (the models'
-// heads) runs on the tensor cores: mma.sync m16n8k16 into float32, K/V tiles
-// copied by cp.async, p repacked from the score accumulators into the A
-// fragments of P V (see flash_attention_mma_kernel). Everything else (f32,
-// other head dims, unaligned rows) runs a float32 FMA kernel: per KV tile,
-// S = Q K^T * scale as a 4x4 register micro-tile per thread (Q and K
-// transposed in shared memory), then four threads per row take the row's max
-// and sum with warp shuffles. Both rescale by corr = exp(m_old - m_new),
-// round p = exp(s - m_new) to v's type before P V (as the Pallas kernel casts
-// p before its PV dot) but sum the unrounded p into l, keep scores, max, sum
-// and accumulator in float32, and write acc / max(l, 1e-30), rounded once.
+// What bounds it on this card: at the main path's (B, S, H, d) =
+// (4, 2048, 16, 128), bf16, causal, the work is 4 B H d S(S+1)/2 = 68.75
+// GFLOP against 134 MB of q, k, v and o: the tensor cores' 989 TFLOP/s
+// (0.0695 ms). What the kernel does not hide is the softmax between the
+// products: one instruction less per exponential bought 7 % (PERF.md).
 //
-// Cost on the card: at the main path's (B, S, H, d) = (4, 2048, 16, 128),
-// bf16, causal, the work is 4*B*H*d*S(S+1)/2 = 68.75 GFLOP against 134 MB of
-// q, k, v and o, so the bound is the tensor cores' 989 TFLOP/s (0.0695 ms).
-// The mma.sync kernel is a first tensor-core design: one K/V stage (blocks on
-// the same SM overlap each other's loads), a 64-row query tile per block, no
-// warp specialisation. wgmma with TMA and a larger query tile are the next
-// steps (PERF.md). The FMA kernel cannot come
-// within 7 % of that bound (67 TFLOP/s of float32 FMA at most).
+// Design (bf16, d == dv in {64, 128}, tensors on 16 bytes: what TMA and the
+// models' heads take): an FA3-shaped forward (flash_attention_wgmma_kernel).
+// A block of three warpgroups owns a 128-row query tile: warpgroup 0 is the
+// producer, one thread of which TMA-loads the Q tile once and each 128-key
+// tile of K and V into a three-stage ring gated by mbarriers; warpgroups 1
+// and 2 (setmaxnreg: 240 registers, the producer 24) each own 64 rows. Per
+// key tile a consumer runs S = Q K^T as wgmma m64n128k16 (Q and K K-major in
+// shared memory, SW128 boxes of 64 columns: d = 128 as two), masks S only
+// on a tile that crosses the diagonal or the end of Skv, takes the online
+// softmax in registers with exp2 (scale * log2 e folded in; ex2.approx, one
+// instruction), and feeds p, rounded to bf16, straight from the score
+// accumulators as the register A operand of O += P V (wgmma m64n{d}k16, V
+// MN-major: the transpose bit). The output goes through the warpgroup's own
+// (spent) Q rows to a TMA store. The grid runs the heaviest query tiles
+// first (blockIdx.y reversed, heads fastest), so the causal grid has no long
+// tail. Issuing S of the next tile before this tile's softmax, and taking
+// turns between the two consumers (FA3's overlaps), measured no faster here
+// (PERF.md).
+//
+// Everything else (f32, other head dims, MLA's d != dv, unaligned rows) runs
+// a float32 FMA kernel (flash_attention_kernel): 64-row query tiles, per KV
+// tile S = Q K^T * scale as a 4x4 register micro-tile per thread (Q and K
+// transposed in shared memory), then four threads per row take the row's
+// max and sum with warp shuffles; it cannot come within 7 % of the bound
+// (67 TFLOP/s of float32 FMA at most).
 //
 // C interface (bound with ctypes): flash_attention_launch returns
 // cudaGetLastError() after the launch (or the error of setting the dynamic
-// shared-memory size), 0 on success, or -1 for a dtype or head dim this file
-// does not take.
+// shared-memory size), 0 on success, -1 for a dtype, head dim or grid this
+// file does not take, or -2 (hopper::kTensorMapError) when a tensor map is
+// refused.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -238,212 +251,268 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16 on the tensor cores ---------------------------------------------
+// ---- bf16 on the tensor cores: wgmma fed by TMA (FA3-shaped) ---------------
 //
-// The same walk for bf16 with d == dv in {64, 128}: a block of 4 warps owns
-// 64 query rows, 16 per warp. Q's fragments stay in registers; each 64-key
-// tile of K and V comes into shared memory by cp.async (zero past Skv). A
-// second K/V buffer measured slower: its 87 KB of shared memory leaves room
-// for fewer blocks per SM, which overlapped each other's loads (PERF.md).
-// S = Q K^T is mma.sync m16n8k16 into float32 (K read with ldmatrix as the
-// col-major B operand), the row max and sum are reduced across the 4 lanes
-// that share a row, p is rounded to bf16 and repacked from the S
-// accumulators straight into the A fragments of P V (V read with
-// ldmatrix.trans). l keeps per-lane partial sums of the unrounded p, summed
-// across the row's lanes at the end.
+// Stage s of the ring holds K and V of one key tile, each with its own
+// "full" mbarrier (S = Q K^T starts before V has landed) and one "empty"
+// mbarrier that counts the consumer warps done with both. Thread (w, g, q)
+// of a consumer warpgroup holds rows 16 w + g and 16 w + g + 8 of its 64
+// (hopper.cuh's accumulator layout).
 
-constexpr int kWQ = 16;                // query rows per warp
-constexpr int kMThreads = 128;
+constexpr int kFQ = 128, kFK = 128;    // query rows a block, keys a tile
+constexpr int kFStages = 3;            // K/V stages
 
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  return 3 * kBQ * (D + 8) * sizeof(__nv_bfloat16);   // Q, K, V tiles
-}
+struct FlashSmem {
+  static constexpr uint32_t kBox = 128 * 128;          // 128 rows x 64 bf16
+  static constexpr uint32_t kQ = (D / 64) * kBox;      // Q tile
+  static constexpr uint32_t kKV = (D / 64) * kBox;     // one K or V tile
+  static constexpr size_t kBytes = kQ + 2 * kFStages * kKV + 1024;  // + align
+};
 
-// three blocks an SM: registers capped at 168 a thread (174 uncapped left
-// room for two, 20 % slower at the main shape, PERF.md)
 template <int D>
-__global__ void __launch_bounds__(kMThreads, 3)
-flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, int S, int Skv,
-                           int H, int KVH, float scale, int causal) {
-  using namespace mma_bf16;
-  constexpr int kLd = D + 8;           // padded row: conflict-free ldmatrix
-  constexpr int kChunks = D / 8;       // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBQ * kLd;
-  __nv_bfloat16* vs = ks + kBK * kLd;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int q0 = blockIdx.x * kBQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int hk = h / (H / KVH);
-  const int off = Skv - S;
-
-  for (int ch = tid; ch < kBQ * kChunks; ch += kMThreads) {
-    const int rr = ch / kChunks, cc = (ch % kChunks) * 8;
-    const int qr = q0 + rr;
-    const bool ok = qr < S;
-    cp_async16(qs + rr * kLd + cc,
-               ok ? q + (((size_t)b * S + qr) * H + h) * D + cc : q, ok);
-  }
-  cp_async_commit();
-
-  const int qlast = min(q0 + kBQ, S) - 1;
-  const int kend = causal ? min(Skv, qlast + off + 1) : Skv;
-  const int ntile = kend > 0 ? (kend + kBK - 1) / kBK : 0;
-  auto load_kv = [&](int k0) {
-    for (int ch = tid; ch < kBK * kChunks; ch += kMThreads) {
-      const int rr = ch / kChunks, cc = (ch % kChunks) * 8;
-      const int kr = k0 + rr;
-      const bool ok = kr < Skv;
-      const size_t row = ((size_t)b * Skv + kr) * KVH + hk;
-      cp_async16(ks + rr * kLd + cc, ok ? k + row * D + cc : k, ok);
-      cp_async16(vs + rr * kLd + cc, ok ? v + row * D + cc : v, ok);
-    }
+__global__ void __launch_bounds__(384, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const __grid_constant__ CUtensorMap map_o, int S,
+                             int Skv, int H, int KVH, float scale_log2,
+                             int causal) {
+  using namespace hopper;
+  using L = FlashSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t qbar, kfull[kFStages], vfull[kFStages],
+      empty[kFStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;
+  auto ks = [&](int s) { return smem + L::kQ + s * L::kKV; };
+  auto vs = [&](int s) {
+    return smem + L::kQ + (kFStages + s) * L::kKV;
   };
-  cp_async_wait<0>();                  // Q has landed
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], qs + (warp * kWQ + (lane & 15)) * kLd + kk * 16 +
-                            (lane >> 4) * 8);
 
-  float oacc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  const int qrow0 = q0 + warp * kWQ + g, qrow1 = qrow0 + 8;
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFQ;   // heaviest first
+  const int off = Skv - S;             // query i sees keys j <= i + off
+  const int qlast = min(q0 + kFQ, S) - 1;
+  const int kend = causal ? min(Skv, qlast + off + 1) : Skv;
+  const int ntile = kend > 0 ? (kend + kFK - 1) / kFK : 0;
 
-  for (int it = 0; it < ntile; ++it) {
-    const int k0 = it * kBK;
-    load_kv(k0);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float s[kBK / 8][4];               // this warp's 16 x 64 scores
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int jp = 0; jp < kBK / 16; ++jp) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, ks + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma(s[2 * jp], qf[kk], kf[0], kf[1]);
-        mma(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
-      }
-
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kc = k0 + j * 8 + tq * 2 + e;
-        const bool in = kc < Skv;
-        s[j][e] = (in && (!causal || kc <= qrow0 + off))
-            ? s[j][e] * scale : -INFINITY;
-        s[j][2 + e] = (in && (!causal || kc <= qrow1 + off))
-            ? s[j][2 + e] * scale : -INFINITY;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = (m0 == -INFINITY) ? 0.f : expf(m0 - mn0);
-    const float c1 = (m1 == -INFINITY) ? 0.f : expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    uint32_t pf[kBK / 16][4];          // A fragments of P, 16 keys each
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      const float p0 = (mn0 == -INFINITY) ? 0.f : expf(s[j][0] - mn0);
-      const float p1 = (mn0 == -INFINITY) ? 0.f : expf(s[j][1] - mn0);
-      const float p2 = (mn1 == -INFINITY) ? 0.f : expf(s[j][2] - mn1);
-      const float p3 = (mn1 == -INFINITY) ? 0.f : expf(s[j][3] - mn1);
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);       // row g
-      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);   // row g + 8
+  if (threadIdx.x == 0) {
+    mbar_init(&qbar, 1);
+    for (int s = 0; s < kFStages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], 8);         // lane 0 of every consumer warp
     }
-    l0 = l0 * c0 + rs0;
-    l1 = l1 * c1 + rs1;
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {                       // producer warpgroup
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&qbar, L::kQ);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_4d(qs + c * L::kBox, &map_q, &qbar, c * 64, h, q0, b);
+      for (int it = 0; it < ntile; ++it) {
+        const int s = it % kFStages;
+        mbar_wait(&empty[s], ((it / kFStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&kfull[s], L::kKV);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(ks(s) + c * L::kBox, &map_k, &kfull[s], c * 64, hk,
+                      it * kFK, b);
+        mbar_arrive_expect_tx(&vfull[s], L::kKV);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(vs(s) + c * L::kBox, &map_v, &vfull[s], c * 64, hk,
+                      it * kFK, b);
+      }
+    }
+  } else {                             // consumer warpgroups
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, tq = lane & 3;
+    const int rows0 = q0 + cw * 64;    // this warpgroup's first row
+    const int row_a = rows0 + warp * 16 + g, row_b = row_a + 8;
+
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+    mbar_wait(&qbar, 0);
+
+    for (int it = 0; it < ntile; ++it) {
+      const int s = it % kFStages;
+      const uint32_t par = (it / kFStages) & 1;
+      const int k0 = it * kFK;
+      float sacc[kFK / 2];
+      mbar_wait(&kfull[s], par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, w = (kk % 4) * 32;
+        wgmma_ss_n128<0, 0>(sacc,
+                            desc_kmajor(qs + c * L::kBox + cw * 8192 + w),
+                            desc_kmajor(ks(s) + c * L::kBox + w), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+
+      // the mask, only on a tile that crosses the diagonal or Skv
+      if (k0 + kFK > Skv || (causal && k0 + kFK - 1 > rows0 + off)) {
+        const int lim_a = causal ? min(Skv - 1, row_a + off) : Skv - 1;
+        const int lim_b = causal ? min(Skv - 1, row_b + off) : Skv - 1;
+#pragma unroll
+        for (int j = 0; j < kFK / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kc = k0 + j * 8 + tq * 2 + c;
+            if (kc > lim_a) sacc[4 * j + c] = -INFINITY;
+            if (kc > lim_b) sacc[4 * j + 2 + c] = -INFINITY;
+          }
+      }
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kFK / 8; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+      const float mn_a = fmaxf(m_a, mx_a * scale_log2);
+      const float mn_b = fmaxf(m_b, mx_b * scale_log2);
+      const float c_a = m_a == -INFINITY ? 0.f : exp2_approx(m_a - mn_a);
+      const float c_b = m_b == -INFINITY ? 0.f : exp2_approx(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      // a row with no key seen so far keeps p = 0 (mn = -inf)
+      const float sub_a = mn_a == -INFINITY ? 0.f : mn_a;
+      const float sub_b = mn_b == -INFINITY ? 0.f : mn_b;
+
+      uint32_t pf[kFK / 16][4];        // A registers of P, 16 keys each
+      float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < kFK / 8; ++j) {
+        const float p0 =
+            exp2_approx(fmaf(sacc[4 * j], scale_log2, -sub_a));
+        const float p1 =
+            exp2_approx(fmaf(sacc[4 * j + 1], scale_log2, -sub_a));
+        const float p2 =
+            exp2_approx(fmaf(sacc[4 * j + 2], scale_log2, -sub_b));
+        const float p3 =
+            exp2_approx(fmaf(sacc[4 * j + 3], scale_log2, -sub_b));
+        rs_a += p0 + p1;
+        rs_b += p2 + p3;
+        pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);       // row g
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);   // row g + 8
+      }
+      l_a = l_a * c_a + rs_a;
+      l_b = l_b * c_b + rs_b;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        oacc[4 * j] *= c_a;
+        oacc[4 * j + 1] *= c_a;
+        oacc[4 * j + 2] *= c_b;
+        oacc[4 * j + 3] *= c_b;
+      }
+
+      mbar_wait(&vfull[s], par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFK / 16; ++kk) {
+        const uint64_t dv = desc_mnmajor(vs(s) + kk * 2048, L::kBox);
+        if constexpr (D == 128)
+          wgmma_rs_n128<1>(oacc, pf[kk], dv, 1);
+        else
+          wgmma_rs_n64<1>(oacc, pf[kk], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      if (lane == 0) mbar_arrive(&empty[s]);   // K and V of stage s are free
+    }
+
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    const float d_a = fmaxf(l_a, 1e-30f), d_b = fmaxf(l_b, 1e-30f);
+    // the output, rounded once, into this warpgroup's own Q rows (no longer
+    // read: its last Q K^T has completed), then TMA-stored (rows past S are
+    // not written)
+    const int ra = warp * 16 + g, rb = ra + 8;
+    unsigned char* out = qs + cw * 8192;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      oacc[j][0] *= c0;
-      oacc[j][1] *= c0;
-      oacc[j][2] *= c1;
-      oacc[j][3] *= c1;
+      unsigned char* box = out + (j / 8) * L::kBox;
+      *reinterpret_cast<__nv_bfloat162*>(box + sw128_offset(ra, j % 8) +
+                                         tq * 4) =
+          __floats2bfloat162_rn(oacc[4 * j] / d_a, oacc[4 * j + 1] / d_a);
+      *reinterpret_cast<__nv_bfloat162*>(box + sw128_offset(rb, j % 8) +
+                                         tq * 4) =
+          __floats2bfloat162_rn(oacc[4 * j + 2] / d_b, oacc[4 * j + 3] / d_b);
     }
+    fence_proxy_async();
+    named_barrier(1 + cw, 128);
+    if ((threadIdx.x & 127) == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + (kk * 16 + (lane & 15)) * kLd + dp * 16 +
-                                  (lane >> 4) * 8);
-        mma(oacc[2 * dp], pf[kk], vf[0], vf[1]);
-        mma(oacc[2 * dp + 1], pf[kk], vf[2], vf[3]);
-      }
-    __syncthreads();                   // the tile is free for the next copy
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + tq * 2;
-    if (qrow0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(
-          o + (((size_t)b * S + qrow0) * H + h) * D + c) =
-          __floats2bfloat162_rn(oacc[j][0] / d0, oacc[j][1] / d0);
-    if (qrow1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(
-          o + (((size_t)b * S + qrow1) * H + h) * D + c) =
-          __floats2bfloat162_rn(oacc[j][2] / d1, oacc[j][3] / d1);
+      for (int c = 0; c < D / 64; ++c)
+        tma_store_4d(&map_o, out + c * L::kBox, c * 64, h, rows0, b);
+      bulk_commit();
+      bulk_wait_read<0>();             // the block's shared memory outlives it
+    }
   }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Skv, int H, int KVH, float scale, int causal,
-               cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<D>();
-  auto kern = flash_attention_mma_kernel<D>;
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int S, int Skv, int H, int KVH, float scale, int causal,
+                 cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v, map_o;
+  const uint32_t box[4] = {64, 1, 128, 1};
+  const uint64_t q_dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)S,
+                              (uint64_t)B};
+  const uint64_t q_strides[3] = {(uint64_t)D, (uint64_t)H * D,
+                                 (uint64_t)S * H * D};
+  const uint64_t kv_dims[4] = {(uint64_t)D, (uint64_t)KVH, (uint64_t)Skv,
+                               (uint64_t)B};
+  const uint64_t kv_strides[3] = {(uint64_t)D, (uint64_t)KVH * D,
+                                  (uint64_t)Skv * KVH * D};
+  const uint32_t out_box[4] = {64, 1, 64, 1};
+  if (hopper::make_map_bf16(&map_q, q, 4, q_dims, q_strides, box) ||
+      hopper::make_map_bf16(&map_k, k, 4, kv_dims, kv_strides, box) ||
+      hopper::make_map_bf16(&map_v, v, 4, kv_dims, kv_strides, box) ||
+      hopper::make_map_bf16(&map_o, o, 4, q_dims, q_strides, out_box))
+    return hopper::kTensorMapError;
+  const size_t smem = FlashSmem<D>::kBytes;
+  auto kern = flash_attention_wgmma_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  kern<<<grid, kMThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      Skv, H, KVH, scale, causal);
+  const int ntq = (S + kFQ - 1) / kFQ;
+  if (ntq > 65535) return -1;
+  const dim3 grid(B * H, ntq);
+  kern<<<grid, 384, smem, stream>>>(
+      map_q, map_k, map_v, map_o, S, Skv, H, KVH,
+      scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the tensor-core path: bf16, d == dv in {64, 128}, rows on 16 bytes
-bool mma_fits(const void* q, const void* k, const void* v, const void* o,
-              int d, int dv) {
-  return d == dv && (d == 64 || d == 128) &&
+// the tensor-core path: bf16, d == dv in {64, 128}, tensors on 16 bytes (TMA)
+// and at least one key (a tensor map has no empty dimension)
+bool wgmma_fits(const void* q, const void* k, const void* v, const void* o,
+                int d, int dv, int Skv) {
+  return d == dv && (d == 64 || d == 128) && Skv > 0 &&
          (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
                  16 == 0;
@@ -498,10 +567,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       return launch_dm<float>(q, k, v, o, B, S, Skv, H, KVH, d, dv, scale,
                               causal, s);
     case kBF16:
-      if (mma_fits(q, k, v, o, d, dv))
+      if (wgmma_fits(q, k, v, o, d, dv, Skv))
         return d == 64
-            ? launch_mma<64>(q, k, v, o, B, S, Skv, H, KVH, scale, causal, s)
-            : launch_mma<128>(q, k, v, o, B, S, Skv, H, KVH, scale, causal, s);
+            ? launch_wgmma<64>(q, k, v, o, B, S, Skv, H, KVH, scale, causal, s)
+            : launch_wgmma<128>(q, k, v, o, B, S, Skv, H, KVH, scale, causal,
+                                s);
       return launch_dm<__nv_bfloat16>(q, k, v, o, B, S, Skv, H, KVH, d, dv,
                                       scale, causal, s);
   }

@@ -23,6 +23,9 @@ its blocks and KV heads repeated for GQA:
 Numerics follow the Pallas kernel: scores, running max, denominator and
 accumulator in float32, ``p`` rounded to v's type before the PV product,
 the output divided by ``max(l, 1e-30)`` and rounded once to q's type.
+bf16 with d == dv in {64, 128} (the models' heads) runs on Hopper's tensor
+cores (wgmma fed by TMA, 128 query rows a block); float32, other head dims
+and MLA's d != dv run a float32 FMA kernel.
 """
 from __future__ import annotations
 

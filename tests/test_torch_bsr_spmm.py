@@ -101,9 +101,14 @@ def test_grouped_matmul_moe_pattern():
 
 
 @pytest.mark.parametrize("R,K,bm,bk,n", [(3, 2, 5, 7, 9), (8, 3, 10, 64, 130),
-                                         (4, 1, 640, 16, 24)])
+                                         (4, 1, 640, 16, 24),
+                                         (4, 3, 8, 48, 136),
+                                         (3, 1, 16, 1408, 64),
+                                         (5, 4, 130, 64, 256)])
 def test_ragged_blocks_and_columns_vs_ref(R, K, bm, bk, n):
     # bm, bk and n that no tile divides; ids past x's last block are clipped
+    # (bk = 48 and 1408 are not multiples of the Hopper kernel's 64-deep
+    # slices; bm = 8 is decode's tile, 130 a ragged 128-row one)
     rng = np.random.default_rng(R * K + n)
     nblk = 6
     cols = rng.integers(-1, nblk + 2, (R, K)).astype(np.int32)
@@ -126,6 +131,39 @@ def test_bf16_vs_ref():
                       torch.as_tensor(x).bfloat16())
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("R,K,bm,bk,n", [(4, 4, 8, 48, 64), (3, 2, 130, 64, 128)])
+def test_padding_rows_and_clipped_ids_vs_ref_and_pallas(dtype, R, K, bm, bk,
+                                                        n):
+    # K > 1 stored blocks a row with -1 padding and ids past x's last block,
+    # and a block-row of padding alone, which gives exact zeros (the experts
+    # that received no token); bf16 against the oracle on bf16 inputs
+    rng = np.random.default_rng(R * bm + bk)
+    nblk = 3
+    cols = rng.integers(-1, nblk + 2, (R, K)).astype(np.int32)
+    cols[1] = -1
+    vals = rng.standard_normal((R, K, bm, bk)).astype(np.float32)
+    x = rng.standard_normal((nblk * bk, n)).astype(np.float32)
+    if dtype == "bfloat16":
+        tv, tx = (torch.as_tensor(a).bfloat16() for a in (vals, x))
+        got = bs.bsr_spmm(torch.as_tensor(cols), tv, tx)
+        assert got.dtype == torch.bfloat16
+        got = got.float().numpy()
+        vals, x = tv.float().numpy(), tx.float().numpy()
+        tol = BF16_TOL
+    else:
+        got, tol = port(cols, vals, x), F32_TOL
+    np.testing.assert_array_equal(got[bm:2 * bm], 0.0)
+    ref_out = np_of(ref.bsr_spmm(jnp.asarray(cols), jnp.asarray(vals),
+                                 jnp.asarray(x), x.shape[0]))
+    np.testing.assert_allclose(got, ref_out, **tol)
+    # the Pallas kernel reads x's block by the id itself: clip as ref does
+    pallas = np_of(pallas_bsr(jnp.asarray(np.minimum(cols, nblk - 1)),
+                              jnp.asarray(vals), jnp.asarray(x),
+                              interpret=True))
+    np.testing.assert_allclose(got, pallas, **tol)
 
 
 @pytest.mark.parametrize("bm,bk,max_blocks", [(64, 32, None), (32, 64, 2),
@@ -162,22 +200,54 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,K,bm,bk,n", [(3, 2, 5, 7, 9), (8, 3, 100, 64, 130),
-                                         (16, 1, 8, 256, 88)])
-def test_kernel_vs_plain_on_gpu(cuda, dtype, R, K, bm, bk, n):
+def gpu_operands(cuda, dtype, R, K, bm, bk, n, nblk=5):
+    # ids run past x's last block, and block-row 1 is padding alone
     g = torch.Generator(device=cuda).manual_seed(R + n)
-    nblk = 5
-    cols = torch.randint(-1, nblk, (R, K), generator=g, device=cuda,
+    cols = torch.randint(-1, nblk + 2, (R, K), generator=g, device=cuda,
                          dtype=torch.int32)
+    cols[1] = -1
     vals = torch.randn((R, K, bm, bk), generator=g, device=cuda).to(dtype)
     x = torch.randn((nblk * bk, n), generator=g, device=cuda).to(dtype)
+    return cols, vals, x
+
+
+def launch_once(cols, vals, x):
     before = bs.launches
     got = bs.bsr_spmm(cols, vals, x)
     torch.cuda.synchronize()
     assert bs.launches == before + 1
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,K,bm,bk,n", [(3, 2, 5, 7, 9), (8, 3, 100, 64, 130),
+                                         (16, 1, 8, 256, 88),
+                                         (4, 3, 8, 48, 136),
+                                         (5, 4, 130, 64, 256)])
+def test_kernel_vs_plain_on_gpu(cuda, dtype, R, K, bm, bk, n):
+    cols, vals, x = gpu_operands(cuda, dtype, R, K, bm, bk, n)
+    got = launch_once(cols, vals, x)
     want = bs.bsr_spmm_plain(cols, vals, x)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,K,bm,bk,n", [(3, 1, 16, 1408, 64),
+                                         (4, 2, 200, 1408, 512)])
+def test_kernel_long_sums_on_gpu(cuda, dtype, R, K, bm, bk, n):
+    # sums of up to K * bk = 2816 products (bk = 1408: the expert product's
+    # ragged last 64-deep slice), beyond the fixed tolerances' premise: two
+    # float32 summation orders of m terms differ by at most 2 m u (|A| |x|)
+    # (u = 2^-24), and a bf16 output by one more rounding on each side
+    cols, vals, x = gpu_operands(cuda, dtype, R, K, bm, bk, n)
+    got = launch_once(cols, vals, x).double()
+    want = bs.bsr_spmm_plain(cols, vals, x).double()
+    bound = 2 * K * bk * 2.0 ** -24 * bs.bsr_spmm_plain(
+        cols, vals.float().abs(), x.float().abs()).double()
+    if dtype == torch.bfloat16:
+        bound += 2.0 ** -7 * want.abs()
+    assert bool(((got - want).abs() <= bound).all())

@@ -68,10 +68,13 @@ def test_plain_vs_pallas_bf16(causal):
     np.testing.assert_allclose(got, want, **BF16_TOL)
 
 
-@pytest.mark.parametrize("S", [1, 77])
+@pytest.mark.parametrize("S", [1, 77, 130, 258])
 def test_ragged_sequence_vs_ref(S):
-    # no block divides 77 (the Pallas kernel asserts S % bq == 0)
-    q, k, v = qkv(2, S, 2, 16, seed=S)
+    # no block divides 77 (the Pallas kernel asserts S % bq == 0); 130 and
+    # 258 leave a ragged last 128-row query tile of the Hopper kernel, here
+    # at its head dims
+    d = {130: 64, 258: 128}.get(S, 16)
+    q, k, v = qkv(2, S, 2, d, seed=S)
     jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
     for causal in (True, False):
         np.testing.assert_allclose(port(q, k, v, causal),
@@ -80,10 +83,13 @@ def test_ragged_sequence_vs_ref(S):
                                    **F32_TOL)
 
 
-@pytest.mark.parametrize("S,skv", [(33, 33), (5, 40), (1, 40)])
+@pytest.mark.parametrize("S,skv", [(33, 33), (5, 40), (1, 40), (130, 300),
+                                   (40, 130)])
 def test_gqa_and_cache_alignment_vs_layers_attention(S, skv):
     # 4 query heads over 2 KV heads, read in place; S < Skv aligns the
     # causal mask at the bottom right, as layers.attention's tril(k=Skv-S)
+    # (130 queries over 300 keys: a ragged query tile, and key tiles that
+    # cross the diagonal and the end of Skv)
     q, k, v = qkv(2, S, 4, 16, seed=S + skv, skv=skv, kvh=2)
     for causal in (True, False):
         want = np_of(jlayers.attention(jnp.asarray(q), jnp.asarray(k),
@@ -103,6 +109,21 @@ def test_rows_that_see_no_key_give_zeros():
     want = np_of(ref.flash_attention(jnp.asarray(q[:, 2:]), jnp.asarray(k),
                                      jnp.asarray(v), True))
     np.testing.assert_allclose(got[:, 2:], want, **F32_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_rows_that_see_no_key_give_zeros_bf16(d):
+    # the same at the Hopper kernel's head dims in bf16: 140 queries over 12
+    # keys, so the whole first 128-row tile and some of the second see none
+    S, skv = 140, 12
+    q, k, v = qkv(1, S, 2, d, seed=d, skv=skv)
+    got = port(q, k, v, True, torch.bfloat16)
+    np.testing.assert_array_equal(got[:, :S - skv], 0.0)
+    cast = [torch.as_tensor(x).bfloat16().float().numpy() for x in (q, k, v)]
+    want = np_of(ref.flash_attention(jnp.asarray(cast[0][:, S - skv:]),
+                                     jnp.asarray(cast[1]),
+                                     jnp.asarray(cast[2]), True))
+    np.testing.assert_allclose(got[:, S - skv:], want, **BF16_TOL)
 
 
 def test_types_and_shapes_refused():
@@ -130,7 +151,11 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,skv,H,kvh,d", [(77, 77, 4, 2, 64),
                                            (130, 200, 4, 1, 128),
-                                           (1, 9, 2, 2, 16)])
+                                           (1, 9, 2, 2, 16),
+                                           (130, 130, 4, 2, 64),
+                                           (258, 258, 2, 1, 128),
+                                           (130, 300, 4, 2, 64),
+                                           (140, 12, 2, 2, 128)])
 def test_kernel_vs_plain_on_gpu(cuda, dtype, S, skv, H, kvh, d):
     q, k, v = (torch.as_tensor(x, device=cuda).to(dtype)
                for x in qkv(2, S, H, d, seed=14, skv=skv, kvh=kvh))
