@@ -7,13 +7,15 @@ Phases (any failure exits non-zero and prints no result line):
 1. setup: the card's name and power limit, the torch and CUDA versions, the
    kernels' build times (one nvcc per source, all started together, from
    the sources in this checkout) and ptxas' registers and spills; then
-   ``cuobjdump -sass`` of the flash_attention and bsr_spmm libraries, which
-   fails unless each wgmma kernel holds HGMMA and UTMALDG;
+   ``cuobjdump -sass`` of the flash_attention, bsr_spmm and ssd_chunk
+   libraries, which fails unless each wgmma kernel holds HGMMA and UTMALDG;
 2. segreduce vs plain: the segmented-reduce kernel against its plain
    PyTorch version on the card, over tags, dtypes, id orders and sizes;
-2b. semiring_matmul vs plain: the dense-tile kernel against its plain
-   version over its four algebras and types, ragged shapes and NaN/inf,
-   with times at 2048^3 beside the bound and torch.matmul;
+2b. semiring_matmul vs plain: the dense-tile kernels against their plain
+   version over the four algebras and their types, ragged shapes (a 128 x
+   128 tile's four edges), NaN/inf, ties of +0 and -0, or_and's partial
+   packed words; the SASS instruction mix of the redesigned kernels; times
+   at 2048^3 beside the bound and torch.matmul;
 3. tricount: masked triangle counting of an R-MAT graph (Graph500
    parameters, scale 15, edge factor 16, seed 0) through
    ``DistSpMat.from_global_coo`` -> ``triangle_count`` -> planner ->
@@ -48,11 +50,13 @@ Phases (any failure exits non-zero and prints no result line):
    versions) and on the card (kernels) from the same parameters; then, on
    the card with a capacity that drops no token, the decode-step logits
    against a teacher-forced forward;
-8. ssd_chunk vs plain: the SSD intra-chunk kernel against its plain version
-   at phase 9's prefill shape (G, q, H, P, N) = (64, 128, 80, 64, 128) in
-   bf16 and f32, the smoke widths, a 40-token and a 256-token chunk, with
-   the model's dt and A (exp overflows above the diagonal), and times at
-   the main shape beside the bound;
+8. ssd_chunk vs plain: the SSD intra-chunk kernels against their plain
+   version at phase 9's prefill shape (G, q, H, P, N) = (64, 128, 80, 64,
+   128) in bf16 (the tensor-core route) and f32 (the FMA route), the smoke
+   widths, 40-, 77- and 256-token chunks, N of 8, 40 and 200, P of 72,
+   with the model's dt and A (exp overflows above the diagonal), each
+   case's route printed and checked; times at the main shape beside both
+   routes' bounds;
 9. serve: mamba2-2.7b at full width and depth (64 layers, bf16 parameters
    from ``init_params(seed=0)``) through ``greedy_generate`` with phase 7's
    traffic: cold and warm prefill, decode wall per token, peak memory,
@@ -180,8 +184,8 @@ def setup() -> str:
         info = _build.build_info[name]
         log(f"  {name}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or ("spill" in line
-                                       and " 0 bytes spill" not in line):
+            if "registers" in line or "warning" in line or (
+                    "spill" in line and " 0 bytes spill" not in line):
                 log("    ptxas:", line.strip())
     check_hopper_sass(_build)
     return smi.splitlines()[0]
@@ -189,7 +193,7 @@ def setup() -> str:
 
 # the kernels redesigned on wgmma and TMA: each function whose name holds
 # "wgmma" must contain both instructions in its SASS
-HOPPER_KERNELS = ("flash_attention", "bsr_spmm")
+HOPPER_KERNELS = ("flash_attention", "bsr_spmm", "ssd_chunk")
 
 
 def cuobjdump_path() -> str:
@@ -387,6 +391,49 @@ def _smm_operands(kind, m, k, n, dtype, seed, integers=False):
             torch.randn(k, n, generator=g, device="cuda", dtype=dtype))
 
 
+def _smm_signed_zeros(kind, m, k, n, dtype, seed):
+    """Operands of 0, -0, 1 and 2 (min_plus) or 0, -0, -1 and -2 (max_min):
+    most results are a tie of +0 and -0 terms ((-0) + (-0) is the only -0
+    sum; min(+0, -0) is -0), whose sign the kernel must not take from the
+    order of k."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    vals = torch.tensor([0.0, -0.0, 1.0, 2.0], device="cuda", dtype=dtype)
+    if kind == "max_min":
+        vals = -vals
+    return (vals[torch.randint(0, 4, (m, k), generator=g, device="cuda")],
+            vals[torch.randint(0, 4, (k, n), generator=g, device="cuda")])
+
+
+def smm_sass_counts(_build) -> None:
+    """Phase 2b: the instruction mix of the redesigned semiring_matmul
+    kernels, from ``cuobjdump -sass``: FFMA (plus_times), FMNMX (one a
+    min or max), LDS.128 (the float4 fragment loads), LDGSTS (cp.async),
+    LOP3 (or_and's packed step). Fails unless every f32 and or_and kernel
+    holds LDS.128, and the f32 ones LDGSTS."""
+    lib = _build.build_info["semiring_matmul"]["path"]
+    sass = subprocess.run([cuobjdump_path(), "-sass", lib],
+                          capture_output=True, text=True, check=True).stdout
+    ops = ("FFMA", "FMNMX", "LDS.128", "LDGSTS", "LOP3")
+    found = 0
+    for f in sass.split("Function : ")[1:]:
+        fname = f.split(None, 1)[0]
+        if "f32_kernel" not in fname and "or_and_kernel" not in fname:
+            continue
+        found += 1
+        counts = {op: f.count(op) for op in ops}
+        # from the kernel's name on, its template arguments (ILi<kind>E
+        # Lb<vec>E) included
+        short = fname[fname.rfind("semiring_matmul_"):][:48]
+        log(f"  semiring_matmul SASS: {short} {counts}")
+        if not counts["LDS.128"] or ("f32_kernel" in fname
+                                     and not counts["LDGSTS"]):
+            raise AssertionError(f"semiring_matmul: {fname} lacks LDS.128 "
+                                 f"or LDGSTS")
+    if found != 8:            # 3 algebras x 2 copy widths + or_and x 2
+        raise AssertionError(f"semiring_matmul: {found} redesigned kernels "
+                             f"in its library, not 8")
+
+
 def _smm_compare(got, want, a, b, exact):
     """Max abs error; raises unless bitwise equal (up to NaN payloads) where
     ``exact``, else within the bound of any summation order,
@@ -439,8 +486,9 @@ def check_semiring_matmul() -> dict:
 
     f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
     i32, i64, b8 = torch.int32, torch.int64, torch.bool
+    # (129, 17, 257): a 128 x 128 tile's edges on all four sides
     shapes = (SMM_MAIN, (1000, 777, 1531), (1, 1, 1), (130, 17, 65),
-              (5, 0, 7))
+              (5, 0, 7), (129, 17, 257))
     # (kind, dtype, shape, integer-valued float operands)
     cases = []
     for shape in shapes:
@@ -449,6 +497,13 @@ def check_semiring_matmul() -> dict:
                   ("min_plus", f32, shape, False),
                   ("max_min", f32, shape, False),
                   ("or_and", b8, shape, False)]
+    # or_and's packed words: K of 31, 32, 33 and 777 leave a partial last
+    # word (unaligned rows: byte loads), 48 and 256 aligned rows (16-byte
+    # loads), 48 a partial word among them
+    for k_ in (31, 32, 33, 777):
+        cases.append(("or_and", b8, (129, k_, 257), False))
+    for k_ in (48, 256):
+        cases.append(("or_and", b8, (256, k_, 128), False))
     for shape in shapes[:2]:
         cases += [("plus_times", bf16, shape, False),
                   ("plus_times", i32, shape, False),
@@ -485,9 +540,30 @@ def check_semiring_matmul() -> dict:
                 raise AssertionError("the NaN case holds no NaN")
             _smm_compare(got, want, a, b, exact=True)
             cases.append((kind, dtype, (1000, 777, 1531), "nan/inf"))
+    # ties of +0 and -0, compared with their signs
+    for kind in ("min_plus", "max_min"):
+        for dtype in (f32, f64):
+            for m, k, n in ((129, 17, 257), (256, 64, 256)):
+                a, b = _smm_signed_zeros(kind, m, k, n, dtype, seed=11)
+                got = smm.semiring_matmul(a, b, kind)
+                want = smm.semiring_matmul_plain(a, b, kind)
+                zeros = want == 0
+                if not (bool((zeros & want.signbit()).any())
+                        and bool((zeros & ~want.signbit()).any())):
+                    raise AssertionError("the signed-zero case holds not "
+                                         "both zeros")
+                try:
+                    _smm_compare(got, want, a, b, exact=True)
+                except AssertionError as e:
+                    raise AssertionError(f"semiring_matmul {kind} {dtype} "
+                                         f"{(m, k, n)} +-0 ties: {e}") from e
+                cases.append((kind, dtype, (m, k, n), "+-0"))
     log(f"semiring_matmul: {len(cases)} cases match the plain version "
-        f"(min_plus/max_min/or_and/integer sums bitwise; max abs err of "
-        f"random f32/bf16/f64 sums {max_err:.3g}, within 2 K u |A||B|)")
+        f"(min_plus/max_min/or_and/integer sums bitwise, +-0 ties with "
+        f"their signs; max abs err of random f32/bf16/f64 sums "
+        f"{max_err:.3g}, within 2 K u |A||B|)")
+    from repro_torch.kernels import _build
+    smm_sass_counts(_build)
 
     # times at phase 4's shape, 2048^3, by kind, beside the bound
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1434,23 +1510,40 @@ def check_ssd_chunk() -> dict:
 
     f32, bf16 = torch.float32, torch.bfloat16
     G, q, H, P, N = SSD_MAIN
-    cases = [(G, q, H, P, N, bf16, bf16), (G, q, H, P, N, f32, f32),
-             (G, q, H, P, N, bf16, f32),
-             (6, 16, 16, 8, 16, f32, f32),          # mamba2's smoke widths
-             (8, 40, H, P, N, bf16, bf16),          # a 40-token prompt
-             (4, 256, H, P, N, bf16, bf16),         # the longest chunk
-             (3, 77, 5, 72, 200, f32, bf16), (2, 1, 3, 4, 5, bf16, f32)]
+    # (case, the route it must take)
+    cases = [((G, q, H, P, N, bf16, bf16), "wgmma"),
+             ((G, q, H, P, N, f32, f32), "fma"),
+             ((G, q, H, P, N, bf16, f32), "wgmma"),
+             ((6, 16, 16, 8, 16, f32, f32), "fma"),   # mamba2's smoke widths
+             ((8, 40, H, P, N, bf16, bf16), "wgmma"),  # a 40-token prompt
+             ((4, 256, H, P, N, bf16, bf16), "fma"),   # the longest chunk
+             ((3, 77, 5, 72, 200, f32, bf16), "fma"),
+             ((2, 1, 3, 4, 5, bf16, f32), "fma"),
+             # the tensor-core route's edges: ragged q (77 rows: the second
+             # warpgroup's tile ragged; 40: no rows for it), N below and
+             # between 64-column boxes, a last group of fewer than 8 heads
+             ((2, 77, H, P, N, bf16, bf16), "wgmma"),
+             ((4, 77, 8, 64, 40, bf16, bf16), "wgmma"),
+             ((3, 40, 12, 64, 64, bf16, f32), "wgmma"),
+             ((2, 128, 5, 64, 8, bf16, bf16), "wgmma"),
+             # bf16 widths the tensor cores do not take: P = 72, N = 200
+             ((3, 77, 5, 72, 200, bf16, bf16), "fma")]
     max_err, overflowed = 0.0, 0
-    for i, (G_, q_, H_, P_, N_, xdt, ddt) in enumerate(cases):
+    for i, ((G_, q_, H_, P_, N_, xdt, ddt), want_route) in enumerate(cases):
         x, dt, A, B, C = _ssd_inputs(G_, q_, H_, P_, N_, xdt, ddt, 400 + i)
         cA = torch.cumsum(dt.float() * A.float(), dim=1)
         overflowed += bool(((cA[:, :1] - cA[:, -1:]) > 88.8).any())
+        what = f"G={G_} q={q_} H={H_} P={P_} N={N_} x {xdt} dt {ddt}"
+        route = sc.route(x, dt, A, B, C)
+        if route != want_route:
+            raise AssertionError(f"ssd_chunk {what}: route {route}, not "
+                                 f"{want_route}")
         got = sc.ssd_chunk(x, dt, A, B, C)
         want = sc.ssd_chunk_plain(x, dt, A, B, C)
         torch.cuda.synchronize()
-        max_err = max(max_err, _ssd_close(
-            got, want, x, dt, A, B, C,
-            f"G={G_} q={q_} H={H_} P={P_} N={N_} x {xdt} dt {ddt}"))
+        err = _ssd_close(got, want, x, dt, A, B, C, what)
+        log(f"  ssd_chunk {what}: {route}, max abs err {err:.3g}")
+        max_err = max(max_err, err)
     if not overflowed:
         raise AssertionError("no case overflows exp above the diagonal")
     log(f"ssd_chunk: {len(cases)} cases match the plain version (max abs "
@@ -1462,23 +1555,40 @@ def check_ssd_chunk() -> dict:
     plain_ms = cuda_time_ms(lambda: sc.ssd_chunk_plain(x, dt, A, B, C),
                             iters=3, warmup=1)
     # the work these inputs need: C B^T once per g and w x over the causal
-    # pairs, the states over every (k, p, n); float32 products (two of the
-    # three have float32 operands) at the float32 peak. Bytes: x, dt, A, B,
-    # C read once, y and the states (float32) written once.
+    # pairs, the states over every (k, p, n). On the FMA route these are
+    # float32 products at the float32 peak; on the tensor-core route the
+    # scores are bf16 products and the other two (one float32 operand,
+    # split into three bf16 terms) three bf16 products each, at the bf16
+    # peak. Bytes: x, dt, A, B, C read once, y and the states (float32)
+    # written once.
     pairs = q * (q + 1) // 2
-    flops = 2 * G * pairs * N + 2 * G * H * pairs * P + 2 * G * H * q * P * N
+    f_scores = 2 * G * pairs * N
+    f_rest = 2 * G * H * pairs * P + 2 * G * H * q * P * N
     nbytes = sum(t.numel() * t.element_size() for t in (x, dt, A, B, C)) \
         + 4 * (G * q * H * P + G * H * P * N)
-    t_ops = flops / F32_FLOPS * 1e3
+    t_f32 = (f_scores + f_rest) / F32_FLOPS * 1e3
+    t_tc = (f_scores + 3 * f_rest) / BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    route = sc.route(x, dt, A, B, C)
+    t_ops = t_tc if route == "wgmma" else t_f32
     bound = max(t_ops, t_bytes)
     by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"ssd_chunk {SSD_MAIN} (G, q, H, P, N) bf16: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, no one PyTorch call computes it; bound "
-        f"{bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at "
-        f"{F32_FLOPS / 1e12:.0f} TFLOP/s: {t_ops:.4f} ms; "
-        f"{nbytes / 1e6:.1f} MB: {t_bytes:.4f} ms), {100 * bound / ms:.1f}% "
-        f"of it")
+    log(f"ssd_chunk {SSD_MAIN} (G, q, H, P, N) bf16 ({route} route): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no one PyTorch call computes "
+        f"it; bound {bound:.4f} ms by {by}, {100 * bound / ms:.1f}% of it "
+        f"({nbytes / 1e6:.1f} MB: {t_bytes:.4f} ms; "
+        f"{(f_scores + 3 * f_rest) / 1e9:.2f} GFLOP of bf16 products at "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s: {t_tc:.4f} ms; the FMA route's "
+        f"{(f_scores + f_rest) / 1e9:.2f} GFLOP of f32 products at "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s: {t_f32:.4f} ms)")
+    x32, dt32, A32, B32, C32 = (t.float() for t in (x, dt, A, B, C))
+    f32_ms = cuda_time_ms(lambda: sc.ssd_chunk(x32, dt32, A32, B32, C32),
+                          iters=10)
+    route32 = sc.route(x32, dt32, A32, B32, C32)
+    log(f"ssd_chunk {SSD_MAIN} f32 inputs ({route32} route): kernel "
+        f"{f32_ms:.4f} ms, bound "
+        f"{max(t_f32, t_bytes):.4f} ms by operations, "
+        f"{100 * max(t_f32, t_bytes) / f32_ms:.1f}% of it")
     return {"name": "ssd_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssd_chunk.py:51",

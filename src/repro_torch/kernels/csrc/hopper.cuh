@@ -61,13 +61,15 @@ inline EncodeTiled encode_tiled() {
 // cannot be found)
 constexpr int kTensorMapError = -2;
 
-// A tensor map over a bf16 tensor of `rank` dims, dims[0] innermost and
-// contiguous, strides[i] the element stride of dims[i + 1]; boxes of box[i]
-// elements (box[0] = 64: 128 bytes, the SW128 row). Elements outside dims
-// load as zeros. Returns 0 or kTensorMapError.
-inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                         const uint64_t* dims, const uint64_t* strides,
-                         const uint32_t* box) {
+// A tensor map over a tensor of `rank` dims and elements of `elem_bytes`,
+// dims[0] innermost and contiguous, strides[i] the element stride of
+// dims[i + 1]; boxes of box[i] elements, box[0] * elem_bytes = 128 (the SW128
+// row). Elements outside dims load as zeros and are not stored. Returns 0 or
+// kTensorMapError.
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
+                    uint32_t elem_bytes, const void* base, int rank,
+                    const uint64_t* dims, const uint64_t* strides,
+                    const uint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kTensorMapError;
   cuuint64_t gdim[5], gstride[4];
@@ -76,15 +78,31 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
     gdim[i] = dims[i];
     bdim[i] = box[i];
     estride[i] = 1;
-    if (i + 1 < rank) gstride[i] = strides[i] * sizeof(__nv_bfloat16);
+    if (i + 1 < rank) gstride[i] = strides[i] * elem_bytes;
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), gdim, gstride, bdim, estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), gdim,
+                        gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError;
+}
+
+// bf16 elements: box[0] = 64
+inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                         const uint64_t* dims, const uint64_t* strides,
+                         const uint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rank, dims,
+                  strides, box);
+}
+
+// float32 elements: box[0] = 32 (an SW128 row of 32 floats; the 16-byte
+// chunk c of row r at chunk c ^ (r % 8), as for bf16)
+inline int make_map_f32(CUtensorMap* map, const void* base, int rank,
+                        const uint64_t* dims, const uint64_t* strides,
+                        const uint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rank, dims,
+                  strides, box);
 }
 
 // the device's SM count (cached per process)

@@ -7,16 +7,24 @@ hands every semiring whose parts name one of the four algebras here (its
 ``_kernel_kind``), so ``local_spgemm.spgemm_dense`` runs on this kernel.
 
 ``semiring_matmul`` is the wrapper. A tensor on the CPU goes to
-``semiring_matmul_plain``; a CUDA tensor launches the kernel in
+``semiring_matmul_plain``; a CUDA tensor launches a kernel in
 ``csrc/semiring_matmul.cu`` or raises. Output types follow the Pallas
 wrapper: ``promote_types(a, b)``, and bool for ``or_and``; mixed inputs are
-cast to the output type first. The kernel takes f32/f64 for the three
+cast to the output type first. The kernels take f32/f64 for the three
 arithmetic algebras, bf16 (accumulated in f32, rounded once) and i32/i64
 for ``plus_times``, and bool for ``or_and``; anything else raises a
 ``TypeError`` on either device. Integer ``min_plus``/``max_min`` is refused:
 they have no +-inf identity (the TPU kernel fills its int accumulator with
-inf cast to int). The kernel is bound by operations (8.6e9 semiring steps
-against 48 MiB of operands at 2048^3); see the source's note.
+inf cast to int). f32 takes a pipelined 128 x 128-tile kernel on the CUDA
+cores (FMA, or one min/max instruction a combine), bool a kernel that packs
+K into 32-bit words while staging, and the other types the first 64 x 64
+design; all are bound by operations (8.6e9 semiring steps against 48 MiB of
+operands at 2048^3); see the source's note.
+
+min and max propagate NaN, as ``torch.minimum``/``torch.maximum`` do, and
+order -0 below +0 (IEEE 754-2019 minimum/maximum): a tie of the two zeros
+gives -0 under min and +0 under max whatever the order of k, on both
+devices.
 """
 from __future__ import annotations
 
@@ -71,6 +79,32 @@ def _check(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.dtype:
     return out
 
 
+# min and max of floats with -0 below +0 (what min.NaN / max.NaN do on the
+# card), so that a tie of the zeros does not hang on the order of operands
+def _minimum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    out = torch.minimum(x, y)
+    return torch.where((out == 0) & (x.signbit() | y.signbit()),
+                       out.new_full((), -0.0), out)
+
+
+def _maximum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    out = torch.maximum(x, y)
+    return torch.where((out == 0) & ~(x.signbit() & y.signbit()),
+                       out.new_full((), 0.0), out)
+
+
+def _amin(t: torch.Tensor, dim: int) -> torch.Tensor:
+    out = t.amin(dim)
+    neg = ((t == 0) & t.signbit()).any(dim)
+    return torch.where((out == 0) & neg, out.new_full((), -0.0), out)
+
+
+def _amax(t: torch.Tensor, dim: int) -> torch.Tensor:
+    out = t.amax(dim)
+    pos = ((t == 0) & ~t.signbit()).any(dim)
+    return torch.where((out == 0) & pos, out.new_full((), 0.0), out)
+
+
 def semiring_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                           kind: str = "plus_times") -> torch.Tensor:
     """The plain PyTorch version (``repro/kernels/ref.py``'s oracle).
@@ -78,7 +112,8 @@ def semiring_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     Float ``plus_times`` is ``a @ b`` (bf16 through an f32 product rounded
     once, as the kernel does); integer ``plus_times`` and the other three
     algebras are a K-chunked broadcast-reduce, each chunk an (M, kc, N)
-    intermediate of at most 2^27 elements.
+    intermediate of at most 2^27 elements. min and max order -0 below +0,
+    as the kernels do, so the zeros' signs do not hang on the order of k.
     """
     out = _check(a, b, kind)
     a, b = a.to(out), b.to(out)
@@ -97,9 +132,9 @@ def semiring_matmul_plain(a: torch.Tensor, b: torch.Tensor,
         if kind == "plus_times":            # integers: wraps like the kernel
             acc += (ac * bc).sum(dim=1, dtype=out)
         elif kind == "min_plus":
-            acc = torch.minimum(acc, torch.amin(ac + bc, dim=1))
+            acc = _minimum(acc, _amin(ac + bc, 1))
         elif kind == "max_min":
-            acc = torch.maximum(acc, torch.amax(torch.minimum(ac, bc), dim=1))
+            acc = _maximum(acc, _amax(_minimum(ac, bc), 1))
         else:
             acc |= (ac & bc).any(dim=1)
     return acc

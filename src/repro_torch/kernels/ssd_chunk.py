@@ -12,17 +12,26 @@ For each pair (g, h) of a (batch * chunk) index g and a head h, with
     st[g, h, p, n] = sum_k x[g, k, h, p] exp(cA_last - cA_k) dt_k B[g, k, n]
 
 ``ssd_chunk`` is the wrapper. A tensor on the CPU goes to
-``ssd_chunk_plain``; a CUDA tensor launches the kernel or raises. Inputs:
+``ssd_chunk_plain``; a CUDA tensor launches a kernel or raises. Inputs:
 xc (G, q, H, P), dtc (G, q, H), A (H,), Bc and Cc (G, q, N); x, B and C in
 float32 or bfloat16, all three alike; dt and A in float32 or bfloat16 each.
 Any q from 1 to 256, any H, and P and N up to 256. Outputs are float32
 always, as the Pallas kernel's: y (G, q, H, P) and st (G, H, P, N).
 
+Two kernels (``route`` says which an input takes): bf16 x, B and C with
+P = 64, N a multiple of 8 up to 128 and q up to 128 (mamba2's prefill) run
+on the tensor cores, wgmma fed by TMA; everything else, float32 inputs
+among them, runs float32 FMA on the CUDA cores.
+
 Numerics follow the Pallas kernel, which casts every input to float32: the
-cumsum, the scores C . B, the decay and both products in float32. Above the
-diagonal ``cA_i - cA_k`` is positive and its exp may overflow; those entries
-are selected away (``where(i >= k, exp, 0)``, as the reference), never
-multiplied by a 0/1 mask, so no ``0 * inf`` reaches a sum.
+cumsum, the scores C . B, the decay and both products in float32. On the
+tensor cores the scores are bf16 x bf16 products, exact in float32; the
+float32 operand of the other two products (w, and x times the decay) is
+split into three bf16 terms that carry its 24 bits, each multiplied exactly
+and summed in float32. Above the diagonal ``cA_i - cA_k`` is positive and
+its exp may overflow; those entries are selected away (``where(i >= k, exp,
+0)``, as the reference), never multiplied by a 0/1 mask, so no ``0 * inf``
+reaches a sum.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ MAX_DIM = 256
 launches = 0
 
 _fn = None
+_route_fn = None
 
 
 def _check(xc, dtc, A, Bc, Cc) -> None:
@@ -84,19 +94,43 @@ def ssd_chunk_plain(xc, dtc, A, Bc, Cc):
     return y, st
 
 
-def _launch(xc, dtc, A, Bc, Cc, y, st) -> None:
-    global _fn, launches
+def _lib():
+    global _fn, _route_fn
     if _fn is None:
         from ._build import load
-        fn = load("ssd_chunk").ssd_chunk_launch
+        lib = load("ssd_chunk")
+        fn = lib.ssd_chunk_launch
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
+        route_fn = lib.ssd_chunk_route
+        route_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        route_fn.restype = ctypes.c_int
+        _fn, _route_fn = fn, route_fn
+    return _fn
+
+
+def route(xc, dtc, A, Bc, Cc) -> str:
+    """Which version ``ssd_chunk`` runs for these inputs: "plain" on the
+    CPU; on the GPU "wgmma" (the tensor-core kernel) or "fma" (the float32
+    FMA kernel), as ``csrc/ssd_chunk.cu`` decides."""
+    _check(xc, dtc, A, Bc, Cc)
+    if xc.device.type == "cpu":
+        return "plain"
+    _lib()
+    xc, Bc, Cc = (t.contiguous() for t in (xc, Bc, Cc))
+    q, P, N = xc.shape[1], xc.shape[3], Bc.shape[2]
+    return "wgmma" if _route_fn(xc.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                                q, P, N, _DTYPE_CODE[xc.dtype]) else "fma"
+
+
+def _launch(xc, dtc, A, Bc, Cc, y, st) -> None:
+    global launches
+    fn = _lib()
     G, q, H, P = xc.shape
     N = Bc.shape[2]
     stream = torch.cuda.current_stream(xc.device).cuda_stream
-    err = _fn(xc.data_ptr(), dtc.data_ptr(), A.data_ptr(), Bc.data_ptr(),
+    err = fn(xc.data_ptr(), dtc.data_ptr(), A.data_ptr(), Bc.data_ptr(),
               Cc.data_ptr(), y.data_ptr(), st.data_ptr(), G, q, H, P, N,
               _DTYPE_CODE[xc.dtype], _DTYPE_CODE[dtc.dtype],
               _DTYPE_CODE[A.dtype], stream)

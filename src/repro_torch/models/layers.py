@@ -101,8 +101,6 @@ def gqa_block(x, params, cfg: ModelConfig, pos, *, cache=None,
     ``attention``; later chunks and single-token decode attend over the
     cache with ``_decode_attention``.
     """
-    if pos3 is not None:                 # M-RoPE positions: not ported
-        apply_mrope(x, pos3, cfg.rope_theta, cfg.mrope_sections)
     B, S, D = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ params["wq"]
@@ -112,9 +110,17 @@ def gqa_block(x, params, cfg: ModelConfig, pos, *, cache=None,
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = apply_rope(q.reshape(B, S, H, hd), pos, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, KVH, hd), pos, cfg.rope_theta)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KVH, hd)
     v = v.reshape(B, S, KVH, hd)
+    # as the reference: M-RoPE where the config has sections and the batch
+    # has pos3 (not ported: it raises), else plain RoPE at pos, pos3 ignored
+    if cfg.mrope_sections is not None and pos3 is not None:
+        q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     new_cache = None
     if cache is not None:
         off = int(cache["offset"])

@@ -221,16 +221,16 @@ class Model(nn.Module):
         return {k: v if k in self._KEEP_F32 else v.to(adt)
                 for k, v in p.items()}
 
-    def _mixer(self, x, p, kind, pos, cache):
+    def _mixer(self, x, p, kind, pos, pos3, cache):
         if kind == "attn":
-            return L.gqa_block(x, p, self.cfg, pos, cache=cache)
+            return L.gqa_block(x, p, self.cfg, pos, cache=cache, pos3=pos3)
         return L.mamba_block(x, p, self.cfg, cache=cache)
 
-    def _layer(self, x, p, kind, moe, pos, cache):
+    def _layer(self, x, p, kind, moe, pos, pos3, cache):
         cfg = self.cfg
         p = self._cast_params(p)
         h = L.rmsnorm(x, p["ln1"], cfg.rms_eps)
-        mix, new_cache = self._mixer(h, p, kind, pos, cache)
+        mix, new_cache = self._mixer(h, p, kind, pos, pos3, cache)
         x = x + mix.to(x.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if "ln2" in p:                   # mamba2 has no FFN sublayer
@@ -246,9 +246,6 @@ class Model(nn.Module):
     def forward(self, params, batch, *, caches=None):
         """Returns (logits (B, S, vocab_padded), aux_loss, new_caches)."""
         cfg = self.cfg
-        if batch.get("pos3") is not None:
-            L.apply_mrope(None, batch["pos3"], cfg.rope_theta,
-                          cfg.mrope_sections)
         period = period_of(cfg)
         reps = cfg.n_layers // period
         kinds = cfg.layer_kinds()[:period]
@@ -259,6 +256,7 @@ class Model(nn.Module):
         offset = batch.get("offset")
         pos = steps.expand(B, S) if offset is None \
             else offset.to(x.device)[:, None] + steps[None]
+        pos3 = batch.get("pos3")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for r in range(reps):
             for i, (kind, moe) in enumerate(zip(kinds, moes)):
@@ -269,7 +267,7 @@ class Model(nn.Module):
                     c = dict(k=cc["k"][r], v=cc["v"][r],
                              offset=int(cc["offset"][r])) if kind == "attn" \
                         else dict(conv=cc["conv"][r], state=cc["state"][r])
-                x, a, nc = self._layer(x, blk, kind, moe, pos, c)
+                x, a, nc = self._layer(x, blk, kind, moe, pos, pos3, c)
                 aux = aux + a
                 if kind == "attn" and nc is not None:
                     caches[f"pos{i}"]["offset"][r] = nc["offset"]

@@ -126,6 +126,25 @@ def test_rows_that_see_no_key_give_zeros_bf16(d):
     np.testing.assert_allclose(got[:, S - skv:], want, **BF16_TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_long_sequence_vs_reference_unchunked(causal):
+    # above S * Skv = 4096^2 the reference's attention defaults to its
+    # _chunked_attention, which clamps the last key slice (keys counted
+    # twice when 1024 does not divide Skv) and aligns the causal mask at the
+    # top left (ROADMAP §3, reference defect 4); the port's attention is
+    # held against the reference's unchunked path, and the chunked one is
+    # shown to part from it
+    S = 4608
+    q, k, v = qkv(1, S, 1, 8, seed=46)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    want = np_of(jlayers.attention(jq, jk, jv, causal=causal, chunked=False))
+    got = np_of(tlayers.attention(*(torch.as_tensor(x) for x in (q, k, v)),
+                                  causal=causal))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    chunked = np_of(jlayers.attention(jq, jk, jv, causal=causal))
+    assert np.abs(chunked - want).max() > 1e-2
+
+
 def test_types_and_shapes_refused():
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(TypeError):

@@ -251,6 +251,35 @@ def test_forward_matches_jax():
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
 
 
+def test_pos3_without_mrope_sections_is_ignored_as_in_jax():
+    # qwen2-moe has no M-RoPE sections: the reference applies plain RoPE at
+    # pos and ignores pos3, so the logits equal those without pos3
+    jcfg, cfg = cfgs()
+    assert cfg.mrope_sections is None
+    jp, tp = params(jcfg)
+    toks = np.random.default_rng(16).integers(0, cfg.vocab, (1, 8)) \
+        .astype(np.int32)
+    pos3 = np.broadcast_to(np.arange(8, dtype=np.int32), (3, 1, 8)).copy()
+    jl, _, _ = JModel(jcfg).forward(
+        jp, dict(tokens=jnp.asarray(toks), pos3=jnp.asarray(pos3)),
+        remat=False)
+    tl, _, _ = Model(cfg)(tp, dict(tokens=torch.as_tensor(toks),
+                                   pos3=torch.as_tensor(pos3)))
+    plain, _, _ = Model(cfg)(tp, dict(tokens=torch.as_tensor(toks)))
+    np.testing.assert_allclose(np_of(tl), np_of(jl), **TOL)
+    np.testing.assert_array_equal(np_of(tl), np_of(plain))
+
+
+def test_pos3_with_mrope_sections_raises():
+    cfg = get_smoke("qwen2-vl-7b").scaled(dtype="float32")
+    assert cfg.mrope_sections is not None
+    p = init_params(cfg, seed=0, device=CPU)
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    pos3 = torch.zeros((3, 1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="apply_mrope"):
+        Model(cfg)(p, dict(tokens=toks, pos3=pos3))
+
+
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "hubert-xlarge"],
                          ids=str)
 def test_unported_families_raise(arch):

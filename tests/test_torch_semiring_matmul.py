@@ -136,6 +136,42 @@ def test_nan_and_inf_propagate_like_jnp(kind):
     np.testing.assert_array_equal(port(a64, b64, kind), want64)
 
 
+def signed_zeros(kind, m, k, n, seed, dtype=np.float32):
+    """Operands of 0, -0, 1 and 2 (min_plus) or 0, -0, -1 and -2 (max_min):
+    most results tie +0 and -0 terms ((-0) + (-0) is the only -0 sum,
+    min(+0, -0) is -0)."""
+    rng = np.random.default_rng(seed)
+    vals = np.array([0.0, -0.0, 1.0, 2.0], dtype)
+    if kind == "max_min":
+        vals = -vals
+    return (vals[rng.integers(0, 4, (m, k))], vals[rng.integers(0, 4, (k, n))])
+
+
+def same_bits(got, want):
+    """Equal values and equal signs of zero."""
+    return bool(((got == want) & (got.signbit() == want.signbit())).all())
+
+
+@pytest.mark.parametrize("kind,zero", [("min_plus", -0.0), ("max_min", 0.0)])
+def test_signed_zero_ties_do_not_hang_on_the_order_of_k(kind, zero):
+    # -0 orders below +0 (min.NaN / max.NaN on the card): a tie of the two
+    # zeros gives -0 under min and +0 under max, whichever comes first
+    # terms +0 and -0: (+0) + (+0) and (-0) + (-0); min(+0, +0), min(-0, +0)
+    a = torch.tensor([[0.0, -0.0]])
+    b = torch.tensor([[0.0], [-0.0 if kind == "min_plus" else 0.0]])
+    want = torch.tensor([[zero]])
+    for k_order in ([0, 1], [1, 0]):
+        got = smm.semiring_matmul(a[:, k_order], b[k_order], kind)
+        assert same_bits(got, want)
+    a, b = (torch.as_tensor(x) for x in signed_zeros(kind, 9, 17, 7, seed=3))
+    got = smm.semiring_matmul(a, b, kind)
+    flipped = smm.semiring_matmul(a.flip(1), b.flip(0), kind)
+    assert same_bits(got, flipped)
+    zeros = got == 0
+    assert bool((zeros & got.signbit()).any()) and \
+        bool((zeros & ~got.signbit()).any())
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_empty_contraction_gives_identity(kind):
     a, b = operands(kind, 3, 0, 4, seed=10)
@@ -257,7 +293,8 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("shape", [(128, 128, 128), (100, 77, 53)])
+@pytest.mark.parametrize("shape", [(128, 128, 128), (100, 77, 53),
+                                   (129, 17, 257), (256, 48, 128)])
 def test_kernel_vs_plain_on_gpu(cuda, kind, shape):
     a, b = (torch.as_tensor(x, device=cuda)
             for x in operands(kind, *shape, seed=14))
@@ -266,6 +303,27 @@ def test_kernel_vs_plain_on_gpu(cuda, kind, shape):
     torch.cuda.synchronize()
     assert smm.launches == before + 1
     assert torch.equal(got, smm.semiring_matmul_plain(a, b, kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [31, 32, 33, 777])
+def test_or_and_partial_words_on_gpu(cuda, k):
+    # K packed into 32-bit words: a K that 32 does not divide leaves zero
+    # bits in the last word
+    a, b = (torch.as_tensor(x, device=cuda)
+            for x in operands("or_and", 129, k, 257, seed=k))
+    assert torch.equal(smm.semiring_matmul(a, b, "or_and"),
+                       smm.semiring_matmul_plain(a, b, "or_and"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["min_plus", "max_min"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_signed_zero_ties_on_gpu(cuda, kind, dtype):
+    a, b = (torch.as_tensor(x, device=cuda)
+            for x in signed_zeros(kind, 129, 17, 257, seed=15, dtype=dtype))
+    assert same_bits(smm.semiring_matmul(a, b, kind),
+                     smm.semiring_matmul_plain(a, b, kind))
 
 
 @pytest.mark.gpu

@@ -154,7 +154,11 @@ def cuda():
                                      (torch.bfloat16, torch.float32)])
 @pytest.mark.parametrize("G,q,H,P,N", [(2, 128, 8, 64, 128),
                                        (3, 40, 5, 8, 16),
-                                       (1, 256, 2, 72, 200)])
+                                       (1, 256, 2, 72, 200),
+                                       (2, 77, 12, 64, 128),
+                                       (3, 40, 9, 64, 40),
+                                       (2, 128, 3, 64, 8),
+                                       (2, 77, 5, 72, 200)])
 def test_kernel_vs_plain_on_gpu(cuda, xdt, ddt, G, q, H, P, N):
     x, dt, A, B, C = inputs(G, q, H, P, N, seed=q, model_like=True)
     t = [torch.as_tensor(a, device=cuda) for a in (x, dt, A, B, C)]
@@ -173,3 +177,22 @@ def test_kernel_vs_plain_on_gpu(cuda, xdt, ddt, G, q, H, P, N):
     for g, w, b in zip(got, sc.ssd_chunk_plain(*t), bounds):
         assert bool(torch.isfinite(g).all())
         assert bool(((g - w).abs() <= 2.0 ** -10 * b + 1e-6).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt,q,P,N,want", [
+    (torch.bfloat16, 128, 64, 128, "wgmma"),     # mamba2's prefill
+    (torch.bfloat16, 77, 64, 40, "wgmma"),       # ragged q, N of 40
+    (torch.bfloat16, 256, 64, 128, "fma"),       # q past 128
+    (torch.bfloat16, 77, 72, 200, "fma"),        # P and N it does not take
+    (torch.float32, 128, 64, 128, "fma")])       # f32 inputs
+def test_route_on_gpu(cuda, xdt, q, P, N, want):
+    t = [torch.as_tensor(a, device=cuda)
+         for a in inputs(1, q, 2, P, N, seed=5)]
+    t = [t[0].to(xdt), t[1], t[2], t[3].to(xdt), t[4].to(xdt)]
+    assert sc.route(*t) == want
+
+
+def test_route_on_the_cpu_is_the_plain_version():
+    t = [torch.as_tensor(a) for a in inputs(1, 8, 2, 64, 16, seed=5)]
+    assert sc.route(*t) == "plain"
