@@ -10,7 +10,17 @@ Phases (any failure exits non-zero and prints no result line):
    ``cuobjdump -sass`` of the flash_attention, bsr_spmm and ssd_chunk
    libraries, which fails unless each wgmma kernel holds HGMMA and UTMALDG;
 2. segreduce vs plain: the segmented-reduce kernel against its plain
-   PyTorch version on the card, over tags, dtypes, id orders and sizes;
+   PyTorch version on the card. The atomic route over tags, dtypes, id
+   orders, sizes and vector values; the sorted route (``sorted_ids=True``)
+   over every dtype x tag, one segment of 2^20 elements, runs of exactly
+   one tile and runs straddling 2, 3 and many tiles, an all-padding and an
+   all-negative stream, S >> N with large gaps, S below the largest id, the
+   merge engine's padding tail, the declared identities (MAX_INT with
+   values below it, MIN_INT, inf, bool) and int64 ids beyond int32 on both
+   sides, each case's ``route()`` printed and checked; two sorted f32 sums
+   of one input bitwise equal; a descending stream sets the descent flag;
+   times at N = S = 2^24 (f32 sum, sorted ids) of both routes beside the
+   bound, the plain version and ``scatter_reduce_``;
 2b. semiring_matmul vs plain: the dense-tile kernels against their plain
    version over the four algebras and their types, ragged shapes (a 128 x
    128 tile's four edges), NaN/inf, ties of +0 and -0, or_and's partial
@@ -19,14 +29,17 @@ Phases (any failure exits non-zero and prints no result line):
 3. tricount: masked triangle counting of an R-MAT graph (Graph500
    parameters, scale 15, edge factor 16, seed 0) through
    ``DistSpMat.from_global_coo`` -> ``triangle_count`` -> planner ->
-   ``spgemm_2d`` on a 1x1 grid, held against scipy;
+   ``spgemm_2d`` on a 1x1 grid, held against scipy; its segreduce
+   launches by route (all sorted), and the shapes of its calls (N, S, live
+   ids, distinct segments), each timed (device time, torch.profiler)
+   beside the bound of what the sorted route must move;
 4. dense local SpGEMM: ``plan_local_spgemm`` -> ``spgemm_auto`` ->
    ``spgemm_dense`` on R-MAT scale 11, edge factor 64 (a 2048 x 2048 tile,
    the dense accumulator's largest) under four semirings, held against
    scipy, the port's ESC path and the plain oracle;
 5. local SpMV/SpMSpV on phase 3's tile: ``spmv_row``/``spmv_col`` and
    ``plan_local_spmspv`` -> ``spmspv_auto`` at three frontier densities,
-   held against scipy;
+   held against scipy, with their segreduce launches by route;
 6. flash_attention vs plain: the attention kernel against its plain version
    over causal and not, f32 and bf16, ragged S (130 and 2080 leave a ragged
    128-row tile), head dims 16-128, GQA and Skv beside S, with times at
@@ -69,8 +82,11 @@ Phases (any failure exits non-zero and prints no result line):
    parameters; then the card's decode-step logits against a teacher-forced
    forward.
 
-The two lines before the last are a JSON object with one record per kernel
-and the card's name and power limit; the last line is
+Phases 2-5 fail if a sorted-route launch saw its ids descend (a caller's
+broken ``sorted_ids`` promise: ``segreduce.descents()``). The two lines
+before the last are a JSON object with one record per kernel (segreduce's
+adds the atomic route's time and the main-path calls' summed time and
+bound) and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -285,12 +301,97 @@ def _compare(got, want, vals, ids, s, tag):
     return float(err.max()) if err.numel() else 0.0
 
 
+def _sorted_cases():
+    """Phase 2's sorted-route cases: (name, ids, S, dtype, tag, identity),
+    every id stream non-decreasing once clamped to [-1, S]."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand_sorted(lo, hi, n):
+        return torch.sort(torch.randint(lo, hi, (n,), generator=g,
+                                        device="cuda")).values.int()
+
+    ar = lambda n: torch.arange(n, device="cuda", dtype=torch.int32)
+    dtypes = (torch.float32, torch.int32, torch.bool, torch.float64,
+              torch.int64)
+    cases = []
+    for dtype in dtypes:                 # every dtype x tag
+        for tag in ("sum", "min", "max"):
+            for n, s in ((8, 8), (1000, 300), (300, 1), (4096, 1 << 16),
+                         (1 << 20, 1 << 20)):
+                cases.append((f"{n}/{s}", rand_sorted(0, s, n), s, dtype,
+                              tag, None))
+            cases.append(("ids out of range on both sides",
+                          rand_sorted(-400, 3400, 5000), 3000, dtype, tag,
+                          None))
+    for dtype, tag in ((torch.float32, "sum"), (torch.float32, "min"),
+                       (torch.float32, "max"), (torch.int32, "sum"),
+                       (torch.float64, "sum")):
+        cases.append(("one segment of 2^20", torch.full(
+            (1 << 20,), 7, dtype=torch.int32, device="cuda"), 10, dtype,
+            tag, None))
+    for name, ids, s in (
+            ("runs of one tile", ar(1 << 16) // 2048, 32),
+            ("runs straddling 2 tiles", (ar(1 << 16) + 1000) // 2048, 33),
+            ("runs straddling 3 tiles", ar(1 << 16) // 5000, 14),
+            ("runs over many tiles", ar(1 << 20) // 300_000, 4),
+            ("all padding (ids >= S)", torch.full((1 << 16,), 1 << 14,
+                                                   dtype=torch.int32,
+                                                   device="cuda"), 1 << 14),
+            ("all negative", torch.full((1 << 16,), -3, dtype=torch.int32,
+                                        device="cuda"), 1 << 14),
+            ("S >> N, large gaps", rand_sorted(0, 1 << 24, 5000), 1 << 24),
+            ("S below the largest id", rand_sorted(0, 1 << 20, 1 << 20),
+             1 << 19),
+            ("the merge engine's tail", torch.cat([
+                rand_sorted(0, 100_000, 1 << 20),
+                torch.full((1 << 22,), 1 << 19, dtype=torch.int32,
+                           device="cuda")]), 1 << 19)):
+        for tag in ("sum", "min", "max"):
+            cases.append((name, ids, s, torch.float32, tag, None))
+    # declared identities: MAX_INT with values below it, MIN_INT, inf, bool
+    for dtype, tag, ident in ((torch.int32, "max", -(2**31) + 1),
+                              (torch.int32, "min", 2**31 - 1),
+                              (torch.float32, "min", float("inf")),
+                              (torch.bool, "max", False),
+                              (torch.bool, "min", True)):
+        cases.append((f"identity {ident}", rand_sorted(-50, 5050, 1000),
+                      5000, dtype, tag, ident))
+    # int64 ids with out-of-range values on both sides
+    ids64 = torch.cat([torch.full((100,), -2**40, device="cuda"),
+                       rand_sorted(-5, 70_000, 1 << 18).long(),
+                       torch.full((100,), 2**40, device="cuda")])
+    for tag in ("sum", "min", "max"):
+        cases.append(("int64 ids beyond int32", ids64, 65_536,
+                      torch.float32, tag, None))
+    return cases
+
+
+def _sorted_values(n, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.rand(n, generator=g, device="cuda") < 0.5
+    if dtype.is_floating_point:
+        return torch.randn(n, generator=g, device="cuda", dtype=dtype)
+    return torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                         device="cuda", dtype=torch.int64).to(dtype)
+
+
+def check_descents(what: str) -> None:
+    """Fail if a sorted-route launch saw its ids descend (a caller's
+    broken ``sorted_ids`` promise)."""
+    from repro_torch.kernels import segreduce
+    if segreduce.descents():
+        raise AssertionError(f"{what}: a sorted_ids promise was broken "
+                             f"(the sorted route's descent flag is set)")
+
+
 def check_segreduce() -> dict:
     from repro_torch.kernels import segreduce
     from repro_torch.kernels.segreduce import segment_reduce_plain
 
     max_err = 0.0
     cases = []
+    # the atomic route (sorted_ids=False): any id order, vector values
     # (n, s, dtype, tag, ids kind, identity, value dims)
     for dtype in (torch.float32, torch.int32, torch.bool, torch.float64,
                   torch.int64):
@@ -299,7 +400,7 @@ def check_segreduce() -> dict:
                 for n, s in ((8, 8), (1000, 300), (300, 1), (4096, 1 << 16),
                              (1 << 20, 1 << 20)):
                     cases.append((n, s, dtype, tag, ids_kind, None, ()))
-    # the main path's shapes: f32 sums over N = S = 2^22 and 2^24
+    # the atomic route at N = S = 2^22 and 2^24, f32 sums of sorted ids
     for n in (1 << 22, 1 << 24):
         cases.append((n, n, torch.float32, "sum", "sorted", None, ()))
     # declared identities that differ from the dtype extreme: MAX_INT / MIN_INT
@@ -322,28 +423,86 @@ def check_segreduce() -> dict:
             vals[:4] = -(2**31)              # below the declared identity
         if i % 7 == 0:
             ids = ids.long()                 # int64 ids (narrowed by the wrapper)
+        before = segreduce.route_launches["atomic"]
         got = segreduce.segment_reduce(vals, ids, s, tag, identity=ident)
         want = segment_reduce_plain(vals, ids, s, tag, identity=ident)
         torch.cuda.synchronize()
         try:
+            if segreduce.route_launches["atomic"] != before + 1:
+                raise AssertionError("did not take the atomic route")
             err = _compare(got, want, vals, ids, s, tag)
         except AssertionError as e:
             raise AssertionError(f"segreduce n={n} s={s} {dtype} {tag} "
                                  f"{ids_kind} identity={ident} vdims={vdims}: "
                                  f"{e}") from e
         max_err = max(max_err, err)
-    log(f"segreduce: {len(cases)} cases match the plain version "
+    log(f"segreduce atomic route: {len(cases)} cases match the plain version "
         f"(max abs err of f32/f64 sums {max_err:.3g})")
 
-    # times at the main path's largest shape: N = S = 2^24, f32 sum,
-    # sorted ids (the merge engine's run ids)
+    # the sorted route (sorted_ids=True, scalar values): each case's route
+    # printed and checked, then held against the plain version (which
+    # checks the promise)
+    segreduce.reset_descents()
+    sorted_cases = _sorted_cases()
+    seen = {}
+    for i, (name, ids, s, dtype, tag, ident) in enumerate(sorted_cases):
+        vals = _sorted_values(ids.shape[0], dtype, seed=1000 + i)
+        if ident == -(2**31) + 1:
+            vals[::7] = -(2**31)             # below the declared identity
+        which = segreduce.route(dtype, 1, True)
+        before = segreduce.route_launches["sorted"]
+        got = segreduce.segment_reduce(vals, ids, s, tag, identity=ident,
+                                       sorted_ids=True)
+        want = segment_reduce_plain(vals, ids, s, tag, identity=ident,
+                                    sorted_ids=True)
+        torch.cuda.synchronize()
+        try:
+            if which != "sorted" or \
+                    segreduce.route_launches["sorted"] != before + 1:
+                raise AssertionError(f"route {which}, not sorted")
+            err = _compare(got, want, vals, ids, s, tag)
+        except AssertionError as e:
+            raise AssertionError(f"segreduce sorted route, {name}, N="
+                                 f"{ids.shape[0]} S={s} {dtype} {tag} "
+                                 f"identity={ident}: {e}") from e
+        max_err = max(max_err, err)
+        seen[name] = seen.get(name, 0) + 1
+    check_descents("phase 2's sorted cases")
+    log(f"segreduce sorted route: {len(sorted_cases)} cases, route sorted, "
+        f"match the plain version (max abs err of f32/f64 sums "
+        f"{max_err:.3g}); descent flag clear")
+    for name, count in seen.items():
+        log(f"  {name}: {count}")
+    # a broken promise sets the flag (and is then cleared)
+    bad = torch.cat([torch.arange(5000, device="cuda"),
+                     torch.arange(5000, device="cuda")]).int()
+    segreduce.segment_reduce(torch.ones(10_000, device="cuda"), bad, 6000,
+                             "sum", sorted_ids=True)
+    if segreduce.descents() != 1:
+        raise AssertionError("a descending stream left the flag clear")
+    segreduce.reset_descents()
+    log("segreduce sorted route: a descending stream sets the descent flag")
+
+    # times at N = S = 2^24, f32 sum, random sorted ids: the sorted route
+    # twice (bitwise equal), the atomic route (the first design) on the same
+    # input, the plain version, scatter_reduce_
     n = s = 1 << 24
     vals, ids = _segreduce_inputs(n, s, torch.float32, "sorted", seed=99)
-    got = segreduce.segment_reduce(vals, ids, s, "sum")
-    want = segment_reduce_plain(vals, ids, s, "sum")
+    got = segreduce.segment_reduce(vals, ids, s, "sum", sorted_ids=True)
+    again = segreduce.segment_reduce(vals, ids, s, "sum", sorted_ids=True)
+    want = segment_reduce_plain(vals, ids, s, "sum", sorted_ids=True)
     err_main = _compare(got, want, vals, ids, s, "sum")
-    ms = cuda_time_ms(lambda: segreduce.segment_reduce(vals, ids, s, "sum"),
-                      iters=50)
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("two sorted f32 sums of one input differ")
+    atomic = segreduce.segment_reduce(vals, ids, s, "sum")
+    _compare(atomic, want, vals, ids, s, "sum")
+    log(f"segreduce N=S=2^24 f32 sum: two sorted-route launches bitwise "
+        f"equal; max abs err {err_main:.3g} (atomic route "
+        f"{float((atomic - want).abs().max()):.3g})")
+    ms = cuda_time_ms(lambda: segreduce.segment_reduce(
+        vals, ids, s, "sum", sorted_ids=True), iters=50)
+    atomic_ms = cuda_time_ms(lambda: segreduce.segment_reduce(
+        vals, ids, s, "sum"), iters=50)
     plain_ms = cuda_time_ms(lambda: segment_reduce_plain(vals, ids, s, "sum"),
                             iters=20)
     ids64 = ids.long()
@@ -351,14 +510,15 @@ def check_segreduce() -> dict:
     library_ms = cuda_time_ms(
         lambda: out.scatter_reduce_(0, ids64, vals, "sum", include_self=False),
         iters=50)
+    check_descents("phase 2's timings")
     # least time: each input read once (value + id), each output written
-    # once (out; a sum keeps no touch count); one add per input at the f32
-    # peak
+    # once; one add per input at the f32 peak
     nbytes = n * (4 + 4) + s * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n / F32_FLOPS * 1e3
-    log(f"segreduce N=S=2^24 f32 sum sorted: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, scatter_reduce_ {library_ms:.4f} ms, bound "
+    log(f"segreduce N=S=2^24 f32 sum sorted ids: sorted route {ms:.4f} ms, "
+        f"atomic route {atomic_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"scatter_reduce_ {library_ms:.4f} ms, bound "
         f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e9:.3f} GB)")
     return {"name": "segreduce", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segreduce.cu",
@@ -367,7 +527,36 @@ def check_segreduce() -> dict:
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "atomic_route_ms": atomic_ms}
+
+
+def time_main_path_calls(calls) -> tuple[float, float]:
+    """The sorted route at the shapes phase 3's tricount gives it: each
+    recorded call's device time (its two kernels, from torch.profiler: the
+    host's enqueue would pace CUDA events) beside its bound, and their
+    sums."""
+    from repro_torch.kernels import segreduce
+    total = bound_total = 0.0
+    for i, (vals, ids, s, tag, kw) in enumerate(calls):
+        n = ids.shape[0]
+        inside = (ids >= 0) & (ids < s)
+        live = int(inside.sum())
+        kept = ids[inside]
+        distinct = int(torch.unique_consecutive(kept).numel()) if live else 0
+        call = lambda: segreduce.segment_reduce(vals, ids, s, tag, **kw)
+        ms = (kernel_device_ms(call, "segreduce_sorted_tiles")
+              + kernel_device_ms(call, "segreduce_sorted_carry"))
+        # least time: the in-range ids and values read once, the S outputs
+        # written once, one id pair a 2048-element tile (its two ends)
+        nbytes = (live * (4 + vals.element_size()) + s * vals.element_size()
+                  + -(-n // 2048) * 8)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        total += ms
+        bound_total += bound
+        log(f"  call {i}: N {n} S {s} live ids {live} distinct segments "
+            f"{distinct} {vals.dtype} {tag}: {ms:.4f} ms of device time, "
+            f"bound {bound:.4f} ms (bytes)")
+    return total, bound_total
 
 
 # --------------------------------------------------------------------------
@@ -659,17 +848,23 @@ def main_path():
     log(f"tricount cold: {cold} ({time.perf_counter() - t0:.3f} s)")
 
     # the main path: one warm call with the recorder off, timed on the
-    # host clock, its launches counted from 0
+    # host clock, its launches counted from 0, by route
     torch.cuda.reset_peak_memory_stats()
     segreduce.launches = 0
+    segreduce.route_launches.update(sorted=0, atomic=0)
     t0 = time.perf_counter()
     count = triangle_count(a, mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = segreduce.launches
+    by_route = dict(segreduce.route_launches)
     peak = torch.cuda.max_memory_allocated()
     log(f"tricount warm: {count} triangles, {wall:.4f} s, peak device memory "
-        f"{peak / 2**30:.3f} GiB, segreduce launches {launches}")
+        f"{peak / 2**30:.3f} GiB, segreduce launches {launches} {by_route}")
+    check_descents("phase 3's tricount")
+    if by_route["atomic"] or by_route["sorted"] != launches:
+        raise AssertionError(f"tricount's segreduce launches by route "
+                             f"{by_route}: not all sorted")
     # plan and spans from a separate recorded call (recording synchronizes
     # at each spgemm2d.execute span, so its times are not the wall above)
     with recorder.capture() as rec:
@@ -709,7 +904,31 @@ def main_path():
     log(f"C: {len(cr)} entries bitwise equal to scipy's, max {cv.max():.0f}; "
         f"plan attempts {plan.attempts}")
     profile_breakdown(lambda: triangle_count(a, mesh=mesh))
-    return launches, a
+    # the segreduce calls of one more tricount, their inputs kept, then
+    # timed one by one at those shapes
+    calls = []
+    inner = segreduce.segment_reduce
+
+    def keep(values, seg_ids, num_segments, tag, **kw):
+        calls.append((values.clone(), seg_ids.clone(), int(num_segments),
+                      tag, kw))
+        return inner(values, seg_ids, num_segments, tag, **kw)
+
+    segreduce.segment_reduce = keep
+    try:
+        triangle_count(a, mesh=mesh)
+    finally:
+        segreduce.segment_reduce = inner
+    if len(calls) != launches:
+        raise AssertionError(f"recorded {len(calls)} segreduce calls, the "
+                             f"warm call launched {launches}")
+    log(f"segreduce at phase 3's {len(calls)} shapes (sorted route, device "
+        f"time from torch.profiler):")
+    total, bound = time_main_path_calls(calls)
+    log(f"segreduce a tricount: {total:.4f} ms of device time in "
+        f"{len(calls)} launches, bound {bound:.4f} ms")
+    check_descents("phase 3's recorded calls")
+    return (launches, total, bound), a
 
 
 def profile_breakdown(fn, top: int = 10) -> None:
@@ -864,6 +1083,7 @@ def dense_path() -> int:
             f"{segreduce.launches - seg_before} segreduce launches, "
             f"{esc_peak / 2**30:.3f} GiB above live memory")
     profile_breakdown(lambda: spgemm_auto(a, a, S.ARITHMETIC, **auto))
+    check_descents("phase 4's ESC cross-check")
     return total
 
 
@@ -893,6 +1113,7 @@ def spmv_path(dist_a) -> int:
         xt = torch.as_tensor(x, device="cuda")
         fn(a, xt, S.ARITHMETIC)
         before = segreduce.launches
+        routes = dict(segreduce.route_launches)
         y, wall = _wall(lambda: fn(a, xt, S.ARITHMETIC))
         launched = segreduce.launches - before
         total += launched
@@ -902,7 +1123,8 @@ def spmv_path(dist_a) -> int:
                               want.astype(np.float32).view(np.uint32)):
             raise AssertionError(f"{fn.__name__} differs from scipy's A @ x")
         log(f"{fn.__name__}: y bitwise equal to scipy's A @ x, "
-            f"{wall * 1e3:.3f} ms warm, {launched} segreduce launches")
+            f"{wall * 1e3:.3f} ms warm, {launched} segreduce launches "
+            f"{_route_delta(routes)}")
     ab = dataclasses.replace(a, val=a.val != 0)
     for density, expect in ((0.001, "sort"), (0.02, "bucket"),
                             (0.2, "spa")):
@@ -923,6 +1145,7 @@ def spmv_path(dist_a) -> int:
             caps = dict(prod_cap=plan.prod_cap, out_cap=plan.out_cap)
             spmspv_auto(tile, xi_t, xv_t, f, sr, **caps)
             before = segreduce.launches
+            routes = dict(segreduce.route_launches)
             ((yi, yv, ynnz), ok), wall = _wall(
                 lambda: spmspv_auto(tile, xi_t, xv_t, f, sr, **caps))
             if not bool(ok):
@@ -943,9 +1166,16 @@ def spmv_path(dist_a) -> int:
                                      f"differs from scipy or no launch")
             log(f"spmspv_auto {name} density {density} (f={f}): variant "
                 f"{plan.variant}, nnz(y) {int(ynnz)} bitwise equal to scipy, "
-                f"{wall * 1e3:.3f} ms warm, {launched} segreduce launches, "
-                f"caps {caps}")
+                f"{wall * 1e3:.3f} ms warm, {launched} segreduce launches "
+                f"{_route_delta(routes)}, caps {caps}")
+    check_descents("phase 5")
     return total
+
+
+def _route_delta(before: dict) -> dict:
+    """segreduce launches by route since ``before`` was taken."""
+    from repro_torch.kernels import segreduce
+    return {r: segreduce.route_launches[r] - before[r] for r in before}
 
 
 # --------------------------------------------------------------------------
@@ -1783,7 +2013,8 @@ def main() -> int:
     # each path runs with the launch counts set to 0 just before it and
     # read just after; the records keep phases 3 and 4 (their kernel's path)
     segreduce.launches = smm.launches = 0
-    seg_record["launches"], dist_a = main_path()
+    (seg_record["launches"], seg_record["main_path_ms"],
+     seg_record["main_path_bound_ms"]), dist_a = main_path()
     segreduce.launches = smm.launches = 0
     smm_record["launches"] = dense_path()
     if segreduce.launches < 1:

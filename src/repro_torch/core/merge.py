@@ -224,15 +224,19 @@ def dedup_sorted(c: COO, add: Monoid) -> COO:
 # --------------------------------------------------------------------------
 
 def _kv_dedup_window(keys, vals, nlive, add: Monoid, cap: int):
-    """Sort + run-fuse one key/value window; slice to ``cap`` slots."""
+    """Sort + run-fuse one key/value window; slice to ``cap`` slots.
+
+    The values reduce onto ``min(cap, full_cap)`` segments: groups past
+    ``cap`` would be sliced away, so their ids are dropped instead (``ok``
+    still reports them)."""
     full_cap = keys.shape[0]
     ks, vs = _sort_kv(keys, vals)
     gid, newgrp, ngrp = _run_bounds(ks, nlive)
-    out_v = segment_reduce(vs, gid, full_cap, add, sorted_ids=True)
+    out_v = segment_reduce(vs, gid, min(cap, full_cap), add, sorted_ids=True)
     out_k = _group_keys(ks, gid, newgrp)
     ok = ngrp <= cap
     if cap < full_cap:
-        out_k, out_v = out_k[:cap], out_v[:cap]
+        out_k = out_k[:cap]
     return out_k, out_v, torch.clamp(ngrp, max=cap).to(torch.int32), ok
 
 

@@ -148,13 +148,15 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
 
     ids >= num_segments (padding) are dropped. Tagged monoids go to
     ``kernels/segreduce.segment_reduce`` (the Hopper kernel for CUDA
-    tensors, its plain version for CPU tensors); the generic path requires
-    (and if needed performs) a sort.
+    tensors, its plain version for CPU tensors), with the ``sorted_ids``
+    promise that picks its sorted route; the generic path requires (and if
+    needed performs) a sort.
     """
     if monoid.tag in _FAST_TAGS:
         return _segreduce.segment_reduce(
             values, seg_ids, num_segments, monoid.tag,
-            identity=None if monoid.tag == "sum" else monoid.identity)
+            identity=None if monoid.tag == "sum" else monoid.identity,
+            sorted_ids=sorted_ids)
     if not sorted_ids:
         order = torch.argsort(seg_ids, stable=True)
         seg_ids = seg_ids[order]

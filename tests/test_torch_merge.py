@@ -189,3 +189,35 @@ class TestKvPipeline:
         assert_values(k, jk)
         assert_values(v, jv)
         assert int(n) == int(jn)
+
+
+@pytest.mark.parametrize("name", ["plus", "min", "max"])
+@pytest.mark.parametrize("distinct,cap", [(40, 64), (200, 64), (200, 256)])
+def test_kv_dedup_window_reduces_onto_cap(monkeypatch, name, distinct, cap):
+    # full_cap = 256 slots, nlive = 180 live keys; (200, 64) overflows the
+    # window's cap (ngrp > cap: ok is false) and (200, 256) keeps full_cap
+    (jm, tm), _ = MONOIDS[name]
+    rng = np.random.default_rng(distinct + cap)
+    kmax = np.iinfo(np.int32).max
+    keys = np.full(256, kmax, np.int32)
+    keys[:180] = rng.choice(distinct * 7, distinct, replace=False)[
+        rng.integers(0, distinct, 180)]
+    vals = rng.integers(1, 9, 256).astype(np.float32)
+    segments = []
+    inner = TM.segment_reduce
+
+    def spy(values, seg_ids, num_segments, add, **kw):
+        segments.append((num_segments, kw.get("sorted_ids")))
+        return inner(values, seg_ids, num_segments, add, **kw)
+
+    monkeypatch.setattr(TM, "segment_reduce", spy)
+    got = TM._kv_dedup_window(torch.as_tensor(keys), torch.as_tensor(vals),
+                              torch.tensor(180), tm, cap)
+    want = jit_ref(JM._kv_dedup_window, dict(add=jm, cap=cap),
+                   jnp.asarray(keys), jnp.asarray(vals), jnp.int32(180))
+    assert segments == [(min(cap, 256), True)]
+    for g, w in zip(got[:2], want[:2]):
+        assert_values(g, w, exact=True)       # integer values: exact sums
+    assert int(got[2]) == int(want[2])
+    assert bool(got[3]) == bool(want[3])
+    assert bool(got[3]) == (len(np.unique(keys[:180])) <= cap)

@@ -181,3 +181,145 @@ def test_out_dtype_matches_jax(name, a, b):
     want = getattr(jsr, name).out_dtype(jnp.dtype(a), jnp.dtype(b))
     got = getattr(tsr, name).out_dtype(getattr(torch, a), getattr(torch, b))
     assert str(got) == f"torch.{want}"
+
+
+# --------------------------------------------------------------------------
+# the sorted_ids promise and the sorted route
+# --------------------------------------------------------------------------
+
+class TestSortedPromise:
+    """``sorted_ids=True`` reaches the kernel wrapper, which takes the sorted
+    route on the GPU; on the CPU the plain version checks the promise."""
+
+    @pytest.mark.parametrize("sorted_ids", [True, False])
+    @pytest.mark.parametrize("name", ["PLUS", "MIN_INT", "LOR"])
+    def test_semiring_passes_sorted_ids(self, monkeypatch, name, sorted_ids):
+        seen = []
+        inner = segreduce.segment_reduce
+
+        def spy(*args, **kw):
+            seen.append(kw.get("sorted_ids"))
+            return inner(*args, **kw)
+
+        monkeypatch.setattr(tsr._segreduce, "segment_reduce", spy)
+        ids = torch.tensor([0, 0, 2, 5, 5], dtype=torch.int32)
+        v = torch.tensor([1, 0, 1, 1, 0]).to(
+            torch.bool if name == "LOR" else torch.int32)
+        tsr.segment_reduce(v, ids, 6, getattr(tsr, name),
+                           sorted_ids=sorted_ids)
+        assert seen == [sorted_ids]
+
+    @pytest.mark.parametrize("tag", ["sum", "min", "max"])
+    def test_plain_checks_the_promise(self, tag):
+        rng = np.random.default_rng(8)
+        ids = torch.as_tensor(np.sort(rng.integers(-3, 45, 300)),
+                              dtype=torch.int32)
+        v = torch.as_tensor(rng.standard_normal(300).astype(np.float32))
+        free = segreduce.segment_reduce(v, ids, 40, tag)
+        promised = segreduce.segment_reduce(v, ids, 40, tag, sorted_ids=True)
+        assert torch.equal(free, promised)
+        descending = ids.flip(0)
+        with pytest.raises(ValueError, match="descend"):
+            segreduce.segment_reduce(v, descending, 40, tag, sorted_ids=True)
+        with pytest.raises(ValueError, match="descend"):
+            tsr.segment_reduce(v, descending, 40, tsr.MIN, sorted_ids=True)
+        # out-of-range ids past either end compare as -1 and S: a stream
+        # that only descends among them keeps the promise
+        ends = torch.tensor([-7, -2, 0, 3, 3, 90, 41], dtype=torch.int32)
+        segreduce.segment_reduce(torch.ones(7), ends, 40, tag,
+                                 sorted_ids=True)
+
+    def test_int64_narrowing_keeps_a_sorted_stream_sorted(self):
+        s = 50
+        ids = torch.tensor([-2**40, -5, -1, 0, 7, 49, 50, 61, 2**40])
+        narrow = segreduce._narrow_ids(ids, s, sorted_route=True)
+        assert narrow.dtype == torch.int32
+        assert narrow.tolist() == [-1, -1, -1, 0, 7, 49, 50, 50, 50]
+        assert bool((narrow[1:] >= narrow[:-1]).all())
+        # the atomic route sends every out-of-range id to -1
+        atomic = segreduce._narrow_ids(ids, s, sorted_route=False)
+        assert atomic.tolist() == [-1, -1, -1, 0, 7, 49, -1, -1, -1]
+        # int32 ids reach the kernel as they are (it clamps in registers)
+        i32 = ids[1:-1].int()
+        assert segreduce._narrow_ids(i32, s, sorted_route=True) is i32
+        # both narrowings drop the same ids
+        v = torch.arange(9, dtype=torch.float32)
+        for t in (narrow, atomic):
+            got = segreduce.segment_reduce_plain(v, t, s, "sum")
+            assert torch.equal(got, segreduce.segment_reduce_plain(
+                v, ids, s, "sum"))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                       torch.int32, torch.int64, torch.bool])
+    @pytest.mark.parametrize("d", [1, 3])
+    @pytest.mark.parametrize("sorted_ids", [True, False])
+    def test_route(self, dtype, d, sorted_ids):
+        want = "sorted" if sorted_ids and d == 1 else "atomic"
+        assert segreduce.route(dtype, d, sorted_ids) == want
+
+    def test_route_refuses_other_dtypes(self):
+        with pytest.raises(TypeError):
+            segreduce.route(torch.float16, 1, True)
+
+    @pytest.mark.parametrize("tag", ["sum", "min", "max"])
+    @pytest.mark.parametrize("n,s", [(1000, 300), (64, 8), (512, 512),
+                                     (300, 1)])
+    def test_vs_pallas_with_the_promise(self, tag, n, s):
+        # TestVsPallas's cases (sorted ids), promised
+        rng = np.random.default_rng(0)
+        ids = np.sort(rng.integers(0, s, n)).astype(np.int32)
+        v = rng.standard_normal(n).astype(np.float32)
+        jv, jids, tv, tids = both(v, ids)
+        want = segment_reduce_pallas(jv, jids, s, tag, interpret=True)
+        got = segreduce.segment_reduce(tv, tids, s, tag, sorted_ids=True)
+        assert_values(got, want, exact=tag != "sum")
+
+
+# --------------------------------------------------------------------------
+# on the card: the sorted route against the plain version (chip_smoke.py
+# does the full sweep and the main path's shapes)
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Hopper kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32,
+                                   torch.int64, torch.bool])
+@pytest.mark.parametrize("tag", ["sum", "min", "max"])
+def test_sorted_route_vs_plain_on_gpu(cuda, dtype, tag):
+    rng = np.random.default_rng(9)
+    ids = torch.as_tensor(np.sort(rng.integers(-40, 5200, 9000)),
+                          dtype=torch.int32, device=cuda)
+    if dtype == torch.bool:
+        v = torch.as_tensor(rng.random(9000) < 0.5, device=cuda)
+    else:
+        v = torch.as_tensor(rng.integers(-50, 50, 9000), device=cuda).to(dtype)
+    before = segreduce.route_launches["sorted"]
+    got = segreduce.segment_reduce(v, ids, 5000, tag, sorted_ids=True)
+    want = segreduce.segment_reduce_plain(v, ids, 5000, tag, sorted_ids=True)
+    torch.cuda.synchronize()
+    assert segreduce.route_launches["sorted"] == before + 1
+    assert torch.equal(got, want)            # integer values: exact sums
+
+
+@pytest.mark.gpu
+def test_sorted_route_is_deterministic_and_flags_descents_on_gpu(cuda):
+    rng = np.random.default_rng(10)
+    ids = torch.as_tensor(np.sort(rng.integers(0, 1 << 20, 1 << 20)),
+                          dtype=torch.int32, device=cuda)
+    v = torch.as_tensor(rng.standard_normal(1 << 20).astype(np.float32),
+                        device=cuda)
+    segreduce.reset_descents()
+    a = segreduce.segment_reduce(v, ids, 1 << 20, "sum", sorted_ids=True)
+    b = segreduce.segment_reduce(v, ids, 1 << 20, "sum", sorted_ids=True)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert segreduce.descents() == 0
+    segreduce.segment_reduce(v, ids.flip(0).contiguous(), 1 << 20, "sum",
+                             sorted_ids=True)
+    assert segreduce.descents() == 1
+    segreduce.reset_descents()
