@@ -80,14 +80,30 @@ Phases (any failure exits non-zero and prints no result line):
    prompt (three chunks, the last padded) through ``greedy_generate`` on
    the CPU (plain versions) and on the card (the kernel) from the same
    parameters; then the card's decode-step logits against a teacher-forced
-   forward.
+   forward;
+10. BFS (run after phase 5, with the graph phases): R-MAT at Graph500's
+   parameters (a,b,c,d = 0.57/0.19/0.19/0.05, edge factor 16) at scale 20,
+   seed 0, symmetrized without self loops, ``random_permute=True`` on the
+   1x1 grid (about 2^20 vertices and 30 M stored entries); ``bfs_levels``
+   from 4 roots of degree >= 1 drawn with ``default_rng(0)``, each root's
+   levels bitwise equal to ``scipy.sparse.csgraph.shortest_path(...,
+   unweighted=True)`` (unreachable -1); cold and warm wall, depth, the
+   planner's variant per level, TEPS (the reached component's undirected
+   edges over the warm wall), segreduce launches by route, peak memory and
+   one profiled warm search;
+11. PageRank on the same graph (alpha 0.85, tol 1e-8, at most 100
+   iterations) within L1 1e-4 of a float64 scipy power iteration of the
+   same formula run to convergence; iterations, cold and warm wall, wall an
+   iteration, segreduce launches by route (1 atomic for the out-degrees, 1
+   sorted an iteration), peak memory and one profiled run.
 
-Phases 2-5 fail if a sorted-route launch saw its ids descend (a caller's
-broken ``sorted_ids`` promise: ``segreduce.descents()``). The two lines
-before the last are a JSON object with one record per kernel (segreduce's
-adds the atomic route's time and the main-path calls' summed time and
-bound) and the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
+Phases 2-5 and 10-11 fail if a sorted-route launch saw its ids descend (a
+caller's broken ``sorted_ids`` promise: ``segreduce.descents()``). The two
+lines before the last are a JSON object with one record per kernel
+(segreduce's adds the atomic route's time, the main-path calls' summed time
+and bound, and phases 10-11's launches by route) and the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``. The script
+imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -131,6 +147,11 @@ MAMBA_ARCH = "mamba2-2.7b"
 # phase 9b: the kernel against plain versions end to end, float32
 MAMBA_E2E_LAYERS, MAMBA_E2E_BATCH, MAMBA_E2E_PROMPT, MAMBA_E2E_TOKENS = \
     2, 2, 300, 4
+# phases 10-11: Graph500's generator shape (a,b,c,d and edge factor 16) at
+# scale 20, cut from its smallest class (toy, scale 26); BFS from 4 roots,
+# PageRank against a float64 scipy power iteration
+GRAPH_SCALE, GRAPH_EDGE_FACTOR, BFS_ROOTS = 20, 16, 4
+PR_ALPHA, PR_TOL, PR_MAX_ITERS, PR_L1_TOL = 0.85, 1e-8, 100, 1e-4
 
 KERNELS = ("segreduce", "semiring_matmul", "flash_attention", "bsr_spmm",
            "ssd_chunk")
@@ -1179,6 +1200,182 @@ def _route_delta(before: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phases 10-11: BFS and PageRank on R-MAT scale 20 (Graph500's shape)
+# --------------------------------------------------------------------------
+
+def graph500_graph():
+    """R-MAT at GRAPH_SCALE (Graph500 a,b,c,d, edge factor 16, seed 0),
+    symmetrized, no self loops, assembled with ``random_permute=True`` on
+    the card's 1x1 grid. Returns (tile, mesh, scipy CSR of the permuted
+    graph, seconds of host assembly)."""
+    import scipy.sparse as sp
+    from repro_torch.core.dist import DistSpMat, make_grid
+    from repro_torch.io.rmat import rmat_coo
+
+    t0 = time.perf_counter()
+    shape, rows, cols, vals = rmat_coo(GRAPH_SCALE, GRAPH_EDGE_FACTOR,
+                                       seed=RMAT_SEED, symmetrize=True,
+                                       drop_self_loops=True)
+    t_gen = time.perf_counter() - t0
+    mesh = make_grid(1, 1, device="cuda")
+    t0 = time.perf_counter()
+    a = DistSpMat.from_global_coo(shape, rows, cols, vals, (1, 1), mesh=mesh,
+                                  random_permute=True)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    # the permutation from_global_coo(seed=0) applies, by hand
+    rp = np.random.default_rng(0).permutation(shape[0]).astype(np.int64)
+    csr = sp.csr_matrix((vals.astype(np.float64), (rp[rows], rp[cols])),
+                        shape=shape)
+    tile_bytes = sum(t.numel() * t.element_size()
+                     for t in (a.row, a.col, a.val))
+    log(f"R-MAT scale {GRAPH_SCALE} ef {GRAPH_EDGE_FACTOR}: {shape[0]} "
+        f"vertices ({int((csr.getnnz(axis=1) == 0).sum())} isolated), "
+        f"{len(rows)} stored entries, tile cap {a.cap} "
+        f"({tile_bytes / 1e9:.3f} GB on the card); host assembly "
+        f"{t_gen + t_asm:.2f} s (generator {t_gen:.2f} s, "
+        f"from_global_coo {t_asm:.2f} s)")
+    return a, mesh, csr, t_gen + t_asm
+
+
+def _routes_zero():
+    from repro_torch.kernels import segreduce
+    segreduce.launches = 0
+    segreduce.route_launches.update(sorted=0, atomic=0)
+
+
+def bfs_phase(a, mesh, csr) -> dict:
+    """Phase 10; returns the segreduce launches of the warm searches by
+    route."""
+    import scipy.sparse.csgraph as csgraph
+    from repro_torch.apps import bfs_levels
+    from repro_torch.kernels import segreduce
+    from repro_torch.obs import recorder
+
+    deg = csr.getnnz(axis=1)
+    roots = np.random.default_rng(0).choice(np.flatnonzero(deg > 0),
+                                            BFS_ROOTS, replace=False)
+    total = {"sorted": 0, "atomic": 0}
+    peak = 0
+    for root in roots.tolist():
+        t0 = time.perf_counter()
+        ref = csgraph.shortest_path(csr, unweighted=True, indices=root)
+        ref = np.where(np.isinf(ref), -1, ref).astype(np.int32)
+        t_ref = time.perf_counter() - t0
+        cold, cold_s = _wall(lambda: bfs_levels(a, root, mesh=mesh))
+        torch.cuda.reset_peak_memory_stats()
+        _routes_zero()
+        warm, warm_s = _wall(lambda: bfs_levels(a, root, mesh=mesh))
+        routes = dict(segreduce.route_launches)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        for k in total:
+            total[k] += routes[k]
+        with recorder.capture() as rec:
+            recorded = bfs_levels(a, root, mesh=mesh)
+            plans = rec.events("plan.spmspv")
+            retried = rec.events("plan.spmspv.done")
+        check_descents(f"phase 10, root {root}")
+        for name, got in (("cold", cold), ("warm", warm),
+                          ("recorded", recorded)):
+            if got.shape != ref.shape or not np.array_equal(got, ref):
+                bad = np.flatnonzero(got != ref)
+                raise AssertionError(
+                    f"BFS from {root} ({name}): {len(bad)} levels differ "
+                    f"from scipy's, first at {bad[:5].tolist()}")
+        reached = ref >= 0
+        edges = int(deg[reached].sum()) // 2
+        nlev = int(ref.max())
+        variants = [p["variant"] for p in plans]
+        if len(plans) != nlev + 1 or routes["sorted"] + routes["atomic"] < 1:
+            raise AssertionError(f"BFS from {root}: {len(plans)} planned "
+                                 f"levels for depth {nlev}, launches "
+                                 f"{routes}")
+        log(f"bfs root {root} (degree {deg[root]}): {int(reached.sum())} "
+            f"vertices reached, depth {nlev}, levels bitwise equal to scipy "
+            f"({t_ref:.2f} s); cold {cold_s * 1e3:.1f} ms, warm "
+            f"{warm_s * 1e3:.1f} ms, {edges} undirected edges in the "
+            f"component: {edges / warm_s:.6g} TEPS; variant per "
+            f"level {variants}, caps "
+            f"{[(p['prod_cap'], p['out_cap']) for p in plans]}, "
+            f"levels retried {len(retried)}; segreduce launches {routes}")
+    log(f"bfs: peak device memory {peak / 2**30:.3f} GiB; segreduce "
+        f"launches of the {BFS_ROOTS} warm searches {total}")
+    log(f"profile of one warm search (root {roots[0]}):")
+    profile_breakdown(lambda: bfs_levels(a, int(roots[0]), mesh=mesh))
+    check_descents("phase 10's profiled search")
+    return total
+
+
+def pagerank_reference(csr, alpha, tol=1e-12, max_iters=1000):
+    """The same formula in float64 with scipy, to convergence: A[dst, src]
+    (the graph is symmetric), columns scaled by 1/out-degree, the dangling
+    vertices' mass spread evenly, teleport (1-alpha)/n, L1-normalized."""
+    import scipy.sparse as sp
+    n = csr.shape[0]
+    out_deg = np.asarray(csr.sum(axis=0)).ravel()
+    inv = np.where(out_deg > 0, 1.0 / np.maximum(out_deg, 1e-300), 0.0)
+    p = (csr.T @ sp.diags(inv)).tocsr()
+    dangling = out_deg == 0
+    r = np.full(n, 1.0 / n)
+    for it in range(1, max_iters + 1):
+        r_new = alpha * (p @ r + r[dangling].sum() / n) + (1 - alpha) / n
+        delta = np.abs(r_new - r).sum()
+        r = r_new
+        if delta < tol:
+            break
+    return r / r.sum(), it
+
+
+def pagerank_phase(a, mesh, csr) -> dict:
+    """Phase 11; returns the segreduce launches of the warm run by route."""
+    from repro_torch.apps import pagerank
+    from repro_torch.kernels import segreduce
+    from repro_torch.obs import recorder
+
+    t0 = time.perf_counter()
+    ref, ref_iters = pagerank_reference(csr, PR_ALPHA)
+    log(f"pagerank reference (scipy, float64): {ref_iters} iterations to "
+        f"L1 change < 1e-12 ({time.perf_counter() - t0:.2f} s)")
+    kw = dict(mesh=mesh, alpha=PR_ALPHA, tol=PR_TOL, max_iters=PR_MAX_ITERS)
+    cold, cold_s = _wall(lambda: pagerank(a, **kw))
+    torch.cuda.reset_peak_memory_stats()
+    _routes_zero()
+    warm, warm_s = _wall(lambda: pagerank(a, **kw))
+    routes = dict(segreduce.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    with recorder.capture() as rec:
+        recorded = pagerank(a, **kw)
+        it_span = rec.snapshot()["spans"]["pagerank.iter"]
+    check_descents("phase 11")
+    iters = it_span["count"]
+    errs = [float(np.abs(r.astype(np.float64) - ref).sum())
+            for r in (cold, warm, recorded)]
+    log(f"pagerank alpha {PR_ALPHA} tol {PR_TOL} max_iters {PR_MAX_ITERS}: "
+        f"{iters} iterations; L1 to the float64 reference {errs[1]:.3g} "
+        f"(cold {errs[0]:.3g}, recorded {errs[2]:.3g}; limit {PR_L1_TOL}); "
+        f"cold {cold_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms "
+        f"({warm_s / iters * 1e3:.3f} ms an iteration, set-up included; the "
+        f"recorded run's pagerank.iter span median "
+        f"{it_span['p50_us'] / 1e3:.3f} ms); peak device memory "
+        f"{peak / 2**30:.3f} GiB; segreduce launches {routes}")
+    if not all(np.isfinite(r).all() and r.shape == ref.shape
+               for r in (cold, warm, recorded)):
+        raise AssertionError("pagerank: non-finite ranks or a wrong shape")
+    if max(errs) > PR_L1_TOL:
+        raise AssertionError(f"pagerank: L1 {max(errs)} to the reference "
+                             f"exceeds {PR_L1_TOL}")
+    # the out-degrees on the atomic route, one spmv_row an iteration on
+    # the sorted one
+    if routes != {"sorted": iters, "atomic": 1}:
+        raise AssertionError(f"pagerank: segreduce launches {routes}, not "
+                             f"{iters} sorted and 1 atomic")
+    log("profile of one warm pagerank:")
+    profile_breakdown(lambda: pagerank(a, **kw))
+    check_descents("phase 11's profiled run")
+    return routes
+
+
+# --------------------------------------------------------------------------
 # phase 6: flash_attention kernel vs plain
 # --------------------------------------------------------------------------
 
@@ -2024,6 +2221,14 @@ def main() -> int:
     if spmv_path(dist_a) < 1 or smm.launches:
         raise AssertionError("phase 5 launched no segreduce, or a matmul")
     del dist_a
+    graph, mesh, csr, _ = graph500_graph()
+    _routes_zero()
+    seg_record["bfs_launches_by_route"] = bfs_phase(graph, mesh, csr)
+    _routes_zero()
+    seg_record["pagerank_launches_by_route"] = pagerank_phase(graph, mesh,
+                                                              csr)
+    del graph, csr
+    torch.cuda.empty_cache()
     fa_record = check_flash_attention()
     (fa_record["launches"], bsr_launches), ops = serve_path()
     with torch.inference_mode():      # phase 7's operands are inference

@@ -1,1 +1,4 @@
-"""repro_torch.apps — the paper's applications, built on repro_torch.core."""
+"""repro_torch.apps — the paper's applications, built on repro_torch.core (§7)."""
+from .bfs import bfs_levels
+from .pagerank import pagerank
+from .tricount import triangle_count

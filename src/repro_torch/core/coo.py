@@ -227,6 +227,12 @@ class COO:
         flat = scatter_onto_identity(self.val, ids, m * n, add)
         return flat.reshape((m, n) + self.vdims)
 
+    def transpose(self) -> "COO":
+        # (row, col)-sorted becomes (col, row)-sorted in the new coordinates
+        order = {"row": "col", "col": "row"}.get(self.order, "none")
+        return COO(self.col, self.row, self.val, self.nnz,
+                   (self.shape[1], self.shape[0]), order)
+
     def apply(self, fn) -> "COO":
         """Elementwise apply on stored values (GraphBLAS apply)."""
         return dataclasses.replace(self, val=torch.where(
@@ -254,6 +260,19 @@ class COO:
                           torch.tensor(n_out, dtype=ids.dtype,
                                        device=ids.device))
         return segment_reduce(self.val, ids, n_out, add)
+
+    def scale_rows(self, d: torch.Tensor, mul=torch.mul) -> "COO":
+        """val[k] = mul(val[k], d[row[k]]) on stored entries."""
+        return self._scale(d, self.row, self.shape[0], mul)
+
+    def scale_cols(self, d: torch.Tensor, mul=torch.mul) -> "COO":
+        """val[k] = mul(val[k], d[col[k]]) on stored entries."""
+        return self._scale(d, self.col, self.shape[1], mul)
+
+    def _scale(self, d, idx, n, mul) -> "COO":
+        newv = mul(self.val, d[idx.long().clamp(0, n - 1)])
+        return dataclasses.replace(self, val=torch.where(
+            _vmask(self.mask(), self.vdims), newv, self.val))
 
     def with_cap(self, cap: int, fill=0) -> "COO":
         """Grow (or shrink, keeping first entries) capacity."""
@@ -284,3 +303,43 @@ def column_range(sorted_cols: torch.Tensor, k: torch.Tensor):
 
 def row_range(sorted_rows: torch.Tensor, i: torch.Tensor):
     return column_range(sorted_rows, i)
+
+
+def ewise_union(a: COO, b: COO, add: Monoid, cap: int | None = None) -> COO:
+    """C = A ⊕ B (entries present in either; add where both): both operands
+    row-sort (free under the 'row' invariant) and interleave by the
+    rank-placement merge, no concat-and-sort of the combined stream."""
+    assert a.shape == b.shape
+    from .merge import merge_sorted
+    cap = cap or (a.cap + b.cap)
+    return merge_sorted(a, b, add).with_cap(cap, add.identity)
+
+
+def ewise_intersect(a: COO, b: COO, mul, out_cap: int | None = None,
+                    zero=0) -> COO:
+    """C = A ⊗ B on the intersection pattern (A .* B)."""
+    assert a.shape == b.shape
+    sa, sb = a.sort("row"), b.sort("row")
+    out_cap = out_cap or min(a.cap, b.cap)
+    # pair keys are encoded in 32 bits: the CombBLAS "local indices are
+    # 32-bit" contract, which tiles after a 2D/3D decomposition satisfy
+    m, n = a.shape
+    if (m + 1) * (n + 1) >= 2**31:
+        raise ValueError("local tile exceeds 32-bit key space; "
+                         "increase the process grid (paper §1, local indices)")
+    s = sentinel_like(sa.row)
+    ka = torch.where(sa.mask(), sa.row * (n + 1) + sa.col.clamp(max=n), s)
+    kb = torch.where(sb.mask(), sb.row * (n + 1) + sb.col.clamp(max=n), s)
+    # mark a-entries that also appear in b: binary search b's (row, col)
+    posc = torch.searchsorted(kb, ka).clamp(0, b.cap - 1)
+    hit = (kb[posc] == ka) & sa.mask() & (posc < sb.nnz)
+    val = mul(sa.val, sb.val[posc])
+    val = torch.where(_vmask(hit, val.shape[1:]), val,
+                      torch.tensor(zero, dtype=val.dtype, device=val.device))
+    # compact kept entries to the front; stable, so the row-major order of
+    # sa survives and the result keeps the 'row' tag
+    order = torch.argsort((~hit).to(torch.uint8), stable=True)
+    out = COO(torch.where(hit, sa.row, s)[order],
+              torch.where(hit, sa.col, s)[order], val[order],
+              hit.sum(dtype=torch.int32), a.shape, "row")
+    return out.with_cap(out_cap, zero)

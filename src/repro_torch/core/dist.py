@@ -4,6 +4,8 @@ Data model (DESIGN.md §3): a distributed matrix stores each field as ONE
 tensor whose leading dims are the process-grid dims:
 
   DistSpMat  : row/col/val/nnz with shapes (pr, pc, cap …)
+  DistVec    : data (pr, pc, vb)            — fully distributed dense vector
+  DistSpVec  : idx/val (pr, pc, cap), nnz (pr, pc) — sparse vector
 
 Index discipline (paper §1, two index types): global indices are int64 and
 live ONLY on the host (numpy) during assembly/extraction; device-resident
@@ -202,4 +204,165 @@ class DistSpMat:
         r, c, v = self.to_global_coo()
         out = np.full(self.shape + tuple(self.val.shape[3:]), zero, v.dtype)
         out[r, c] = v
+        return out
+
+
+# --------------------------------------------------------------------------
+# distributed dense / sparse vectors
+# --------------------------------------------------------------------------
+
+def _piece_id(i: int, j: int, grid, layout: str) -> int:
+    """Which of the pr*pc pieces grid position (i, j) holds: pieces run down
+    the process columns in layout 'col', along the process rows in 'row'."""
+    return j * grid[0] + i if layout == "col" else i * grid[1] + j
+
+
+def _vec_device(mesh: Grid | None, device) -> torch.device:
+    return mesh.device if mesh is not None else resolve_device(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistVec:
+    """Fully distributed dense vector, no replication (paper §2.2)."""
+
+    data: torch.Tensor  # (pr, pc, vb, *vdims)
+    n: int
+    grid: tuple[int, int]
+    layout: str = "col"
+
+    def __post_init__(self):
+        _check_grid(*self.grid)
+
+    @property
+    def vb(self):
+        return self.data.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def piece_id(self, i, j):
+        return _piece_id(i, j, self.grid, self.layout)
+
+    @staticmethod
+    def from_global(x, grid, layout="col", mesh: Grid = None,
+                    device=None) -> "DistVec":
+        """Split the host vector ``x`` into pieces of vb = ceil(n / (pr*pc))
+        (zero-padded past n) on ``mesh.device`` (else ``device``)."""
+        pr, pc = grid
+        _check_grid(pr, pc)
+        x = np.asarray(x)
+        n = x.shape[0]
+        vb = _ceil(n, pr * pc)
+        xp = np.zeros((pr * pc * vb,) + x.shape[1:], x.dtype)
+        xp[:n] = x
+        pieces = xp.reshape((pr * pc, vb) + x.shape[1:])
+        out = np.empty((pr, pc, vb) + x.shape[1:], x.dtype)
+        for i in range(pr):
+            for j in range(pc):
+                out[i, j] = pieces[_piece_id(i, j, grid, layout)]
+        return DistVec(torch.from_numpy(out).to(_vec_device(mesh, device)),
+                       int(n), (pr, pc), layout)
+
+    def to_global(self) -> np.ndarray:
+        pr, pc = self.grid
+        d = self.data.cpu().numpy()
+        xp = np.empty((pr * pc, self.vb) + d.shape[3:], d.dtype)
+        for i in range(pr):
+            for j in range(pc):
+                xp[self.piece_id(i, j)] = d[i, j]
+        return xp.reshape((pr * pc * self.vb,) + d.shape[3:])[:self.n]
+
+
+@dataclasses.dataclass(frozen=True)
+class DistSpVec:
+    """Fully distributed sparse vector (FullyDistSpVec): piece-local int32
+    indices, SENTINEL-padded past each piece's ``nnz``."""
+
+    idx: torch.Tensor   # (pr, pc, cap) int32, piece-local indices
+    val: torch.Tensor   # (pr, pc, cap)
+    nnz: torch.Tensor   # (pr, pc) int32
+    n: int
+    grid: tuple[int, int]
+    layout: str = "col"
+
+    def __post_init__(self):
+        _check_grid(*self.grid)
+
+    @property
+    def cap(self):
+        return self.idx.shape[-1]
+
+    @property
+    def vb(self):
+        pr, pc = self.grid
+        return _ceil(self.n, pr * pc)
+
+    @property
+    def device(self) -> torch.device:
+        return self.idx.device
+
+    @staticmethod
+    def from_global(idx, val, n, grid, cap=None, layout="col",
+                    mesh: Grid = None, pad=1.5, device=None) -> "DistSpVec":
+        """Assemble from global int64 indices and their values (host numpy).
+        ``cap`` defaults to ``pad`` × the fullest piece, rounded up to 8;
+        a piece above ``cap`` raises ``ValueError('piece overflow')``."""
+        pr, pc = grid
+        _check_grid(pr, pc)
+        idx = np.asarray(idx, np.int64)
+        val = np.asarray(val)
+        vb = _ceil(n, pr * pc)
+        piece = idx // vb
+        local = (idx % vb).astype(np.int32)
+        counts = np.bincount(piece, minlength=pr * pc)
+        if cap is None:
+            cap = max(8, int(math.ceil((counts.max() if len(idx) else 1)
+                                       * pad / 8) * 8))
+        if len(idx) and counts.max() > cap:
+            raise ValueError("piece overflow")
+        order = np.lexsort((local, piece))
+        piece, local, val_s = piece[order], local[order], val[order]
+        starts = np.zeros(pr * pc, np.int64)
+        starts[1:] = np.cumsum(counts)[:-1]
+        I = np.full((pr * pc, cap), SENTINEL, np.int32)
+        V = np.zeros((pr * pc, cap), val.dtype)
+        within = np.arange(len(idx)) - starts[piece]
+        I[piece, within] = local
+        V[piece, within] = val_s
+        Ii = np.empty((pr, pc, cap), np.int32)
+        Vv = np.empty((pr, pc, cap), val.dtype)
+        Nz = np.empty((pr, pc), np.int32)
+        for i in range(pr):
+            for j in range(pc):
+                k = _piece_id(i, j, grid, layout)
+                Ii[i, j], Vv[i, j], Nz[i, j] = I[k], V[k], counts[k]
+        dev = _vec_device(mesh, device)
+        return DistSpVec(torch.from_numpy(Ii).to(dev),
+                         torch.from_numpy(Vv).to(dev),
+                         torch.from_numpy(Nz).to(dev), int(n), (pr, pc),
+                         layout)
+
+    def to_global(self):
+        """(global int64 indices, values) of the stored entries below n."""
+        pr, pc = self.grid
+        I = self.idx.cpu().numpy()
+        V = self.val.cpu().numpy()
+        Nz = self.nnz.cpu().numpy()
+        idxs, vals = [], []
+        for i in range(pr):
+            for j in range(pc):
+                k = _piece_id(i, j, self.grid, self.layout)
+                c = int(Nz[i, j])
+                idxs.append(I[i, j, :c].astype(np.int64) + k * self.vb)
+                vals.append(V[i, j, :c])
+        idx = np.concatenate(idxs)
+        val = np.concatenate(vals)
+        keep = idx < self.n
+        return idx[keep], val[keep]
+
+    def to_global_dense(self, zero=0.0) -> np.ndarray:
+        idx, val = self.to_global()
+        out = np.full((self.n,), zero, val.dtype)
+        out[idx] = val
         return out

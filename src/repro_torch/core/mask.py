@@ -6,6 +6,8 @@ come from discarding non-mask products *during* the multiply, not after it:
   **MaskSpec** — the user-facing description of an output mask:
     - *structural*  keep C entries whose (row, col) is stored in a mask
                     matrix M (tile-aligned with C — no communication);
+    - *vector*      keep SpMSpV output rows whose entry of a dense vector
+                    (piece-aligned with y) satisfies ``pred``;
     - *complement*  keep entries NOT stored in M;
     - *pred*        sub-select which stored M entries count as members;
     - *val_pred*    a predicate over the OUTPUT values, applied in the
@@ -29,7 +31,7 @@ from typing import Callable, Optional
 import torch
 
 from .coo import COO, SENTINEL, _vmask
-from .dist import DistSpMat
+from .dist import DistSpMat, DistVec
 from .merge import _unpack, key_dtype, pack_keys
 
 
@@ -104,6 +106,13 @@ def filter_products(rows, cols, vals, shape, m: LocalMask, identity):
                                      device=vals.device)))
 
 
+def filter_tile(c: COO, m: LocalMask, identity) -> COO:
+    """Post-hoc mask application to a merged tile (the postfilter form of
+    ``filter_products``). Stable compaction keeps the tile's order tag."""
+    keep = mask_member(pack_keys(c.row, c.col, c.shape, m.order), m)
+    return c.prune(lambda _v: keep, fill=identity)
+
+
 def mask_dense(m: LocalMask, shape) -> torch.Tensor:
     """Dense boolean member matrix (the dense-accumulator path's view)."""
     rows, cols = shape
@@ -132,19 +141,29 @@ def apply_val_pred(c: COO, val_pred: Callable | None, identity) -> COO:
 
 @dataclasses.dataclass(frozen=True)
 class MaskSpec:
-    """Output mask for a distributed multiply. Build via ``structural``;
-    one pattern operand (or none, for a pure value mask) may be set, and it
-    must be tile-aligned with the output — masks never communicate.
+    """Output mask for a distributed multiply. Build via the constructors
+    below (``structural`` / ``complement_of`` / ``vector_mask`` /
+    ``value_mask``); at most one pattern operand (or none, for a pure value
+    mask) may be set, and it must be tile/piece-aligned with the output —
+    masks never communicate. The 3D pattern operand (``mat3``) comes with
+    the 3D SpGEMM.
     """
 
     mat: DistSpMat | None = None      # SpGEMM 2D pattern operand
+    vec: DistVec | None = None        # SpMSpV row-membership operand
     complement: bool = False
     pred: Callable | None = None      # over mask operand values
     val_pred: Callable | None = None  # over OUTPUT values (fused select)
 
     def __post_init__(self):
-        if self.mat is None and self.val_pred is None:
+        operands = sum(x is not None for x in (self.mat, self.vec))
+        if operands > 1:
+            raise ValueError("MaskSpec takes at most one pattern operand")
+        if operands == 0 and self.val_pred is None:
             raise ValueError("empty MaskSpec: no pattern operand, no val_pred")
+        if self.vec is not None and self.pred is None:
+            raise ValueError(
+                "dense-vector masks need pred to define membership")
 
     def local(self, tile: COO) -> LocalMask:
         """LocalMask over one (already localized) mask tile."""
@@ -157,3 +176,34 @@ def structural(m: DistSpMat, *, complement: bool = False,
     """Keep output entries stored in ``m`` (complement: NOT stored)."""
     return MaskSpec(mat=m, complement=complement, pred=pred,
                     val_pred=val_pred)
+
+
+def complement_of(m: DistSpMat, *, pred: Callable | None = None,
+                  val_pred: Callable | None = None) -> MaskSpec:
+    return structural(m, complement=True, pred=pred, val_pred=val_pred)
+
+
+def vector_mask(v: DistVec, pred: Callable, *,
+                complement: bool = False) -> MaskSpec:
+    """SpMSpV row mask: keep output rows where ``pred(v[row])`` (xor
+    complement). ``v`` must be piece-aligned with the output vector
+    (layout 'row' on the matrix grid): BFS passes visited levels here."""
+    return MaskSpec(vec=v, complement=complement, pred=pred)
+
+
+def value_mask(val_pred: Callable) -> MaskSpec:
+    """Pure output-value mask (fused GraphBLAS select, e.g. HipMCL prune)."""
+    return MaskSpec(val_pred=val_pred)
+
+
+def mask_allowed_count(mask: MaskSpec) -> int | None:
+    """Host-side count of mask-admissible output slots (planner input):
+    the admissible rows of a vector mask, padding slots included as JAX
+    counts them; None for pattern masks (``plan_spgemm`` accounts those per
+    tile). Reads one scalar back from the device."""
+    if mask.vec is None:
+        return None
+    member = torch.as_tensor(mask.pred(mask.vec.data))
+    if mask.complement:
+        member = ~member
+    return int(member.sum())

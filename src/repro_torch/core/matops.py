@@ -1,14 +1,19 @@
-"""Distributed matrix helper operations used by the graph apps.
+"""Distributed matrix/vector helper operations used by the graph apps.
 
-Tile-local operations on a ``DistSpMat``: elementwise tile ops need no
-communication — the payoff of CombBLAS's superimposed distributions.
+Tile-local operations on a ``DistSpMat`` and piece-aligned vector ops:
+elementwise tile ops and masking a sparse vector with a dense vector in the
+same layout need no communication — the payoff of CombBLAS's superimposed
+distributions. On the 1x1 grid every collective of the JAX package's
+versions (``all_gather``/``psum_scatter`` along an axis of size 1, the
+transpose ``ppermute``) is the identity.
 """
 from __future__ import annotations
 
 import torch
 
 from .coo import COO, SENTINEL, _vmask, sentinel_like
-from .dist import DistSpMat, Grid
+from .dist import DistSpMat, DistSpVec, DistVec, Grid
+from .semiring import Monoid
 
 
 def mat_apply_local(a: DistSpMat, fn, *, mesh: Grid) -> DistSpMat:
@@ -16,6 +21,55 @@ def mat_apply_local(a: DistSpMat, fn, *, mesh: Grid) -> DistSpMat:
     carries the order tag ``fn`` reports."""
     del mesh                          # the 1x1 grid's one tile is local
     return DistSpMat.from_tile(fn(a.tile()), a.shape, a.grid)
+
+
+def mat_ewise_local(a: DistSpMat, b: DistSpMat, fn, *, mesh: Grid) \
+        -> DistSpMat:
+    """fn: (COO, COO) -> COO on aligned tiles (same grid), no exchange."""
+    del mesh
+    assert a.grid == b.grid and a.shape == b.shape
+    return DistSpMat.from_tile(fn(a.tile(), b.tile()), a.shape, a.grid)
+
+
+def mat_reduce(a: DistSpMat, axis: int, add: Monoid, *, mesh: Grid) \
+        -> DistVec:
+    """Row (axis=1) or column (axis=0) reduction → DistVec, layout 'row'
+    for axis=1 and 'col' for axis=0 (JAX reduces the tile partials with a
+    ``psum_scatter``, or ``all_gather`` + ``add.op``, along 'col' resp.
+    'row': the identity on 1x1)."""
+    del mesh
+    local = a.tile().reduce(axis, add)       # (mb,) or (nb,): the one piece
+    n = a.shape[0] if axis == 1 else a.shape[1]
+    return DistVec(local[None, None], n, a.grid, "row" if axis == 1 else "col")
+
+
+def mat_scale_cols(a: DistSpMat, v: DistVec, mul=torch.mul, *,
+                   mesh: Grid) -> DistSpMat:
+    """A[:, j] *= v[j]. v layout 'col' (JAX all-gathers it along 'row', as
+    SpMV's x: the identity on 1x1)."""
+    del mesh
+    assert v.layout == "col"
+    t = a.tile().scale_cols(v.data.reshape(-1), mul)
+    return DistSpMat.from_tile(t, a.shape, a.grid)
+
+
+def mat_scale_rows(a: DistSpMat, v: DistVec, mul=torch.mul, *,
+                   mesh: Grid) -> DistSpMat:
+    """A[i, :] *= v[i]. v layout 'row' (all-gathered along 'col' in JAX)."""
+    del mesh
+    assert v.layout == "row"
+    t = a.tile().scale_rows(v.data.reshape(-1), mul)
+    return DistSpMat.from_tile(t, a.shape, a.grid)
+
+
+def mat_transpose(a: DistSpMat, *, mesh: Grid) -> DistSpMat:
+    """A^T: JAX swaps tiles across the diagonal (a ``ppermute``, the
+    identity on 1x1), then swaps row and col locally; (row, col)-sorted
+    tiles become (col, row)-sorted in the new coordinates."""
+    del mesh
+    assert a.pr == a.pc
+    t = a.tile().transpose()
+    return DistSpMat.from_tile(t, (a.shape[1], a.shape[0]), a.grid)
 
 
 def mat_select_lower(a: DistSpMat, *, mesh: Grid, strict=True) -> DistSpMat:
@@ -47,3 +101,54 @@ def mat_sum(a: DistSpMat) -> torch.Tensor:
 
 def mat_nnz(a: DistSpMat) -> torch.Tensor:
     return a.nnz.sum()
+
+
+# ---------------- piece-aligned vector ops (no communication) -------------
+
+def vec_ewise(u: DistVec, v: DistVec, fn) -> DistVec:
+    assert u.layout == v.layout and u.grid == v.grid
+    return DistVec(fn(u.data, v.data), u.n, u.grid, u.layout)
+
+
+def vec_apply(u: DistVec, fn) -> DistVec:
+    return DistVec(fn(u.data), u.n, u.grid, u.layout)
+
+
+def vec_sum(u: DistVec) -> torch.Tensor:
+    # padding beyond n is zero by construction in from_global; keep it so
+    return u.data.sum()
+
+
+def spvec_mask(x: DistSpVec, v: DistVec, keep_fn) -> DistSpVec:
+    """Filter sparse entries by keep_fn(x_val, v_val_at_idx); layouts must
+    match so the lookup is piece-local. Stable compaction keeps order."""
+    assert x.layout == v.layout and x.grid == v.grid
+    xi, xv, vd = x.idx[0, 0], x.val[0, 0], v.data[0, 0]
+    vals_at = vd[xi.long().clamp(0, v.vb - 1)]
+    keep = (xi != SENTINEL) & keep_fn(xv, vals_at)
+    order = torch.argsort((~keep).to(torch.uint8), stable=True)
+    k = keep[order]
+    ni = torch.where(k, xi[order], sentinel_like(xi))
+    nv = torch.where(k, xv[order], torch.zeros((), dtype=xv.dtype,
+                                                device=xv.device))
+    return DistSpVec(ni[None, None], nv[None, None],
+                     keep.sum(dtype=torch.int32).reshape(1, 1), x.n, x.grid,
+                     x.layout)
+
+
+def vec_scatter_spvec(v: DistVec, x: DistSpVec, fn) -> DistVec:
+    """v[i] = fn(v[i], x[i]) for stored x entries: a piece-aligned scatter.
+    Padding slots (SENTINEL, or any index past the piece) write to a spare
+    slot past the end, which is dropped, as JAX's ``mode='drop'`` does."""
+    assert x.layout == v.layout and x.grid == v.grid
+    vd, xi = v.data[0, 0], x.idx[0, 0]
+    vb = vd.shape[0]
+    inside = (xi >= 0) & (xi < vb)
+    new = fn(vd[xi.long().clamp(0, vb - 1)], x.val[0, 0])
+    out = torch.cat([vd, vd[:1]])
+    out[torch.where(inside, xi.long(), vb)] = new.to(vd.dtype)
+    return DistVec(out[:vb][None, None], v.n, v.grid, v.layout)
+
+
+def spvec_nnz(x: DistSpVec) -> torch.Tensor:
+    return x.nnz.sum()

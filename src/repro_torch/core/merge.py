@@ -1,6 +1,6 @@
 """Sort-free merge engine (CombBLAS 2.0 §5 multiway merge, DESIGN.md §4.4).
 
-Every SpGEMM path ends in a merge of (row, col, val) streams. Three graded
+Every SpGEMM path ends in a merge of (row, col, val) streams. Four graded
 primitives, as in ``repro.core.merge``:
 
   1. **Packed-key dedup** (``dedup``): encode (row, col) into ONE integer
@@ -9,10 +9,13 @@ primitives, as in ``repro.core.merge``:
      (row, col) pairs decode straight from the merged keys.
   2. **Sorted fast path** (``dedup_sorted``): inputs carrying an order tag
      skip the sort — run-boundary detection + segmented reduction only.
-  3. **kv stage pipeline** (``kv_from_products`` / ``kv_merge2`` /
+  3. **Merge path** (``merge_sorted`` / ``merge_tree``): two sorted tiles
+     interleave in O(n) by rank placement (two binary searches and two
+     scatters, never a sort); ``merge_tree`` folds stage buffers pairwise.
+  4. **kv stage pipeline** (``kv_from_products`` / ``kv_merge2`` /
      ``kv_tree``): SpGEMM stage buffers travel as (packed keys, values,
-     count) and merge by rank placement (two binary searches and two
-     scatters, never a sort); rows/cols decode once at the end.
+     count) and merge by the same rank placement; rows/cols decode once at
+     the end.
 
 The seed two-key implementation survives as ``sort_two_key`` /
 ``dedup_legacy``: the path for tiles whose keys cannot pack.
@@ -217,6 +220,82 @@ def dedup_sorted(c: COO, add: Monoid) -> COO:
         raise ValueError("dedup_sorted needs an order tag; use dedup() for "
                          "untagged tiles")
     return dedup(c, add, c.order)
+
+
+# --------------------------------------------------------------------------
+# merge path (binary merge scheme, paper §5)
+# --------------------------------------------------------------------------
+
+def merge_sorted(a: COO, b: COO, add: Monoid, order: str = "row") -> COO:
+    """C = A ⊕ B for two tiles of the same shape: O(n), sort-free.
+
+    Rank placement: A[i] lands at ``i + |{kb < ka[i]}|`` and B[j] at
+    ``j + |{ka <= kb[j]}|`` (two searchsorteds), a bijection onto
+    [0, capA+capB) with A's duplicates before B's, so two scatters build the
+    merged sorted stream; equal keys then fuse in the run reduction of
+    ``dedup_sorted``. Inputs not carrying the order tag are packed-sorted
+    first. Returns an exact-capacity (capA+capB) COO; callers clamp with
+    ``with_cap`` after checking ``nnz`` against their budget.
+    """
+    assert a.shape == b.shape, (a.shape, b.shape)
+    out_dtype = torch.promote_types(a.dtype, b.dtype)
+    if key_dtype(a.shape) is None:        # unpackable tile: legacy concat
+        both = COO(torch.cat([a.row, b.row]), torch.cat([a.col, b.col]),
+                   torch.cat([a.val.to(out_dtype), b.val.to(out_dtype)]),
+                   a.nnz + b.nnz, a.shape, "none")
+        return dedup_legacy(both, add, order)
+    a = sort_packed(a, order)
+    b = sort_packed(b, order)
+    ka = pack_keys(a.row, a.col, a.shape, order)
+    kb = pack_keys(b.row, b.col, b.shape, order)
+    dev = ka.device
+    pos_a = torch.arange(a.cap, device=dev) + torch.searchsorted(kb, ka)
+    pos_b = torch.arange(b.cap, device=dev) + torch.searchsorted(ka, kb,
+                                                                 right=True)
+    total = a.cap + b.cap
+    keys = ka.new_empty(total)
+    keys[pos_a] = ka
+    keys[pos_b] = kb
+    vals = torch.empty((total,) + a.vdims, dtype=out_dtype, device=dev)
+    vals[pos_a] = a.val.to(out_dtype)
+    vals[pos_b] = b.val.to(out_dtype)
+    return _reduce_runs(keys, vals, a.nnz + b.nnz, a.shape, add, order)
+
+
+def merge_capped(a: COO, b: COO, add: Monoid, cap: int,
+                 order: str = "row"):
+    """merge_sorted clamped to ``cap``; ok is the PRE-clamp overflow check."""
+    m = merge_sorted(a, b, add, order)
+    ok = m.nnz <= cap
+    return m.with_cap(cap, add.identity), ok
+
+
+@_obs.timed("merge.tree")
+def merge_tree(tiles, add: Monoid, out_cap: int, order: str = "row"):
+    """Pairwise merge of q sorted stage buffers (the SUMMA multiway merge).
+
+    Intermediate capacities grow as min(capL+capR, out_cap): a partial
+    merge's distinct count is bounded by the final nnz(C), so clamping
+    intermediates to ``out_cap`` is lossless whenever the final result
+    fits, and the pre-clamp ``ok`` checks catch the case it doesn't.
+    Returns (COO, ok).
+    """
+    assert len(tiles) >= 1
+    tiles = list(tiles)
+    ok = torch.ones((), dtype=torch.bool, device=tiles[0].device)
+    while len(tiles) > 1:
+        nxt = []
+        for i in range(0, len(tiles) - 1, 2):
+            m = merge_sorted(tiles[i], tiles[i + 1], add, order)
+            tgt = min(m.cap, out_cap)
+            ok = ok & (m.nnz <= tgt)
+            nxt.append(m.with_cap(tgt, add.identity))
+        if len(tiles) % 2:
+            nxt.append(tiles[-1])
+        tiles = nxt
+    final = tiles[0]
+    ok = ok & (final.nnz <= out_cap)
+    return final.with_cap(out_cap, add.identity), ok
 
 
 # --------------------------------------------------------------------------

@@ -18,10 +18,10 @@ memory (too large). This module centralizes the guessing:
      truncated results.
   5. **Pick variants** by the paper's rules of thumb (DESIGN.md §4.6).
 
-Apps call ``spgemm`` below with NO capacity arguments; explicit caps remain
-available as overrides. The audits, deadlines and the degradation ladder of
-the JAX package wait for the port's robustness slice: where the JAX planner
-would take a ladder rung, this one raises.
+Apps call ``spgemm`` / ``spmspv`` below with NO capacity arguments; explicit
+caps remain available as overrides. The audits, deadlines and the
+degradation ladder of the JAX package wait for the port's robustness slice:
+where the JAX planner would take a ladder rung, this one raises.
 """
 from __future__ import annotations
 
@@ -33,10 +33,11 @@ import numpy as np
 
 from ..obs import recorder as _obs
 from .coo import COO
-from .dist import DistSpMat, Grid
+from .dist import DistSpMat, DistSpVec, Grid
 from .local_spgemm import compression_ratio, local_algo, spgemm_flops
 from .semiring import ARITHMETIC, Semiring
 from .spgemm import spgemm_2d as _spgemm_2d
+from .spmv import spmspv as _spmspv_2d
 
 # Per-device scratch budget for planner decisions, in *entries* (a COO entry
 # is ~16 bytes with indices): ~64 MB. Crossing it flips the memory-saving
@@ -222,15 +223,50 @@ def spgemm(a: DistSpMat, b: DistSpMat | None = None,
 
 
 def _plan_event(kind: str, p):
-    """One structured obs event carrying a plan's full decision record."""
+    """One structured obs event carrying a plan's full decision record
+    (an SpMSpV plan has no schedule, overlap or compression: None)."""
     if not _obs.enabled():
         return
-    s = p.schedule
+    s = getattr(p, "schedule", None)
     _obs.event(kind, variant=p.variant, merge=p.merge,
                schedule=s if (s is None or isinstance(s, str)) else "hybrid",
-               overlap=p.overlap, compress=p.compress,
+               overlap=getattr(p, "overlap", None),
+               compress=getattr(p, "compress", None),
                prod_cap=p.prod_cap, out_cap=p.out_cap,
                attempts=p.attempts, degraded=",".join(p.degraded))
+
+
+# --------------------------------------------------------------------------
+# SpMSpV planning
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SpMSpVPlan:
+    prod_cap: int
+    out_cap: int
+    variant: str           # local kernel: 'sort' | 'bucket' | 'spa'
+    merge: str             # 'sparse' | 'dense'
+    use_spmv: bool         # rule of thumb: dense SpMV beats SpMSpV here
+    prod_ceiling: int
+    out_ceiling: int
+    density: float
+    attempts: int = 1
+    degraded: tuple = ()   # ladder rungs taken (none in this slice)
+
+    def at_ceiling(self) -> bool:
+        return (self.prod_cap >= self.prod_ceiling
+                and self.out_cap >= self.out_ceiling)
+
+    def grown(self, factor: int = 4) -> "SpMSpVPlan":
+        if self.at_ceiling():
+            raise RuntimeError(
+                "SpMSpV overflow at worst-case capacities "
+                f"(prod_cap={self.prod_cap}, out_cap={self.out_cap})")
+        return dataclasses.replace(
+            self,
+            prod_cap=min(self.prod_cap * factor, self.prod_ceiling),
+            out_cap=min(self.out_cap * factor, self.out_ceiling),
+            attempts=self.attempts + 1)
 
 
 def spmspv_variant_for_density(density: float) -> str:
@@ -240,6 +276,116 @@ def spmspv_variant_for_density(density: float) -> str:
     if density < 0.10:
         return "bucket"
     return "spa"
+
+
+def plan_spmspv(a: DistSpMat, frontier_nnz: int, *, safety: float = 4.0,
+                prod_cap: int | None = None, out_cap: int | None = None,
+                variant: str | None = None, merge: str | None = None,
+                add_tag: str | None = None,
+                mask_allowed: int | None = None) -> SpMSpVPlan:
+    """Size y = A·x for a sparse x with ``frontier_nnz`` stored entries.
+
+    Expected per-device products = nnz(A_tile) · frontier density; the
+    exact worst case is the full tile, which bounds retry growth.
+    ``add_tag`` (the semiring's add-monoid tag) lets the dense-merge rule
+    apply (it needs a 'sum' monoid). ``mask_allowed`` (mask-admissible
+    output rows, ``mask_allowed_count``) bounds y's stored entries exactly,
+    so out caps (not prod caps: the expansion still enumerates every flop)
+    intersect with it; BFS's complement mask shrinks them as the search
+    saturates.
+    """
+    nt = _host_nnz(a)
+    max_tile = float(nt.max()) if nt.size else 1.0
+    pc = a.grid[1]
+    n = max(a.shape[1], 1)
+    f = max(int(frontier_nnz), 1)
+    density = f / n
+    est = max(max_tile * density, 1.0)
+    p_ceil = _pow2(max_tile)
+    # the sparse merge buckets entries by destination piece with
+    # out_cap // pc slots each, and all of a partial's entries may target
+    # one piece: the out ceiling carries a ×pc factor
+    out_bound = min(max_tile, float(a.mb))
+    out_est = est
+    if mask_allowed is not None:
+        allowed = float(max(int(mask_allowed), 1))
+        out_bound = min(out_bound, allowed)
+        out_est = min(out_est, allowed)
+    o_ceil = _pow2(out_bound * pc)
+    p_cap = min(_pow2(prod_cap or safety * est), p_ceil)
+    o_cap = min(_pow2(out_cap or safety * out_est * pc), o_ceil)
+    if prod_cap:
+        p_cap = max(p_cap, _pow2(prod_cap))
+        p_ceil = max(p_ceil, p_cap)
+    if out_cap:
+        o_cap = max(o_cap, _pow2(out_cap))
+        o_ceil = max(o_ceil, o_cap)
+    use_spmv = density > 0.30    # §4.5: SpMSpV stays competitive far past
+    #                              where intuition says to switch
+    if merge is None:
+        # for dense-ish frontiers the dense accumulator + psum_scatter merge
+        # is the classic SpMV pipeline (needs a natively reducible monoid)
+        merge = "dense" if use_spmv and add_tag == "sum" else "sparse"
+    return SpMSpVPlan(
+        prod_cap=p_cap, out_cap=o_cap,
+        variant=variant or spmspv_variant_for_density(density),
+        merge=merge, use_spmv=use_spmv, prod_ceiling=p_ceil,
+        out_ceiling=o_ceil, density=density)
+
+
+def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring, *, mesh: Grid,
+           plan: SpMSpVPlan | None = None,
+           prod_cap: int | None = None, out_cap: int | None = None,
+           variant: str | None = None, merge: str | None = None,
+           mask=None, safety: float = 4.0, max_attempts: int = 6,
+           growth: int = 4):
+    """Planned y = A·x (sparse x, optionally masked). Returns (DistSpVec,
+    plan).
+
+    Plans from the *current* frontier size (one host scalar), so iterative
+    callers (BFS) get caps that track the frontier; a vector mask also caps
+    the output at the admissible-row count (a second host scalar). An
+    overflowing attempt retries with caps grown ×``growth`` toward the
+    ceiling. When the retries run out this raises: the JAX package's audit
+    retries and degradation ladder are not ported yet.
+    """
+    if plan is None:
+        allowed = None
+        if mask is not None:
+            from .mask import mask_allowed_count
+            allowed = mask_allowed_count(mask)
+        plan = plan_spmspv(
+            a, int(x.nnz.sum()), safety=safety, prod_cap=prod_cap,
+            out_cap=out_cap, variant=variant, merge=merge,
+            add_tag=sr.add.tag, mask_allowed=allowed)
+    p = plan
+    _plan_event("plan.spmspv", p)
+    while True:
+        y, ok = _spmspv_2d(a, x, sr, mesh=mesh, variant=p.variant,
+                           merge=p.merge, prod_cap=p.prod_cap,
+                           out_cap=p.out_cap, mask=mask)
+        if bool(ok.all()):
+            if p.attempts > 1:
+                _plan_event("plan.spmspv.done", p)
+            return y, p
+        if p.attempts < max_attempts and not p.at_ceiling():
+            _obs.event("plan.overflow_retry", op="spmspv",
+                       attempt=p.attempts, prod_cap=p.prod_cap,
+                       out_cap=p.out_cap)
+            _obs.counter_add("plan.overflow_retries")
+            p = p.grown(growth)
+            continue
+        raise RuntimeError(
+            f"SpMSpV still overflowing after {p.attempts} attempts "
+            f"(prod_cap={p.prod_cap}, out_cap={p.out_cap}) — "
+            f"degradation ladder not ported (degraded={p.degraded})")
+
+
+def spmv_variant(a: DistSpMat) -> str:
+    """Local SpMV flavor whose required sort order the tile already has
+    (§4.2): row-partitioned wants row-major tiles, col-partitioned
+    col-major, so matching the order tag makes the kernel's sort a no-op."""
+    return "col" if a.order == "col" else "row"
 
 
 # --------------------------------------------------------------------------
