@@ -30,9 +30,9 @@ Phases (any failure exits non-zero and prints no result line):
    parameters, scale 15, edge factor 16, seed 0) through
    ``DistSpMat.from_global_coo`` -> ``triangle_count`` -> planner ->
    ``spgemm_2d`` on a 1x1 grid, held against scipy; its segreduce
-   launches by route (all sorted), and the shapes of its calls (N, S, live
-   ids, distinct segments), each timed (device time, torch.profiler)
-   beside the bound of what the sorted route must move;
+   launches by route (all sorted), and each of its calls again (N, S, live
+   ids) held against the plain version and timed (device time,
+   torch.profiler) beside the bound of what the sorted route must move;
 4. dense local SpGEMM: ``plan_local_spgemm`` -> ``spgemm_auto`` ->
    ``spgemm_dense`` on R-MAT scale 11, edge factor 64 (a 2048 x 2048 tile,
    the dense accumulator's largest) under four semirings, held against
@@ -95,18 +95,51 @@ Phases (any failure exits non-zero and prints no result line):
    iterations) within L1 1e-4 of a float64 scipy power iteration of the
    same formula run to convergence; iterations, cold and warm wall, wall an
    iteration, segreduce launches by route (1 atomic for the out-degrees, 1
-   sorted an iteration), peak memory and one profiled run.
+   sorted an iteration), peak memory and one profiled run;
+12. FastSV on the same graph: labels equal to each component's smallest
+   vertex id (scipy's ``connected_components``; min-hooking from arange
+   ends there), hooking iterations and pointer-jumping sweeps, cold and
+   warm wall, wall an iteration, segreduce launches by route (1 sorted and
+   2 atomic an iteration), peak memory and one profiled run;
+13. maximal matching on the same matrix read as a bipartite graph (rows
+   and columns two vertex sets), run to its fixed point: consistent, every
+   pair an edge, maximal (no stored entry joins two unmatched vertices),
+   its size beside scipy's ``maximum_bipartite_matching``; iterations,
+   wall, segreduce launches by route, peak memory, a profile;
+15. SpMM on the same matrix (run before 14): ``spmm_15d`` with X of 16 f32
+   columns from ``default_rng(0)`` within the f32 summation bound of a
+   float64 ``csr @ X`` (per row, gamma_(deg-1) |A||X|), ``spmm_2d``
+   within it too and bitwise equal to ``spmm_15d`` under MAX_PLUS (their
+   f32 sums differ in the last bits: atomic adds in any order); the
+   segreduce route (atomic: vector values) and launches, ms a call beside
+   the bytes bound, a profile;
+14. HipMCL on a planted protein-family network (32,768 proteins, families
+   of 32-64, vectorized numpy from ``default_rng(0)``) written as a LABEL
+   file under build/ and read with ``read_generalized_tuples``:
+   ``hipmcl`` with its defaults, the partition equal to a float64 scipy
+   MCL of the same steps, purity against the planted families; per
+   iteration the planner's caps, the iterate's nnz and the host round
+   trip's time; the reader's time, wall, peak memory, segreduce launches
+   by route (against the count its iterations and FastSV's imply), one
+   profiled iteration.
 
-Phases 2-5 and 10-11 fail if a sorted-route launch saw its ids descend (a
+In phases 12-15 every segreduce call of one run is recorded by shape
+(route, dtype, tag, N, D, S); each shape's first call is run again, held
+against the plain version on the same inputs (phase 2's tolerance) and
+timed like phase 3's calls, and the calls by route must equal the launches
+the phase counted.
+
+Phases 2-5 and 10-15 fail if a sorted-route launch saw its ids descend (a
 caller's broken ``sorted_ids`` promise: ``segreduce.descents()``). The two
 lines before the last are a JSON object with one record per kernel
 (segreduce's adds the atomic route's time, the main-path calls' summed time
-and bound, and phases 10-11's launches by route) and the card's name and
+and bound, and phases 10-15's launches by route) and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. The script
 imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -152,6 +185,16 @@ MAMBA_E2E_LAYERS, MAMBA_E2E_BATCH, MAMBA_E2E_PROMPT, MAMBA_E2E_TOKENS = \
 # PageRank against a float64 scipy power iteration
 GRAPH_SCALE, GRAPH_EDGE_FACTOR, BFS_ROOTS = 20, 16, 4
 PR_ALPHA, PR_TOL, PR_MAX_ITERS, PR_L1_TOL = 0.85, 1e-8, 100, 1e-4
+# phase 13: a bound on the passes, far above what the fixed point takes
+MATCH_MAX_ITERS = 10_000
+# phase 14: the planted protein-family network (families of 32-64, pairs
+# within a family linked with p = 0.5, ~2 cross-family links a protein).
+# Halved from 65,536 proteins, whose expansions ran out of the card's 80 GB
+# (the planner's caps reach 2^30 slots on the family-dense iterates)
+HIPMCL_PROTEINS, HIPMCL_FAMILY, HIPMCL_P_IN, HIPMCL_CROSS = \
+    32768, (32, 64), 0.5, 2
+# phase 15: SpMM's dense operand, k f32 columns
+SPMM_K = 16
 
 KERNELS = ("segreduce", "semiring_matmul", "flash_attention", "bsr_spmm",
            "ssd_chunk")
@@ -176,25 +219,33 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, match: str, iters: int = 20) -> float:
+def kernel_device_ms(fn, match, iters: int = 20) -> float:
     """Mean device time a launch of the kernels whose name holds ``match``
-    over ``iters`` calls of ``fn()``, from torch.profiler: for a call short
-    enough that the host's enqueue, not the device, paces back-to-back
-    calls."""
+    (for a tuple of names, the sum of that over each) over ``iters`` calls
+    of ``fn()``, from torch.profiler: for a call short enough that the
+    host's enqueue, not the device, paces back-to-back calls. The trace
+    may miss launches (the profiler has dropped every launch of a 1 µs
+    kernel from one trace): the mean is over those it holds, and a trace
+    that holds none of a kernel is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    names = (match,) if isinstance(match, str) else match
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and match in e.key]
-    count = sum(e.count for e in hits)     # the trace may miss one at its
-    if count == 0:                         # edges: the mean is over those
-        raise AssertionError(f"no {match} kernel in the trace")  # it holds
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        hits = [[e for e in events if name in e.key] for name in names]
+        counts = [sum(e.count for e in h) for h in hits]
+        if all(counts):
+            return sum(sum(e.self_device_time_total for e in h) / c / 1e3
+                       for h, c in zip(hits, counts))
+    missing = [n for n, c in zip(names, counts) if not c]
+    raise AssertionError(f"no {missing} kernel in three traces")
 
 
 # --------------------------------------------------------------------------
@@ -551,33 +602,49 @@ def check_segreduce() -> dict:
             "library_ms": library_ms, "atomic_route_ms": atomic_ms}
 
 
-def time_main_path_calls(calls) -> tuple[float, float]:
-    """The sorted route at the shapes phase 3's tricount gives it: each
-    recorded call's device time (its two kernels, from torch.profiler: the
-    host's enqueue would pace CUDA events) beside its bound, and their
-    sums."""
+def time_main_path_calls(calls, counts=None) -> tuple[float, float, float]:
+    """Segreduce at the shapes a main path gives it: each recorded call
+    (values, ids, S, tag, kwargs) run again, held against the plain
+    version (phase 2's ``_compare``), and timed by its route's two
+    kernels' device time (torch.profiler: the host's enqueue would pace
+    CUDA events) beside its bound: the bytes its route must move, for a
+    sorted call its in-range ids and values, one id pair a 2048-element
+    tile (its two ends) and the S outputs, for an atomic call every id (any
+    may be in range), the in-range rows of D values and the S output rows.
+    Returns the sums of time and bound, each call weighted by its count in
+    ``counts`` (1 without), and the max abs err."""
     from repro_torch.kernels import segreduce
-    total = bound_total = 0.0
+    from repro_torch.kernels.segreduce import segment_reduce_plain
+    total = bound_total = max_err = 0.0
     for i, (vals, ids, s, tag, kw) in enumerate(calls):
-        n = ids.shape[0]
-        inside = (ids >= 0) & (ids < s)
-        live = int(inside.sum())
-        kept = ids[inside]
-        distinct = int(torch.unique_consecutive(kept).numel()) if live else 0
+        k = counts[i] if counts else 1
+        d = math.prod(vals.shape[1:])
+        route = segreduce.route(vals.dtype, d, kw.get("sorted_ids", False))
         call = lambda: segreduce.segment_reduce(vals, ids, s, tag, **kw)
-        ms = (kernel_device_ms(call, "segreduce_sorted_tiles")
-              + kernel_device_ms(call, "segreduce_sorted_carry"))
-        # least time: the in-range ids and values read once, the S outputs
-        # written once, one id pair a 2048-element tile (its two ends)
-        nbytes = (live * (4 + vals.element_size()) + s * vals.element_size()
-                  + -(-n // 2048) * 8)
+        try:
+            err = _compare(call(), segment_reduce_plain(vals, ids, s, tag,
+                                                        **kw),
+                           vals, ids, s, tag)
+        except AssertionError as e:
+            raise AssertionError(f"segreduce {route} {vals.dtype} {tag} N "
+                                 f"{ids.shape[0]} D {d} S {s}: {e}") from e
+        ms = kernel_device_ms(call, ("segreduce_sorted_tiles",
+                                     "segreduce_sorted_carry")
+                              if route == "sorted" else
+                              ("segreduce_init", "segreduce_accum"))
+        n, isz = ids.shape[0], vals.element_size()
+        live = int(((ids >= 0) & (ids < s)).sum())
+        nbytes = (live * (4 + isz) + s * isz + -(-n // 2048) * 8
+                  if route == "sorted" else n * 4 + (live + s) * d * isz)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        total += ms
-        bound_total += bound
-        log(f"  call {i}: N {n} S {s} live ids {live} distinct segments "
-            f"{distinct} {vals.dtype} {tag}: {ms:.4f} ms of device time, "
-            f"bound {bound:.4f} ms (bytes)")
-    return total, bound_total
+        total += k * ms
+        bound_total += k * bound
+        max_err = max(max_err, err)
+        log(f"  {k}x {route} {str(vals.dtype)[6:]} {tag} N {n} "
+            f"D {d} S {s}, live ids {live}: {ms:.4f} ms of device time, "
+            f"bound {bound:.4f} ms (bytes); the plain version's answer "
+            f"(max abs err {err:.3g})")
+    return total, bound_total, max_err
 
 
 # --------------------------------------------------------------------------
@@ -945,7 +1012,7 @@ def main_path():
                              f"warm call launched {launches}")
     log(f"segreduce at phase 3's {len(calls)} shapes (sorted route, device "
         f"time from torch.profiler):")
-    total, bound = time_main_path_calls(calls)
+    total, bound, _ = time_main_path_calls(calls)
     log(f"segreduce a tricount: {total:.4f} ms of device time in "
         f"{len(calls)} launches, bound {bound:.4f} ms")
     check_descents("phase 3's recorded calls")
@@ -1372,6 +1439,490 @@ def pagerank_phase(a, mesh, csr) -> dict:
     log("profile of one warm pagerank:")
     profile_breakdown(lambda: pagerank(a, **kw))
     check_descents("phase 11's profiled run")
+    return routes
+
+
+# --------------------------------------------------------------------------
+# phases 12-15: FastSV, maximal matching and SpMM on phase 10's graph;
+# HipMCL on a planted protein-family network read through the LABEL reader
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _calls(owner, name, keep=lambda out: None, static=False):
+    """Time each call of ``owner.<name>`` (synchronized on both sides) while
+    the block runs; yields the list of (seconds, keep(result))."""
+    orig = getattr(owner, name)
+    seen = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen.append((time.perf_counter() - t0, keep(out)))
+        return out
+
+    setattr(owner, name, staticmethod(timed) if static else timed)
+    try:
+        yield seen
+    finally:
+        setattr(owner, name, staticmethod(orig) if static else orig)
+
+
+@contextlib.contextmanager
+def _segreduce_calls():
+    """Record segreduce's calls while the block runs, by shape (route,
+    dtype, tag, N, D, S): the first call's inputs (cloned) and the number
+    of calls. Yields the record, a dict."""
+    from repro_torch.kernels import segreduce
+    inner = segreduce.segment_reduce
+    shapes = {}
+
+    def keep(values, seg_ids, num_segments, tag, **kw):
+        d = math.prod(values.shape[1:])
+        key = (segreduce.route(values.dtype, d, kw.get("sorted_ids", False)),
+               values.dtype, tag, seg_ids.shape[0], d, int(num_segments))
+        if key not in shapes:
+            shapes[key] = [(values.clone(), seg_ids.clone(),
+                            int(num_segments), tag, kw), 0]
+        shapes[key][1] += 1
+        return inner(values, seg_ids, num_segments, tag, **kw)
+
+    segreduce.segment_reduce = keep
+    try:
+        yield shapes
+    finally:
+        segreduce.segment_reduce = inner
+
+
+def check_segreduce_calls(shapes, what: str) -> dict:
+    """Hold segreduce at each shape ``_segreduce_calls`` recorded against
+    the plain version and time it (``time_main_path_calls``, the first
+    call's inputs standing for its shape's calls), then free the inputs;
+    returns the recorded calls by route."""
+    calls = [rec[0] for rec in shapes.values()]
+    counts = [rec[1] for rec in shapes.values()]
+    log(f"{what}: {sum(counts)} segreduce calls at {len(calls)} shapes; each "
+        f"shape's first call again, against the plain version, timed:")
+    ms, bound, err = time_main_path_calls(calls, counts)
+    log(f"{what}: segreduce {ms:.4f} ms of device time, bound {bound:.4f} "
+        f"ms (each shape's first call times its calls); max abs err {err:.3g}")
+    routes = {"sorted": 0, "atomic": 0}
+    for (route, *_), (_, k) in shapes.items():
+        routes[route] += k
+    shapes.clear()
+    return routes
+
+
+def _per_iter(routes: dict, iters: int) -> dict:
+    return {k: round(v / max(iters, 1), 3) for k, v in routes.items()}
+
+
+def fastsv_phase(a, mesh, csr) -> dict:
+    """Phase 12; returns the segreduce launches of the warm run by route."""
+    import scipy.sparse.csgraph as csgraph
+    from repro_torch.apps import fastsv
+    from repro_torch.kernels import segreduce
+    from repro_torch.obs import recorder
+
+    n = csr.shape[0]
+    t0 = time.perf_counter()
+    ncc, comp = csgraph.connected_components(csr, directed=False)
+    smallest = np.full(ncc, n, np.int64)
+    np.minimum.at(smallest, comp, np.arange(n))
+    ref = smallest[comp]           # min-hooking from arange ends here
+    t_ref = time.perf_counter() - t0
+    cold, cold_s = _wall(lambda: fastsv(a, mesh=mesh))
+    torch.cuda.reset_peak_memory_stats()
+    _routes_zero()
+    warm, warm_s = _wall(lambda: fastsv(a, mesh=mesh))
+    routes = dict(segreduce.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    with recorder.capture() as rec, _segreduce_calls() as seg, \
+            _calls(sys.modules["repro_torch.apps.fastsv"], "extract") as ext:
+        recorded = fastsv(a, mesh=mesh)
+        it_span = rec.snapshot()["spans"]["fastsv.iter"]
+    check_descents("phase 12")
+    iters = it_span["count"]
+    sweeps = len(ext) - iters     # one extract a hooking iteration
+    for name, got in (("cold", cold), ("warm", warm), ("recorded", recorded)):
+        if got.shape != ref.shape or not np.array_equal(got, ref):
+            bad = np.flatnonzero(got != ref)
+            raise AssertionError(
+                f"fastsv ({name}): {len(bad)} labels differ from each "
+                f"component's smallest vertex (scipy), first at "
+                f"{bad[:5].tolist()}")
+    log(f"fastsv: {ncc} components (scipy {t_ref:.2f} s), labels equal to "
+        f"each component's smallest vertex id in the cold, warm and "
+        f"recorded runs; {iters} hooking iterations, {sweeps} "
+        f"pointer-jumping sweeps; cold {cold_s * 1e3:.1f} ms, warm "
+        f"{warm_s * 1e3:.1f} ms ({warm_s / iters * 1e3:.3f} ms an "
+        f"iteration, sweeps and set-up included; the recorded run's "
+        f"fastsv.iter span median {it_span['p50_us'] / 1e3:.3f} ms); peak "
+        f"device memory {peak / 2**30:.3f} GiB; segreduce launches {routes}, "
+        f"{_per_iter(routes, iters)} an iteration")
+    # an iteration: spmv_row (sorted), assign's min merge and touch count
+    # (atomic); the sweeps run extract alone
+    if routes != {"sorted": iters, "atomic": 2 * iters}:
+        raise AssertionError(f"fastsv: segreduce launches {routes}, not "
+                             f"{iters} sorted and {2 * iters} atomic")
+    seen = check_segreduce_calls(seg, "fastsv, the recorded run")
+    if seen != routes:
+        raise AssertionError(f"fastsv: the recorded run called segreduce "
+                             f"{seen}, the warm run launched {routes}")
+    log("profile of one warm fastsv:")
+    profile_breakdown(lambda: fastsv(a, mesh=mesh))
+    check_descents("phase 12's profiled run")
+    return routes
+
+
+def check_matching(mr, mc, csr) -> int:
+    """Raise unless (mate_row, mate_col) is a consistent matching on the
+    stored entries of ``csr`` and maximal; returns its cardinality."""
+    rows = np.flatnonzero(mr >= 0)
+    cols = np.flatnonzero(mc >= 0)
+    if len(rows) != len(cols) or not np.array_equal(mc[mr[rows]], rows) \
+            or not np.array_equal(mr[mc[cols]], cols):
+        raise AssertionError("matching: mate_row and mate_col disagree")
+    if len(rows) and not (np.asarray(csr[rows, mr[rows]]).ravel() != 0).all():
+        raise AssertionError("matching: a matched pair is not an edge")
+    coo = csr.tocoo()
+    free = (mr[coo.row] < 0) & (mc[coo.col] < 0)
+    if free.any():
+        k = int(np.flatnonzero(free)[0])
+        raise AssertionError(f"matching: not maximal, edge ({coo.row[k]}, "
+                             f"{coo.col[k]}) joins two unmatched vertices")
+    return len(rows)
+
+
+def matching_phase(a, mesh, csr) -> dict:
+    """Phase 13: phase 10's matrix read as a bipartite graph (rows and
+    columns two vertex sets); returns the warm run's segreduce launches."""
+    from scipy.sparse.csgraph import maximum_bipartite_matching
+    from repro_torch.apps import maximal_matching
+    from repro_torch.kernels import segreduce
+    from repro_torch.obs import recorder
+
+    run = lambda: maximal_matching(a, mesh=mesh,                # noqa: E731
+                                   max_iters=MATCH_MAX_ITERS)
+    (cold_r, cold_c), cold_s = _wall(run)
+    torch.cuda.reset_peak_memory_stats()
+    _routes_zero()
+    (mr, mc), warm_s = _wall(run)
+    routes = dict(segreduce.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    with recorder.capture() as rec, _segreduce_calls() as seg:
+        rec_r, rec_c = run()
+        passes = rec.snapshot()["spans"]["spmv"]["count"]
+    check_descents("phase 13")
+    if passes >= MATCH_MAX_ITERS:
+        raise AssertionError(f"matching: no fixed point in {passes} passes")
+    iters = passes - 1           # the last pass finds no proposal
+    for got in (cold_r, rec_r):
+        if not np.array_equal(got, mr):
+            raise AssertionError("matching: runs of one input differ")
+    if not (np.array_equal(cold_c, mc) and np.array_equal(rec_c, mc)):
+        raise AssertionError("matching: runs of one input differ")
+    t0 = time.perf_counter()
+    card = check_matching(mr, mc, csr)
+    t_check = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    best = int((maximum_bipartite_matching(csr, perm_type="column")
+                >= 0).sum())
+    t_max = time.perf_counter() - t0
+    log(f"matching (max_iters {MATCH_MAX_ITERS}): {iters} iterations to the "
+        f"fixed point ({passes} SpMV passes); {card} pairs, consistent and "
+        f"maximal ({t_check:.2f} s to check); maximum matching (scipy "
+        f"maximum_bipartite_matching, {t_max:.2f} s) {best}: ratio "
+        f"{card / best:.4f}; cold {cold_s * 1e3:.1f} ms, warm "
+        f"{warm_s * 1e3:.1f} ms ({warm_s / passes * 1e3:.3f} ms a pass); "
+        f"peak device memory {peak / 2**30:.3f} GiB; segreduce launches "
+        f"{routes}, {_per_iter(routes, passes)} a pass")
+    if 2 * card < best:
+        raise AssertionError("matching: below half the maximum, so not "
+                             "maximal")
+    # a pass: spmv_col's scatter (atomic); a matching iteration adds
+    # assign's max merge and touch count (atomic)
+    if routes != {"sorted": 0, "atomic": passes + 2 * iters}:
+        raise AssertionError(f"matching: segreduce launches {routes}, not "
+                             f"{passes + 2 * iters} atomic")
+    seen = check_segreduce_calls(seg, "matching, the recorded run")
+    if seen != routes:
+        raise AssertionError(f"matching: the recorded run called segreduce "
+                             f"{seen}, the warm run launched {routes}")
+    log("profile of one warm matching:")
+    profile_breakdown(run)
+    return routes
+
+
+def spmm_phase(a, mesh, csr) -> dict:
+    """Phase 15: ``spmm_15d`` and ``spmm_2d`` with X of SPMM_K f32 columns;
+    returns the segreduce launches of one call by route."""
+    from repro_torch.core import spmm_15d, spmm_2d
+    from repro_torch.core.dist import DistVec
+    from repro_torch.core.semiring import MAX_PLUS
+    from repro_torch.kernels import segreduce
+
+    n = csr.shape[0]
+    x_np = np.random.default_rng(0).standard_normal((n, SPMM_K)) \
+        .astype(np.float32)
+    x = DistVec.from_global(x_np, (1, 1), layout="col", mesh=mesh)
+    xt = x.data.reshape(n, SPMM_K)
+    _routes_zero()
+    y = spmm_15d(a, x, mesh=mesh)
+    torch.cuda.synchronize()
+    routes = dict(segreduce.route_launches)
+    check_descents("phase 15")
+    y_np = y.to_global().astype(np.float64)
+    x64 = x_np.astype(np.float64)
+    ref = csr @ x64
+    scale = abs(csr) @ np.abs(x64)
+    # recursive f32 summation in any order (the atomic route's): |error|
+    # <= gamma_(terms - 1) sum|terms|, gamma_k = k u / (1 - k u), u = 2^-24
+    # (Higham, Accuracy and Stability, Thm 4.4); unit values make the
+    # products exact
+    ku = np.maximum(csr.getnnz(axis=1) - 1, 1)[:, None] * 2.0**-24
+    bound = ku / (1 - ku) * scale
+    worst = float((np.abs(y_np - ref) / np.maximum(bound, 1e-300)).max())
+    if not np.isfinite(y_np).all() or worst > 1.0:
+        raise AssertionError(f"spmm: error {worst:.4f} x the f32 summation "
+                             f"bound (per row, gamma_(deg-1) |A||X|)")
+    y2 = spmm_2d(a, xt, mesh=mesh)
+    diff = int((y2 != y.data.reshape(y2.shape)).sum())
+    if (np.abs(y2.cpu().numpy().astype(np.float64) - ref) > bound).any():
+        raise AssertionError("spmm_2d: outside the f32 summation bound")
+    ym = spmm_15d(a, x, MAX_PLUS, mesh=mesh)
+    if not torch.equal(spmm_2d(a, xt, MAX_PLUS, mesh=mesh),
+                       ym.data.reshape(y2.shape)):
+        raise AssertionError("spmm_2d and spmm_15d differ under MAX_PLUS")
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(lambda: spmm_15d(a, x, mesh=mesh), iters=10)
+    peak = torch.cuda.max_memory_allocated()
+    # the function: A's live (row, col, val) and X read once, Y written
+    call_bytes = int(a.nnz.sum()) * 12 + 2 * n * SPMM_K * 4
+    log(f"spmm_15d (k = {SPMM_K}, f32): within the f32 summation bound "
+        f"(worst row at {worst:.4f} of it); spmm_2d within it too, {diff} "
+        f"of {y2.numel()} entries differ from spmm_15d in the last bits "
+        f"(atomic f32 adds in any order), bitwise equal under MAX_PLUS; "
+        f"segreduce route {segreduce.route(torch.float32, SPMM_K, True)} "
+        f"(vector values), launches {routes} a call; {ms:.3f} ms a call "
+        f"(CUDA events, 10 calls) against a bytes bound of "
+        f"{call_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({call_bytes / 1e9:.3f}"
+        f" GB: A's live entries, X and Y once); peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    if routes != {"sorted": 0, "atomic": 1}:
+        raise AssertionError(f"spmm: segreduce launches {routes}, not 1 "
+                             f"atomic")
+    with _segreduce_calls() as seg:
+        spmm_15d(a, x, mesh=mesh)
+    seen = check_segreduce_calls(seg, "spmm_15d")
+    if seen != routes:
+        raise AssertionError(f"spmm: a call called segreduce {seen}, the "
+                             f"first launched {routes}")
+    log("profile of one spmm_15d:")
+    profile_breakdown(lambda: spmm_15d(a, x, mesh=mesh))
+    return routes
+
+
+def planted_families(n, fam_lo, fam_hi, p_in, cross_per, seed=0):
+    """A protein-similarity network with planted families, vectorized:
+    families of fam_lo..fam_hi proteins (uniform; the last one takes what
+    is left of n), pairs within a family linked with probability ``p_in``
+    at weights in [0.5, 1), about ``cross_per`` links a protein across
+    families at weights in [0.01, 0.05), unit self-loops. Returns (family
+    of each protein, rows, cols, weights), each link in both directions."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(fam_lo, fam_hi + 1, n // fam_lo + 1)
+    sizes = sizes[:np.searchsorted(np.cumsum(sizes), n) + 1]
+    sizes[-1] -= int(sizes.sum()) - n
+    starts = np.cumsum(sizes) - sizes
+    family = np.repeat(np.arange(len(sizes)), sizes)
+    us, vs = [], []
+    for s in np.unique(sizes):
+        iu, ju = np.triu_indices(int(s), 1)
+        base = starts[sizes == s][:, None]
+        us.append((base + iu).ravel())
+        vs.append((base + ju).ravel())
+    u, v = np.concatenate(us), np.concatenate(vs)
+    keep = rng.random(len(u)) < p_in
+    u, v = u[keep], v[keep]
+    w_in = rng.uniform(0.5, 1.0, len(u))
+    m = int(round(cross_per * n / 2))
+    cu, cv = rng.integers(0, n, m), rng.integers(0, n, m)
+    other = family[cu] != family[cv]
+    cu, cv = np.minimum(cu[other], cv[other]), np.maximum(cu[other], cv[other])
+    _, first = np.unique(cu * n + cv, return_index=True)
+    first.sort()
+    cu, cv = cu[first], cv[first]
+    w_x = rng.uniform(0.01, 0.05, len(cu))
+    loops = np.arange(n)
+    rows = np.concatenate([u, cu, v, cv, loops]).astype(np.int64)
+    cols = np.concatenate([v, cv, u, cu, loops]).astype(np.int64)
+    w = np.concatenate([w_in, w_x])
+    return family, rows, cols, np.concatenate([w, w, np.ones(n)])
+
+
+def write_label_file(path, rows, cols, vals) -> int:
+    """The network in the MCL LABEL format (``PROT_%06d``, tab-separated,
+    one line an entry); returns the bytes written."""
+    lines = [f"PROT_{r:06d}\tPROT_{c:06d}\t{w:.6g}"
+             for r, c, w in zip(rows.tolist(), cols.tolist(), vals.tolist())]
+    data = ("\n".join(lines) + "\n").encode()
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_bytes(data)
+    return len(data)
+
+
+def _normalize_cols64(c):
+    import scipy.sparse as sp
+    s = np.asarray(c.sum(axis=0)).ravel()
+    inv = np.where(s > 0, 1.0 / np.maximum(s, 1e-300), 0.0)
+    return (c @ sp.diags(inv)).tocsr()
+
+
+def _keep_above(c, threshold):
+    c = c.tocsr()
+    c.data[c.data <= threshold] = 0
+    c.eliminate_zeros()
+    return c
+
+
+def mcl_reference(a, inflation=2.0, prune=1e-4, max_iters=20, tol=1e-5):
+    """``hipmcl``'s steps in float64 with scipy: normalize; then each
+    iteration the expansion C·C with entries <= prune dropped, inflation,
+    normalize, prune, normalize, and the chaos sum of squares, stopping
+    when it changes by less than ``tol``; clusters are the connected
+    components of the symmetrized attractor pattern. Returns (labels,
+    iterations, nnz of each iterate)."""
+    import scipy.sparse.csgraph as csgraph
+    c = _normalize_cols64(a.astype(np.float64).tocsr())
+    prev, nnz = np.nan, []
+    for it in range(1, max_iters + 1):
+        c2 = _keep_above(c @ c, prune).power(inflation)
+        c2 = _normalize_cols64(_keep_above(_normalize_cols64(c2), prune))
+        chaos = float((c2.data ** 2).sum())
+        c, done = c2, (not np.isnan(prev)) and abs(chaos - prev) < tol
+        prev = chaos
+        nnz.append(c.nnz)
+        if done:
+            break
+    _, labels = csgraph.connected_components(c + c.T, directed=False)
+    return labels, it, nnz
+
+
+def same_partition(a, b) -> bool:
+    """Whether two labelings induce the same partition."""
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    pairs = np.unique(a * (int(b.max()) + 1) + b)
+    return len(pairs) == len(np.unique(a)) == len(np.unique(b))
+
+
+def purity(labels, truth) -> float:
+    """Σ over clusters of its largest planted family's share of it."""
+    nf = int(truth.max()) + 1
+    pairs, counts = np.unique(labels.astype(np.int64) * nf + truth,
+                              return_counts=True)
+    best = np.zeros(int(labels.max()) + 1, np.int64)
+    np.maximum.at(best, pairs // nf, counts)
+    return float(best.sum() / len(labels))
+
+
+def hipmcl_phase(mesh) -> dict:
+    """Phase 14; returns the segreduce launches of the cold run by route."""
+    import scipy.sparse as sp
+    from repro_torch.apps import hipmcl
+    from repro_torch.core.dist import DistSpMat
+    from repro_torch.io import read_generalized_tuples
+    from repro_torch.kernels import segreduce
+    from repro_torch.obs import recorder
+
+    n = HIPMCL_PROTEINS
+    t0 = time.perf_counter()
+    family, rows, cols, vals = planted_families(n, *HIPMCL_FAMILY,
+                                                HIPMCL_P_IN, HIPMCL_CROSS)
+    path = ROOT / "build" / "hipmcl_planted.lbl"
+    nbytes = write_label_file(path, rows, cols, vals)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shape, r, c, v, labels = read_generalized_tuples(str(path), 4)
+    t_read = time.perf_counter() - t0
+    truth = family[np.array([int(lb[5:]) for lb in labels])]
+    t0 = time.perf_counter()
+    a = DistSpMat.from_global_coo(shape, r, c, v.astype(np.float32), (1, 1),
+                                  mesh=mesh)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    log(f"hipmcl network: {n} proteins in {family.max() + 1} families of "
+        f"{HIPMCL_FAMILY[0]}-{HIPMCL_FAMILY[1]}, {len(rows)} entries "
+        f"({nbytes / 1e6:.1f} MB of LABEL file, {t_gen:.2f} s to make); "
+        f"read_generalized_tuples {t_read:.2f} s, from_global_coo "
+        f"{t_asm:.2f} s (cap {a.cap})")
+    t0 = time.perf_counter()
+    ref, ref_iters, ref_nnz = mcl_reference(
+        sp.csr_matrix((v, (r, c)), shape=shape))
+    log(f"hipmcl reference (scipy, float64): {ref_iters} iterations, "
+        f"{len(np.unique(ref))} clusters, iterate nnz {ref_nnz} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.reset_peak_memory_stats()
+    _routes_zero()
+    cold, cold_s = _wall(lambda: hipmcl(a, mesh=mesh))
+    routes = dict(segreduce.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    check_descents("phase 14")
+    _routes_zero()
+    with recorder.capture() as rec, _segreduce_calls() as seg, \
+            _calls(DistSpMat, "to_global_coo",
+                   keep=lambda out: len(out[0])) as packs, \
+            _calls(DistSpMat, "from_global_coo", static=True) as unpacks:
+        recorded, rec_s = _wall(lambda: hipmcl(a, mesh=mesh))
+        plans = rec.events("plan.spgemm")
+        retries = rec.events("plan.overflow_retry")
+        spans = rec.snapshot()["spans"]
+    rec_routes = dict(segreduce.route_launches)
+    iters = spans["hipmcl.iter"]["count"]
+    fsv_iters = spans["fastsv.iter"]["count"]
+    for name, got in (("cold", cold), ("recorded", recorded)):
+        if not same_partition(got, ref):
+            raise AssertionError(
+                f"hipmcl ({name}): {len(np.unique(got))} clusters, not the "
+                f"float64 reference's partition ({len(np.unique(ref))})")
+    # pack of iteration i is packs[i + 1] (packs[0]: the normalized input);
+    # the unpack that starts it, unpacks[i]
+    trip = [packs[i + 1][0] + unpacks[i][0] for i in range(iters)]
+    log(f"hipmcl (inflation 2.0, prune 1e-4, tol 1e-5, at most 20 "
+        f"iterations): {iters} iterations (reference {ref_iters}), "
+        f"{len(np.unique(cold))} clusters, the reference's partition in the "
+        f"cold and recorded runs, purity {purity(cold, truth):.4f} against "
+        f"the planted families; cold {cold_s:.2f} s, recorded {rec_s:.2f} s; "
+        f"host round trip (to_global_coo + from_global_coo) "
+        f"{sum(trip):.2f} s of the recorded run ({100 * sum(trip) / rec_s:.1f}"
+        f"%); peak device memory {peak / 2**30:.3f} GiB; segreduce launches "
+        f"{routes}; overflow retries {len(retries)}")
+    for i in range(iters):
+        p = plans[i]
+        log(f"  iteration {i}: prod_cap {p['prod_cap']}, out_cap "
+            f"{p['out_cap']}, merge {p['merge']}, iterate nnz "
+            f"{packs[i + 1][1]}, round trip {trip[i] * 1e3:.1f} ms")
+    # atomic: each column normalization (one before the loop, two an
+    # iteration) and FastSV's assign (two an iteration); sorted: the final
+    # union's, one a FastSV iteration and each expansion's merge, which
+    # makes one call or, where the merge engine folds windows, more
+    atomic = 1 + 2 * iters + 2 * fsv_iters
+    if routes["atomic"] != atomic or \
+            routes["sorted"] < iters + 1 + fsv_iters:
+        raise AssertionError(f"hipmcl: segreduce launches {routes}, not "
+                             f"{atomic} atomic and at least "
+                             f"{iters + 1 + fsv_iters} sorted ({iters} "
+                             f"iterations, {fsv_iters} of FastSV)")
+    seen = check_segreduce_calls(seg, "hipmcl, the recorded run")
+    if not seen == rec_routes == routes:
+        raise AssertionError(f"hipmcl: the recorded run called segreduce "
+                             f"{seen} and launched {rec_routes}, the cold "
+                             f"run launched {routes}")
+    log("profile of one warm hipmcl iteration (max_iters=1: normalize, one "
+        "expansion, the final FastSV):")
+    profile_breakdown(lambda: hipmcl(a, mesh=mesh, max_iters=1))
+    check_descents("phase 14's profiled run")
     return routes
 
 
@@ -2227,7 +2778,17 @@ def main() -> int:
     _routes_zero()
     seg_record["pagerank_launches_by_route"] = pagerank_phase(graph, mesh,
                                                               csr)
+    _routes_zero()
+    seg_record["fastsv_launches_by_route"] = fastsv_phase(graph, mesh, csr)
+    _routes_zero()
+    seg_record["matching_launches_by_route"] = matching_phase(graph, mesh,
+                                                              csr)
+    _routes_zero()
+    seg_record["spmm_launches_by_route"] = spmm_phase(graph, mesh, csr)
     del graph, csr
+    torch.cuda.empty_cache()
+    _routes_zero()
+    seg_record["hipmcl_launches_by_route"] = hipmcl_phase(mesh)
     torch.cuda.empty_cache()
     fa_record = check_flash_attention()
     (fa_record["launches"], bsr_launches), ops = serve_path()

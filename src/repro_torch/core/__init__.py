@@ -12,11 +12,13 @@ Layering (as in ``repro.core``):
   matops        tile-local matrix helpers for the apps
   spgemm        2D SUMMA on the 1x1 grid (§3.2)
   spmv          distributed SpMV / SpMSpV on the 1x1 grid (§3.1)
+  spmm          distributed SpMM (1.5D and 2D) on the 1x1 grid
+  assign        distributed vector assign / extract on the 1x1 grid (§3.3)
   plan          capacity planner + variant rules of thumb (§5, §7), local
                 planners
 
-The JAX package's 3D SpGEMM, SpMM, assign/extract and sharding helpers are
-not ported yet (ROADMAP.md queue 1), so their names are absent here.
+The JAX package's 3D SpGEMM and sharding helpers are not ported yet
+(ROADMAP.md queue 1), so their names are absent here.
 """
 from . import merge, semiring
 from .coo import COO, SENTINEL, column_range, ewise_intersect, ewise_union
@@ -31,6 +33,8 @@ from .semiring import (ARITHMETIC, BOOLEAN, MAX_MIN, MAX_PLUS, MIN_PLUS,
                        MIN_SELECT2ND, Monoid, Semiring, segment_reduce,
                        semiring as make_semiring)
 from .spgemm import spgemm_2d
+from .spmm import local_spmm, spmm_15d, spmm_2d
+from .assign import assign, extract
 from .spmv import (spmspv, spmv, spmv_iter, transpose_layout,
                    transpose_spvec_layout)
 from .spmv_local import (SPMSPV_VARIANTS, spmspv_auto, spmv_col, spmv_row,

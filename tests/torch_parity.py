@@ -20,6 +20,10 @@ import jax
 import sys
 
 import repro.apps.pagerank  # noqa: F401  (the module, for jax_apps_jitted)
+import repro.apps.fastsv  # noqa: F401  (the modules, for jax_graph_apps_jitted)
+import repro.apps.hipmcl  # noqa: F401
+import repro.apps.matching  # noqa: F401
+import repro.core.assign  # noqa: F401
 import repro.core.plan as _jplan
 import repro.core.spgemm as _jspgemm
 from repro.core.coo import COO as JCOO
@@ -190,6 +194,100 @@ def jax_apps_jitted():
     mp = pytest.MonkeyPatch()
     mp.setattr(_jplan, "_spmspv_2d", jax_spmspv)
     mp.setattr(_JPAGERANK, "spmv_iter", jax_spmv_iter)
+    try:
+        yield
+    finally:
+        mp.undo()
+
+
+# --------------------------------------------------------------------------
+# FastSV, matching and HipMCL: their primitives under jit
+# --------------------------------------------------------------------------
+
+_JFASTSV = sys.modules["repro.apps.fastsv"]
+_JMATCHING = sys.modules["repro.apps.matching"]
+_JHIPMCL = sys.modules["repro.apps.hipmcl"]
+_JASSIGN = sys.modules["repro.core.assign"]
+_ORIG_GRAPH = {name: getattr(_JASSIGN, name) for name in ("assign", "extract")}
+_ORIG_GRAPH.update((name, getattr(_JHIPMCL, name)) for name in (
+    "mat_reduce", "mat_scale_cols", "mat_apply_local", "mat_ewise_local",
+    "mat_transpose"))
+_JGRAPH = {}
+
+
+def _fn_key(fn):
+    """A tile function by its code and the values it closes over (HipMCL
+    builds new lambdas over ``inflation`` and ``prune_threshold`` every
+    iteration)."""
+    return fn.__code__, tuple(c.cell_contents for c in fn.__closure__ or ())
+
+
+def _jitted(name, key, make):
+    key = (name,) + key
+    if key not in _JGRAPH:
+        _JGRAPH[key] = jax.jit(make())
+    return _JGRAPH[key]
+
+
+def jax_extract(v, gidx, *, mesh, route_cap=None):
+    return _jitted("extract", (mesh, route_cap), lambda: functools.partial(
+        _ORIG_GRAPH["extract"], mesh=mesh, route_cap=route_cap))(v, gidx)
+
+
+def jax_assign(v, gidx, val, *, mesh, **kw):
+    return _jitted("assign", (mesh, tuple(sorted(kw.items()))),
+                   lambda: functools.partial(_ORIG_GRAPH["assign"], mesh=mesh,
+                                             **kw))(v, gidx, val)
+
+
+def jax_mat_reduce(a, axis, add, *, mesh):
+    return _jitted("mat_reduce", (axis, add, mesh), lambda: functools.partial(
+        _ORIG_GRAPH["mat_reduce"], axis=axis, add=add, mesh=mesh))(a)
+
+
+def jax_mat_scale_cols(a, v, *args, mesh, **kw):
+    return _jitted("mat_scale_cols", (args, tuple(sorted(kw.items())), mesh),
+                   lambda: lambda a, v: _ORIG_GRAPH["mat_scale_cols"](
+                       a, v, *args, mesh=mesh, **kw))(a, v)
+
+
+def jax_mat_apply_local(a, fn, *, mesh):
+    return _jitted("mat_apply_local", (_fn_key(fn), mesh),
+                   lambda: lambda a: _ORIG_GRAPH["mat_apply_local"](
+                       a, fn, mesh=mesh))(a)
+
+
+def jax_mat_ewise_local(a, b, fn, *, mesh):
+    return _jitted("mat_ewise_local", (_fn_key(fn), mesh),
+                   lambda: lambda a, b: _ORIG_GRAPH["mat_ewise_local"](
+                       a, b, fn, mesh=mesh))(a, b)
+
+
+def jax_mat_transpose(a, *, mesh):
+    return _jitted("mat_transpose", (mesh,), lambda: functools.partial(
+        _ORIG_GRAPH["mat_transpose"], mesh=mesh))(a)
+
+
+@contextlib.contextmanager
+def jax_graph_apps_jitted():
+    """Run the JAX package's FastSV, maximal matching and HipMCL with their
+    primitives under jit: ``extract``, ``assign`` and ``spmv_iter`` where
+    FastSV calls them, ``spmv_iter`` and ``assign`` in matching, ``extract``
+    on ``repro.core.assign`` (matching imports it inside the function), and
+    HipMCL's tile ops, keyed by the tile function's code. Eagerly every
+    call traces and compiles its ``shard_map`` body again (FastSV on 60
+    vertices took over 110 s). The computation is unchanged. The modules
+    are reached through ``sys.modules``: each package's ``__init__``
+    shadows them with same-named functions."""
+    mp = pytest.MonkeyPatch()
+    for mod in (_JFASTSV, _JMATCHING):
+        mp.setattr(mod, "spmv_iter", jax_spmv_iter)
+        mp.setattr(mod, "assign", jax_assign)
+    mp.setattr(_JFASTSV, "extract", jax_extract)
+    mp.setattr(_JASSIGN, "extract", jax_extract)
+    for name in ("mat_reduce", "mat_scale_cols", "mat_apply_local",
+                 "mat_ewise_local", "mat_transpose"):
+        mp.setattr(_JHIPMCL, name, globals()["jax_" + name])
     try:
         yield
     finally:
