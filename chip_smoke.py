@@ -123,6 +123,33 @@ Phases (any failure exits non-zero and prints no result line):
    by route (against the count its iterations and FastSV's imply), one
    profiled iteration.
 
+16-19. the 2x2 grid (run last): four ranks, one process a grid position,
+   spawned after the parent prints its reserved memory and empties its
+   cache; ``nccl`` when there is a card a rank, else ``gloo`` (one card:
+   NCCL refuses two ranks on one GPU, so each exchange is staged through
+   pinned host memory), the backend printed. 16: phase 3's graph (written
+   under build/grid/) on 2x2, the planner's pick and rotate with overlap
+   on and off, alltoall and bcast, each giving scipy's and phase 3's
+   triangles; rotate's C bitwise equal with overlap on and off. 17: phase
+   10's graph on 2x2, BFS from its 4 roots (levels bitwise equal to
+   scipy's) and PageRank (L1 <= 1e-4 to phase 11's float64 reference).
+   18: FastSV (phase 12's labels), maximal matching (consistent,
+   maximal) and SpMM (``spmm_15d`` and ``spmm_2d`` within phase 15's f32
+   bound, bitwise equal under MAX_PLUS). 19: HipMCL on 8,192 planted
+   proteins (cut from phase 14's 32,768: the gloo path stages every
+   exchange through host memory) read from a LABEL file: the float64
+   MCL's partition and the 1x1 run's, purity 1. Each phase prints its
+   wall beside the 1x1 phase's (four processes sharing one card: no
+   scaling result), each rank's peak memory, segreduce launches by route
+   and semiring_matmul's, descent flag (which must be clear) and
+   exchanges (calls, bytes, host seconds, from ``core/comm.py``'s
+   accounting). Each measured run records both kernels' calls by shape;
+   after it, one rank at a time, each rank holds every recorded shape
+   against the plain version and times it (as phases 12-15 do), and
+   fails unless the held calls are all of its launches. Every host answer
+   must be the same on every rank. A rank that fails, does not report within
+   ``GRID_TIMEOUT_S`` or exits non-zero fails the script.
+
 In phases 12-15 every segreduce call of one run is recorded by shape
 (route, dtype, tag, N, D, S); each shape's first call is run again, held
 against the plain version on the same inputs (phase 2's tolerance) and
@@ -133,7 +160,8 @@ Phases 2-5 and 10-15 fail if a sorted-route launch saw its ids descend (a
 caller's broken ``sorted_ids`` promise: ``segreduce.descents()``). The two
 lines before the last are a JSON object with one record per kernel
 (segreduce's adds the atomic route's time, the main-path calls' summed time
-and bound, and phases 10-15's launches by route) and the card's name and
+and bound, phases 10-15's launches by route and each rank's launches on
+the 2x2 grid) and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. The script
 imports nothing of JAX.
 """
@@ -198,6 +226,17 @@ SPMM_K = 16
 
 KERNELS = ("segreduce", "semiring_matmul", "flash_attention", "bsr_spmm",
            "ssd_chunk")
+
+# phases 16-19: the 2x2 grid, four ranks (one process a grid position).
+# They read phase 3's and phase 10's graphs from GRID_DIR and are held
+# against the 1x1 phases' answers and walls, kept in ONE_BY_ONE. HipMCL
+# runs 8,192 proteins on the grid (a quarter of phase 14's 32,768): the
+# gloo path stages every exchange through host memory
+GRID_Q = 2
+GRID_DIR = ROOT / "build" / "grid"
+GRID_HIPMCL_PROTEINS = 8192
+GRID_TIMEOUT_S = 420           # a phase's limit on every rank
+ONE_BY_ONE: dict = {}
 
 
 def log(*a):
@@ -602,48 +641,63 @@ def check_segreduce() -> dict:
             "library_ms": library_ms, "atomic_route_ms": atomic_ms}
 
 
-def time_main_path_calls(calls, counts=None) -> tuple[float, float, float]:
-    """Segreduce at the shapes a main path gives it: each recorded call
-    (values, ids, S, tag, kwargs) run again, held against the plain
-    version (phase 2's ``_compare``), and timed by its route's two
-    kernels' device time (torch.profiler: the host's enqueue would pace
-    CUDA events) beside its bound: the bytes its route must move, for a
-    sorted call its in-range ids and values, one id pair a 2048-element
-    tile (its two ends) and the S outputs, for an atomic call every id (any
-    may be in range), the in-range rows of D values and the S output rows.
-    Returns the sums of time and bound, each call weighted by its count in
-    ``counts`` (1 without), and the max abs err."""
+def _hold_call(vals, ids, s, tag, kw) -> dict:
+    """One recorded segreduce call (values, ids, S, tag, kwargs) run again,
+    held against the plain version (phase 2's ``_compare``), and timed by
+    its route's two kernels' device time (torch.profiler: the host's
+    enqueue would pace CUDA events) beside its bound: the bytes its route
+    must move, for a sorted call its in-range ids and values, one id pair a
+    2048-element tile (its two ends) and the S outputs, for an atomic call
+    every id (any may be in range), the in-range rows of D values and the S
+    output rows. A sorted call with S = 0 launches nothing: it is held, not
+    timed."""
     from repro_torch.kernels import segreduce
     from repro_torch.kernels.segreduce import segment_reduce_plain
-    total = bound_total = max_err = 0.0
-    for i, (vals, ids, s, tag, kw) in enumerate(calls):
-        k = counts[i] if counts else 1
-        d = math.prod(vals.shape[1:])
-        route = segreduce.route(vals.dtype, d, kw.get("sorted_ids", False))
-        call = lambda: segreduce.segment_reduce(vals, ids, s, tag, **kw)
-        try:
-            err = _compare(call(), segment_reduce_plain(vals, ids, s, tag,
-                                                        **kw),
-                           vals, ids, s, tag)
-        except AssertionError as e:
-            raise AssertionError(f"segreduce {route} {vals.dtype} {tag} N "
-                                 f"{ids.shape[0]} D {d} S {s}: {e}") from e
+    d = math.prod(vals.shape[1:])
+    route = segreduce.route(vals.dtype, d, kw.get("sorted_ids", False))
+    call = lambda: segreduce.segment_reduce(vals, ids, s, tag, **kw)
+    try:
+        err = _compare(call(), segment_reduce_plain(vals, ids, s, tag, **kw),
+                       vals, ids, s, tag)
+    except AssertionError as e:
+        raise AssertionError(f"segreduce {route} {vals.dtype} {tag} N "
+                             f"{ids.shape[0]} D {d} S {s}: {e}") from e
+    n, isz = ids.shape[0], vals.element_size()
+    live = int(((ids >= 0) & (ids < s)).sum())
+    ms = bound = 0.0
+    if route == "atomic" or s > 0:
         ms = kernel_device_ms(call, ("segreduce_sorted_tiles",
                                      "segreduce_sorted_carry")
                               if route == "sorted" else
                               ("segreduce_init", "segreduce_accum"))
-        n, isz = ids.shape[0], vals.element_size()
-        live = int(((ids >= 0) & (ids < s)).sum())
         nbytes = (live * (4 + isz) + s * isz + -(-n // 2048) * 8
                   if route == "sorted" else n * 4 + (live + s) * d * isz)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        total += k * ms
-        bound_total += k * bound
-        max_err = max(max_err, err)
-        log(f"  {k}x {route} {str(vals.dtype)[6:]} {tag} N {n} "
-            f"D {d} S {s}, live ids {live}: {ms:.4f} ms of device time, "
-            f"bound {bound:.4f} ms (bytes); the plain version's answer "
-            f"(max abs err {err:.3g})")
+    return {"route": route, "dtype": str(vals.dtype)[6:], "tag": tag,
+            "n": n, "d": d, "s": s, "live": live, "ms": ms, "bound": bound,
+            "err": err}
+
+
+def _shape_line(k, h) -> str:
+    return (f"{k}x {h['route']} {h['dtype']} {h['tag']} N {h['n']} D "
+            f"{h['d']} S {h['s']}, live ids {h['live']}: {h['ms']:.4f} ms "
+            f"of device time, bound {h['bound']:.4f} ms (bytes); the plain "
+            f"version's answer (max abs err {h['err']:.3g})")
+
+
+def time_main_path_calls(calls, counts=None) -> tuple[float, float, float]:
+    """Segreduce at the shapes a main path gives it: each recorded call
+    (values, ids, S, tag, kwargs) held and timed by ``_hold_call``.
+    Returns the sums of time and bound, each call weighted by its count in
+    ``counts`` (1 without), and the max abs err."""
+    total = bound_total = max_err = 0.0
+    for i, (vals, ids, s, tag, kw) in enumerate(calls):
+        k = counts[i] if counts else 1
+        h = _hold_call(vals, ids, s, tag, kw)
+        total += k * h["ms"]
+        bound_total += k * h["bound"]
+        max_err = max(max_err, h["err"])
+        log(f"  {_shape_line(k, h)}")
     return total, bound_total, max_err
 
 
@@ -922,6 +976,9 @@ def main_path():
     log(f"R-MAT scale {RMAT_SCALE} ef {RMAT_EDGE_FACTOR}: {shape[0]} vertices, "
         f"nnz(A) {len(rows)}, cap {a.cap}; assembly "
         f"{time.perf_counter() - t0:.2f} s")
+    GRID_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(GRID_DIR / "rmat15.npz", shape=np.asarray(shape), rows=rows,
+             cols=cols, vals=vals)
     t0 = time.perf_counter()
     ref = scipy_reference(shape, rows, cols)
     ref_count = int(ref.sum())
@@ -950,6 +1007,7 @@ def main_path():
     log(f"tricount warm: {count} triangles, {wall:.4f} s, peak device memory "
         f"{peak / 2**30:.3f} GiB, segreduce launches {launches} {by_route}")
     check_descents("phase 3's tricount")
+    ONE_BY_ONE["tricount"] = (count, wall)
     if by_route["atomic"] or by_route["sorted"] != launches:
         raise AssertionError(f"tricount's segreduce launches by route "
                              f"{by_route}: not all sorted")
@@ -1294,6 +1352,10 @@ def graph500_graph():
     rp = np.random.default_rng(0).permutation(shape[0]).astype(np.int64)
     csr = sp.csr_matrix((vals.astype(np.float64), (rp[rows], rp[cols])),
                         shape=shape)
+    # phase 17's ranks read the permuted graph
+    GRID_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(GRID_DIR / "rmat20.npz", shape=np.asarray(shape),
+             rows=rp[rows], cols=rp[cols], vals=vals)
     tile_bytes = sum(t.numel() * t.element_size()
                      for t in (a.row, a.col, a.val))
     log(f"R-MAT scale {GRAPH_SCALE} ef {GRAPH_EDGE_FACTOR}: {shape[0]} "
@@ -1324,6 +1386,7 @@ def bfs_phase(a, mesh, csr) -> dict:
                                             BFS_ROOTS, replace=False)
     total = {"sorted": 0, "atomic": 0}
     peak = 0
+    ONE_BY_ONE["bfs"] = {"roots": roots.tolist(), "refs": [], "walls": []}
     for root in roots.tolist():
         t0 = time.perf_counter()
         ref = csgraph.shortest_path(csr, unweighted=True, indices=root)
@@ -1349,6 +1412,8 @@ def bfs_phase(a, mesh, csr) -> dict:
                 raise AssertionError(
                     f"BFS from {root} ({name}): {len(bad)} levels differ "
                     f"from scipy's, first at {bad[:5].tolist()}")
+        ONE_BY_ONE["bfs"]["refs"].append(ref)
+        ONE_BY_ONE["bfs"]["walls"].append(warm_s)
         reached = ref >= 0
         edges = int(deg[reached].sum()) // 2
         nlev = int(ref.max())
@@ -1415,6 +1480,7 @@ def pagerank_phase(a, mesh, csr) -> dict:
         it_span = rec.snapshot()["spans"]["pagerank.iter"]
     check_descents("phase 11")
     iters = it_span["count"]
+    ONE_BY_ONE["pagerank"] = (ref, warm_s, iters)
     errs = [float(np.abs(r.astype(np.float64) - ref).sum())
             for r in (cold, warm, recorded)]
     log(f"pagerank alpha {PR_ALPHA} tol {PR_TOL} max_iters {PR_MAX_ITERS}: "
@@ -1544,6 +1610,7 @@ def fastsv_phase(a, mesh, csr) -> dict:
         it_span = rec.snapshot()["spans"]["fastsv.iter"]
     check_descents("phase 12")
     iters = it_span["count"]
+    ONE_BY_ONE["fastsv"] = (ref, warm_s, iters)
     sweeps = len(ext) - iters     # one extract a hooking iteration
     for name, got in (("cold", cold), ("warm", warm), ("recorded", recorded)):
         if got.shape != ref.shape or not np.array_equal(got, ref):
@@ -1626,6 +1693,7 @@ def matching_phase(a, mesh, csr) -> dict:
     t0 = time.perf_counter()
     card = check_matching(mr, mc, csr)
     t_check = time.perf_counter() - t0
+    ONE_BY_ONE["matching"] = (card, warm_s, passes)
     t0 = time.perf_counter()
     best = int((maximum_bipartite_matching(csr, perm_type="column")
                 >= 0).sum())
@@ -1698,6 +1766,7 @@ def spmm_phase(a, mesh, csr) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_time_ms(lambda: spmm_15d(a, x, mesh=mesh), iters=10)
     peak = torch.cuda.max_memory_allocated()
+    ONE_BY_ONE["spmm"] = ms
     # the function: A's live (row, col, val) and X read once, Y written
     call_bytes = int(a.nnz.sum()) * 12 + 2 * n * SPMM_K * 4
     log(f"spmm_15d (k = {SPMM_K}, f32): within the f32 summation bound "
@@ -1924,6 +1993,566 @@ def hipmcl_phase(mesh) -> dict:
     profile_breakdown(lambda: hipmcl(a, mesh=mesh, max_iters=1))
     check_descents("phase 14's profiled run")
     return routes
+
+
+# --------------------------------------------------------------------------
+# phases 16-19: the 2x2 grid, four ranks (processes) sharing the card
+# --------------------------------------------------------------------------
+
+def _digest(*arrays) -> str:
+    import hashlib
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def _smm_calls():
+    """Record semiring_matmul's calls while the block runs, by (kind,
+    dtype, A's shape, B's shape): the first call's operands (cloned) and
+    the number of calls. Yields the record, a dict."""
+    from repro_torch.kernels import semiring_matmul as smm
+    inner = smm.semiring_matmul
+    shapes = {}
+
+    def keep(a, b, kind="plus_times"):
+        key = (kind, a.dtype, tuple(a.shape), tuple(b.shape))
+        if key not in shapes:
+            shapes[key] = [(a.clone(), b.clone(), kind), 0]
+        shapes[key][1] += 1
+        return inner(a, b, kind)
+
+    smm.semiring_matmul = keep
+    try:
+        yield shapes
+    finally:
+        smm.semiring_matmul = inner
+
+
+def _hold_rank_calls(seg, mm, routes) -> dict:
+    """Hold every segreduce shape a rank's run recorded against the plain
+    version and time it (``_hold_call``, the first call's inputs standing
+    for its shape's calls), and every semiring_matmul shape against its
+    plain version; fails unless the held calls are all the run's launches
+    by route. Frees the recorded inputs."""
+    from repro_torch.kernels import semiring_matmul as smm
+    shapes, held = [], {"sorted": 0, "atomic": 0}
+    for (vals, ids, s, tag, kw), k in seg.values():
+        h = _hold_call(vals, ids, s, tag, kw)
+        shapes.append((k, h))
+        if h["route"] == "atomic" or s > 0:       # a sorted S = 0 is no launch
+            held[h["route"]] += k
+    seg.clear()
+    if held != routes:
+        raise AssertionError(f"held segreduce calls {held}, the run's "
+                             f"launches {routes}")
+    mm_err, mm_calls = 0.0, 0
+    for (a, b, kind), k in mm.values():
+        exact = kind != "plus_times" or not a.dtype.is_floating_point
+        mm_err = max(mm_err, _smm_compare(smm.semiring_matmul(a, b, kind),
+                                          smm.semiring_matmul_plain(a, b,
+                                                                    kind),
+                                          a, b, exact))
+        if a.shape[0] and b.shape[1]:          # an empty C launches nothing
+            mm_calls += k
+    mm.clear()
+    return {"shapes": shapes, "ms": sum(k * h["ms"] for k, h in shapes),
+            "bound": sum(k * h["bound"] for k, h in shapes),
+            "err": max((h["err"] for _, h in shapes), default=0.0),
+            "smm_calls": mm_calls, "smm_err": mm_err}
+
+
+class _RankRun:
+    """One measured run on one rank: segreduce's counts by route,
+    semiring_matmul's launches, the exchange accounting (``core/comm.py``)
+    and the peak memory start from 0 here, and both kernels' calls are
+    recorded by shape. ``done()`` reads the counts back with the wall, then
+    holds the recorded calls (``_hold_rank_calls``), one rank at a time so
+    that no other rank's work shares the card while a kernel is timed."""
+
+    def __init__(self, mesh):
+        from repro_torch.core import comm
+        from repro_torch.kernels import semiring_matmul as smm
+        self.grid = (mesh.pr, mesh.pc)
+        self._seg, self._mm = _segreduce_calls(), _smm_calls()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _routes_zero()
+        smm.launches = 0
+        comm.reset_stats()
+        self.seg, self.mm = self._seg.__enter__(), self._mm.__enter__()
+        self.t0 = time.perf_counter()
+
+    def done(self, **rec) -> dict:
+        from repro_torch.core import comm
+        from repro_torch.core.dist import grid_all
+        from repro_torch.kernels import segreduce
+        from repro_torch.kernels import semiring_matmul as smm
+        torch.cuda.synchronize()
+        rec.update(wall=time.perf_counter() - self.t0,
+                   peak=torch.cuda.max_memory_allocated(),
+                   routes=dict(segreduce.route_launches),
+                   smm=smm.launches,
+                   comm=dict(comm.stats))
+        self._seg.__exit__(None, None, None)
+        self._mm.__exit__(None, None, None)
+        g = comm.of(self.grid)
+        turn = torch.ones(1, dtype=torch.bool, device="cuda")
+        for rk in range(g.pr * g.pc):
+            if rk == g.rank:
+                rec["held"] = _hold_rank_calls(self.seg, self.mm,
+                                               rec["routes"])
+            grid_all(turn, self.grid)         # the next rank's turn
+        rec["descents"] = bool(segreduce.descents())
+        return rec
+
+
+def _grid_tricount(mesh) -> dict:
+    """Phase 16 on a rank: phase 3's graph, the planner's pick, then each
+    schedule (rotate with overlap on and off, alltoall, bcast)."""
+    from repro_torch.apps.tricount import triangle_count
+    from repro_torch.core.dist import DistSpMat
+    from repro_torch.core.mask import structural
+    from repro_torch.core.matops import (mat_apply_local, mat_select_lower,
+                                         mat_sum)
+    from repro_torch.core.plan import plan_spgemm, spgemm
+    from repro_torch.core.semiring import ARITHMETIC
+
+    z = np.load(GRID_DIR / "rmat15.npz")
+    shape = tuple(int(x) for x in z["shape"])
+    t0 = time.perf_counter()
+    a = DistSpMat.from_global_coo(shape, z["rows"], z["cols"], z["vals"],
+                                  (GRID_Q, GRID_Q), mesh=mesh,
+                                  random_permute=True)
+    t_asm = time.perf_counter() - t0
+    cold = triangle_count(a, mesh=mesh)
+    run = _RankRun(mesh)
+    count = triangle_count(a, mesh=mesh)
+    rec = run.done(count=count, cold=cold, t_asm=t_asm)
+    ones = lambda t: t.apply(torch.ones_like)                 # noqa: E731
+    low = mat_select_lower(mat_apply_local(a, ones, mesh=mesh), mesh=mesh)
+    mask = structural(low)
+    p = plan_spgemm(low, low, mask=mask)
+    rec["plan"] = (p.variant, p.merge, p.schedule, p.prod_cap, p.out_cap)
+    rec["tile_bytes"] = low.cap * (8 + low.val.element_size()) + 4
+    rec["schedules"] = {}
+    kept = {}
+    for sched, overlap in (("rotate", True), ("rotate", False),
+                           ("alltoall", True), ("bcast", True)):
+        kw = dict(mesh=mesh, mask=mask, schedule=sched, overlap=overlap)
+        spgemm(low, low, ARITHMETIC, **kw)                     # warm-up
+        run = _RankRun(mesh)
+        c, pl = spgemm(low, low, ARITHMETIC, **kw)
+        n = int(mat_sum(c))
+        rec["schedules"][f"{sched}/{'overlap' if overlap else 'bulk'}"] = \
+            run.done(count=n, merge=pl.merge, attempts=pl.attempts)
+        if sched == "rotate":
+            kept[overlap] = (c.row, c.col, c.val, c.nnz)
+    rec["overlap_bitwise"] = all(
+        torch.equal(x, y) and torch.equal(torch.signbit(x), torch.signbit(y))
+        if x.is_floating_point() else torch.equal(x, y)
+        for x, y in zip(kept[True], kept[False]))
+    return rec
+
+
+def _grid_graph500(mesh):
+    """Phase 10's permuted graph, assembled on the 2x2 grid."""
+    from repro_torch.core.dist import DistSpMat
+    z = np.load(GRID_DIR / "rmat20.npz")
+    shape = tuple(int(x) for x in z["shape"])
+    t0 = time.perf_counter()
+    a = DistSpMat.from_global_coo(shape, z["rows"], z["cols"], z["vals"],
+                                  (GRID_Q, GRID_Q), mesh=mesh)
+    torch.cuda.synchronize()
+    return a, time.perf_counter() - t0
+
+
+def _grid_bfs_pagerank(a, mesh, roots, rank) -> dict:
+    """Phase 17 on a rank: BFS from phase 10's roots, then PageRank."""
+    from repro_torch.apps import bfs_levels, pagerank
+    bfs_levels(a, roots[0], mesh=mesh)                         # cold
+    run = _RankRun(mesh)
+    levels = [bfs_levels(a, r, mesh=mesh) for r in roots]
+    bfs = run.done(digest=_digest(*levels))
+    if rank == 0:
+        bfs["levels"] = levels
+    kw = dict(mesh=mesh, alpha=PR_ALPHA, tol=PR_TOL, max_iters=PR_MAX_ITERS)
+    pagerank(a, **kw)                                          # cold
+    run = _RankRun(mesh)
+    r = pagerank(a, **kw)
+    pr = run.done(digest=_digest(r))
+    if rank == 0:
+        pr["r"] = r
+    return {"bfs": bfs, "pagerank": pr}
+
+
+def _grid_fastsv_matching_spmm(a, mesh, rank) -> dict:
+    """Phase 18 on a rank: FastSV, maximal matching and SpMM on phase
+    17's matrix."""
+    from repro_torch.apps import fastsv, maximal_matching
+    from repro_torch.core import comm, spmm_15d, spmm_2d
+    from repro_torch.core.dist import DistVec, grid_all
+    from repro_torch.core.semiring import MAX_PLUS
+    out = {}
+    fastsv(a, mesh=mesh)                                       # cold
+    run = _RankRun(mesh)
+    labels = fastsv(a, mesh=mesh)
+    out["fastsv"] = run.done(digest=_digest(labels))
+    maximal_matching(a, mesh=mesh, max_iters=MATCH_MAX_ITERS)   # cold
+    run = _RankRun(mesh)
+    mr, mc = maximal_matching(a, mesh=mesh, max_iters=MATCH_MAX_ITERS)
+    out["matching"] = run.done(digest=_digest(mr, mc))
+    n = a.shape[0]
+    x_np = np.random.default_rng(0).standard_normal((n, SPMM_K)) \
+        .astype(np.float32)
+    x = DistVec.from_global(x_np, (GRID_Q, GRID_Q), layout="col", mesh=mesh)
+    spmm_15d(a, x, mesh=mesh)                                  # cold
+    run = _RankRun(mesh)
+    y = spmm_15d(a, x, mesh=mesh)
+    out["spmm"] = run.done()
+    # X 2D-block distributed: rank (i, j) holds row block j, k-panel i
+    g = comm.of(a.grid)
+    kp = SPMM_K // GRID_Q
+    xp = np.zeros((a.nb * GRID_Q, SPMM_K), np.float32)
+    xp[:n] = x_np
+    blk = torch.from_numpy(np.ascontiguousarray(
+        xp[g.j * a.nb:(g.j + 1) * a.nb, g.i * kp:(g.i + 1) * kp])) \
+        .to(mesh.device)
+    run = _RankRun(mesh)
+    y2 = spmm_2d(a, blk, mesh=mesh)
+    out["spmm_2d"] = run.done()
+    # Y's shard (mb/pc rows of block i*pc + j) is the row-layout piece
+    y2_g = DistVec(y2[None, None], n, a.grid, "row").to_global()
+    y_g = y.to_global()
+    run = _RankRun(mesh)
+    same = torch.equal(spmm_2d(a, blk, MAX_PLUS, mesh=mesh),
+                       spmm_15d(a, x, MAX_PLUS, mesh=mesh).data[0, 0])
+    out["spmm_max_plus"] = run.done()
+    out["spmm"]["max_plus_equal"] = grid_all(
+        torch.tensor(same, device=mesh.device), a.grid)
+    if rank == 0:
+        out["fastsv"]["labels"] = labels
+        out["matching"]["mates"] = (mr, mc)
+        out["spmm"]["y"], out["spmm"]["y2"] = y_g, y2_g
+    return out
+
+
+def _grid_hipmcl(mesh, path, rank) -> dict:
+    """Phase 19 on a rank: HipMCL on the planted network's LABEL file."""
+    from repro_torch.apps import hipmcl
+    from repro_torch.core.dist import DistSpMat
+    from repro_torch.io import read_generalized_tuples
+    t0 = time.perf_counter()
+    shape, r, c, v, _ = read_generalized_tuples(str(path), 4)
+    a = DistSpMat.from_global_coo(shape, r, c, v.astype(np.float32),
+                                  (GRID_Q, GRID_Q), mesh=mesh)
+    t_read = time.perf_counter() - t0
+    hipmcl(a, mesh=mesh)                                       # cold
+    run = _RankRun(mesh)
+    labels = hipmcl(a, mesh=mesh)
+    rec = run.done(digest=_digest(labels), t_read=t_read)
+    if rank == 0:
+        rec["labels"] = labels
+    return rec
+
+
+def grid_rank(rank, port, backend, roots, mcl_path, out) -> None:
+    """One rank of phases 16-19: joins the world, makes the 2x2 grid (its
+    device ``cuda:(rank % device_count)``) and puts each phase's record on
+    ``out``; a failure puts its traceback there instead."""
+    import traceback
+    from repro_torch.core import comm
+    from repro_torch.core.dist import make_grid
+    try:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        comm.init_world(rank, GRID_Q * GRID_Q, port, backend)
+        mesh = make_grid(GRID_Q, GRID_Q)
+        out.put((rank, 16, _grid_tricount(mesh)))
+        a, t_asm = _grid_graph500(mesh)
+        rec = _grid_bfs_pagerank(a, mesh, roots, rank)
+        rec["t_asm"] = t_asm
+        out.put((rank, 17, rec))
+        out.put((rank, 18, _grid_fastsv_matching_spmm(a, mesh, rank)))
+        del a
+        torch.cuda.empty_cache()
+        out.put((rank, 19, _grid_hipmcl(mesh, mcl_path, rank)))
+        comm.close_world()
+    except BaseException:                                  # noqa: BLE001
+        out.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _per_rank(recs, key):
+    return [r[key] for r in recs]
+
+
+def _rank_lines(what, recs) -> None:
+    """Each rank's peak memory, segreduce launches by route, descent flag
+    and exchanges; fails on a set flag, or when no rank launched
+    segreduce."""
+    for rk, r in enumerate(recs):
+        c = r["comm"]
+        h = r["held"]
+        log(f"  {what}, rank {rk}: wall {r['wall'] * 1e3:.1f} ms, peak "
+            f"{r['peak'] / 2**30:.3f} GiB, segreduce {r['routes']}, "
+            f"semiring_matmul {r['smm']}, descent flag "
+            f"{'SET' if r['descents'] else 'clear'}, exchanges "
+            f"{c['calls']} moving {c['bytes'] / 1e6:.3f} MB in "
+            f"{c['seconds'] * 1e3:.1f} ms ({100 * c['seconds'] / r['wall']:.1f}"
+            f"% of the wall)")
+        log(f"    rank {rk} held {sum(k for k, _ in h['shapes'])} segreduce "
+            f"calls at {len(h['shapes'])} shapes against the plain version "
+            f"(max abs err {h['err']:.3g}): {h['ms']:.4f} ms of device time, "
+            f"bound {h['bound']:.4f} ms (each shape's first call times its "
+            f"calls); {h['smm_calls']} semiring_matmul calls held (max abs "
+            f"err {h['smm_err']:.3g})")
+        for k, sh in h["shapes"]:
+            log(f"      {_shape_line(k, sh)}")
+        if r["descents"]:
+            raise AssertionError(f"{what}, rank {rk}: a sorted_ids promise "
+                                 f"was broken (descent flag set)")
+        if h["smm_calls"] != r["smm"]:
+            raise AssertionError(f"{what}, rank {rk}: {r['smm']} "
+                                 f"semiring_matmul launches, {h['smm_calls']} "
+                                 f"held")
+    # a rank whose tiles hold nothing to reduce (tricount's upper-right
+    # tile of L) may launch none; the run as a whole must
+    if sum(sum(r["routes"].values()) for r in recs) < 1:
+        raise AssertionError(f"{what}: no rank launched segreduce")
+
+
+def _same_digests(what, recs) -> None:
+    ds = _per_rank(recs, "digest")
+    if len(set(ds)) != 1:
+        raise AssertionError(f"{what}: the ranks' host answers differ {ds}")
+
+
+def _check_tricount_grid(recs) -> None:
+    want, wall1 = ONE_BY_ONE["tricount"]
+    counts = _per_rank(recs, "count") + _per_rank(recs, "cold")
+    if set(counts) != {EXPECTED_TRIANGLES} or want != EXPECTED_TRIANGLES:
+        raise AssertionError(f"2x2 tricount {counts}, phase 3 {want}, scipy "
+                             f"{EXPECTED_TRIANGLES}")
+    r0 = recs[0]
+    log(f"phase 16, tricount on 2x2: {r0['count']} triangles on every rank "
+        f"(scipy's and phase 3's); planner pick {r0['plan']}; warm wall "
+        f"{max(_per_rank(recs, 'wall')) * 1e3:.1f} ms (the slowest rank) "
+        f"beside phase 3's 1x1 {wall1 * 1e3:.1f} ms; assembly "
+        f"{max(_per_rank(recs, 't_asm')):.2f} s; L's packed tile "
+        f"{r0['tile_bytes'] / 1e6:.3f} MB an exchange (cap x (4+4+4) + 4 "
+        f"bytes)")
+    _rank_lines("tricount, planner's pick", recs)
+    for name in r0["schedules"]:
+        rs = [r["schedules"][name] for r in recs]
+        got = {x["count"] for x in rs}
+        if got != {EXPECTED_TRIANGLES}:
+            raise AssertionError(f"2x2 tricount under {name}: {got}")
+        log(f"  schedule {name}: {EXPECTED_TRIANGLES} triangles on every "
+            f"rank, merge {rs[0]['merge']}, attempts {rs[0]['attempts']}, "
+            f"wall {max(x['wall'] for x in rs) * 1e3:.1f} ms")
+        _rank_lines(f"schedule {name}", rs)
+    if not all(_per_rank(recs, "overlap_bitwise")):
+        raise AssertionError("rotate with overlap on and off: C differs")
+    log("  rotate with overlap on and off: C bitwise equal on every rank")
+
+
+def _check_bfs_pagerank_grid(recs) -> None:
+    one = ONE_BY_ONE["bfs"]
+    bfs = _per_rank(recs, "bfs")
+    _same_digests("bfs", bfs)
+    for root, got, ref in zip(one["roots"], bfs[0]["levels"], one["refs"]):
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"2x2 BFS from {root}: levels differ from "
+                                 f"scipy's")
+    log(f"phase 17, BFS on 2x2 from phase 10's roots {one['roots']}: levels "
+        f"bitwise equal to scipy's on every rank; assembly "
+        f"{max(_per_rank(recs, 't_asm')):.2f} s; the 4 searches "
+        f"{max(_per_rank(bfs, 'wall')) * 1e3:.1f} ms beside phase 10's 1x1 "
+        f"{sum(one['walls']) * 1e3:.1f} ms")
+    _rank_lines("bfs", bfs)
+    ref, wall1, iters1 = ONE_BY_ONE["pagerank"]
+    pr = _per_rank(recs, "pagerank")
+    _same_digests("pagerank", pr)
+    r = pr[0]["r"]
+    err = float(np.abs(r.astype(np.float64) - ref).sum())
+    if not np.isfinite(r).all() or r.shape != ref.shape or err > PR_L1_TOL:
+        raise AssertionError(f"2x2 pagerank: L1 {err} to the reference")
+    log(f"  pagerank on 2x2: L1 to the float64 reference {err:.3g} (limit "
+        f"{PR_L1_TOL}); wall {max(_per_rank(pr, 'wall')) * 1e3:.1f} ms "
+        f"beside phase 11's 1x1 {wall1 * 1e3:.1f} ms ({iters1} iterations)")
+    _rank_lines("pagerank", pr)
+
+
+def _check_fastsv_matching_spmm_grid(recs) -> None:
+    csr = ONE_BY_ONE["csr"]
+    ref, wall1, _ = ONE_BY_ONE["fastsv"]
+    fs = _per_rank(recs, "fastsv")
+    _same_digests("fastsv", fs)
+    if not np.array_equal(fs[0]["labels"], ref):
+        raise AssertionError("2x2 fastsv: labels differ from scipy's")
+    log(f"phase 18, FastSV on 2x2: labels equal to each component's smallest "
+        f"vertex (scipy) on every rank; wall "
+        f"{max(_per_rank(fs, 'wall')) * 1e3:.1f} ms beside phase 12's 1x1 "
+        f"{wall1 * 1e3:.1f} ms")
+    _rank_lines("fastsv", fs)
+    card1, mwall1, _ = ONE_BY_ONE["matching"]
+    mt = _per_rank(recs, "matching")
+    _same_digests("matching", mt)
+    card = check_matching(*mt[0]["mates"], csr)
+    log(f"  matching on 2x2: {card} pairs, consistent and maximal (1x1: "
+        f"{card1}); wall {max(_per_rank(mt, 'wall')) * 1e3:.1f} ms beside "
+        f"phase 13's 1x1 {mwall1 * 1e3:.1f} ms")
+    _rank_lines("matching", mt)
+    sm = _per_rank(recs, "spmm")
+    n = csr.shape[0]
+    x64 = np.random.default_rng(0).standard_normal((n, SPMM_K)) \
+        .astype(np.float32).astype(np.float64)
+    ref = csr @ x64
+    ku = np.maximum(csr.getnnz(axis=1) - 1, 1)[:, None] * 2.0**-24
+    bound = ku / (1 - ku) * (abs(csr) @ np.abs(x64))
+    worst = [float((np.abs(sm[0][k].astype(np.float64) - ref)
+                    / np.maximum(bound, 1e-300)).max()) for k in ("y", "y2")]
+    if max(worst) > 1.0 or not all(np.isfinite(sm[0][k]).all()
+                                   for k in ("y", "y2")):
+        raise AssertionError(f"2x2 spmm: error {worst} x the f32 bound")
+    if not all(_per_rank(sm, "max_plus_equal")):
+        raise AssertionError("2x2 spmm_2d and spmm_15d differ under MAX_PLUS")
+    log(f"  spmm on 2x2 (k = {SPMM_K}): spmm_15d and spmm_2d within the f32 "
+        f"summation bound (worst rows at {worst[0]:.4f} and {worst[1]:.4f} "
+        f"of it), bitwise equal under MAX_PLUS; spmm_15d "
+        f"{max(_per_rank(sm, 'wall')) * 1e3:.3f} ms a call (host wall) beside "
+        f"phase 15's 1x1 {ONE_BY_ONE['spmm']:.3f} ms (CUDA events)")
+    _rank_lines("spmm_15d", sm)
+    _rank_lines("spmm_2d", _per_rank(recs, "spmm_2d"))
+    _rank_lines("spmm_2d and spmm_15d under MAX_PLUS",
+                _per_rank(recs, "spmm_max_plus"))
+
+
+def _check_hipmcl_grid(recs, ref, family_of, one) -> None:
+    _same_digests("hipmcl", recs)
+    got = recs[0]["labels"]
+    labels1, wall1 = one
+    if not (same_partition(got, ref) and same_partition(got, labels1)):
+        raise AssertionError("2x2 hipmcl: not the float64 MCL's partition")
+    pur = purity(got, family_of)
+    if pur != 1.0:
+        raise AssertionError(f"2x2 hipmcl: purity {pur}")
+    log(f"phase 19, HipMCL on 2x2 ({GRID_HIPMCL_PROTEINS} proteins, cut from "
+        f"phase 14's {HIPMCL_PROTEINS}): {len(np.unique(got))} clusters, the "
+        f"float64 MCL's partition and the 1x1 run's, purity {pur:.4f}; "
+        f"warm wall {max(_per_rank(recs, 'wall')):.2f} s beside the 1x1 "
+        f"run's warm {wall1:.2f} s on the same network; LABEL read and "
+        f"assembly {max(_per_rank(recs, 't_read')):.2f} s")
+    _rank_lines("hipmcl", recs)
+
+
+def grid_phases() -> tuple[list, dict]:
+    """Phases 16-19: four ranks on a 2x2 grid. Returns each rank's
+    segreduce launches by route over the four phases' measured runs, and
+    the max abs err of each kernel's held calls."""
+    import queue
+    import scipy.sparse as sp
+    import torch.multiprocessing as mp
+    from repro_torch.apps import hipmcl
+    from repro_torch.core.dist import DistSpMat, make_grid
+    from repro_torch.io import read_generalized_tuples
+
+    # phase 19's network, its float64 reference, and the 1x1 run beside it
+    family, rows, cols, vals = planted_families(
+        GRID_HIPMCL_PROTEINS, *HIPMCL_FAMILY, HIPMCL_P_IN, HIPMCL_CROSS)
+    path = GRID_DIR / "hipmcl_planted.lbl"
+    write_label_file(path, rows, cols, vals)
+    shape, r, c, v, names = read_generalized_tuples(str(path), 4)
+    family_of = family[np.array([int(lb[5:]) for lb in names])]
+    ref, _, _ = mcl_reference(sp.csr_matrix((v, (r, c)), shape=shape))
+    mesh = make_grid(1, 1, device="cuda")
+    a = DistSpMat.from_global_coo(shape, r, c, v.astype(np.float32), (1, 1),
+                                  mesh=mesh)
+    hipmcl(a, mesh=mesh)                                       # cold
+    one = _wall(lambda: hipmcl(a, mesh=mesh))
+    del a
+    log(f"device memory before phases 16-19: "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated; "
+        f"releasing the cache")
+    torch.cuda.empty_cache()
+    world = GRID_Q * GRID_Q
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    log(f"phases 16-19: {world} ranks on {torch.cuda.device_count()} card(s), "
+        f"backend {backend}"
+        + ("" if backend == "nccl" else " (NCCL refuses two ranks on one "
+           "card: exchanges are staged through pinned host memory)")
+        + "; four processes share one card, so no wall here is a scaling "
+        "result")
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=grid_rank, daemon=True,
+                         args=(rk, port, backend, ONE_BY_ONE["bfs"]["roots"],
+                               path, out)) for rk in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    checks = {16: _check_tricount_grid, 17: _check_bfs_pagerank_grid,
+              18: _check_fastsv_matching_spmm_grid,
+              19: lambda recs: _check_hipmcl_grid(recs, ref, family_of, one)}
+    got: dict = {ph: {} for ph in checks}
+    launches = [{"sorted": 0, "atomic": 0} for _ in range(world)]
+    errs = {"segreduce": 0.0, "semiring_matmul": 0.0}
+    try:
+        for ph in checks:
+            while len(got[ph]) < world:
+                try:
+                    rk, key, rec = out.get(timeout=GRID_TIMEOUT_S)
+                except queue.Empty:
+                    missing = sorted(set(range(world)) - set(got[ph]))
+                    raise AssertionError(
+                        f"phase {ph}: ranks {missing} did not report within "
+                        f"{GRID_TIMEOUT_S} s") from None
+                if key == "error":
+                    raise AssertionError(f"rank {rk} failed:\n{rec}")
+                got[key][rk] = rec
+            recs = [got[ph][rk] for rk in range(world)]
+            checks[ph](recs)
+            for rk, rec in enumerate(recs):
+                for run in _runs(rec):
+                    for k in launches[rk]:
+                        launches[rk][k] += run["routes"][k]
+                    errs["segreduce"] = max(errs["segreduce"],
+                                            run["held"]["err"])
+                    errs["semiring_matmul"] = max(errs["semiring_matmul"],
+                                                  run["held"]["smm_err"])
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"phases 16-19: ranks exited with {bad}")
+    log(f"phases 16-19: {time.perf_counter() - t0:.1f} s with the ranks' "
+        f"start-up; segreduce launches of the measured runs by rank "
+        f"{launches}, every one held against the plain version (max abs "
+        f"err {errs})")
+    return launches, errs
+
+
+def _runs(rec):
+    """The measured runs in a phase's record (dicts with 'routes')."""
+    if "routes" in rec:
+        yield rec
+    for v in rec.values():
+        if isinstance(v, dict):
+            yield from _runs(v)
 
 
 # --------------------------------------------------------------------------
@@ -2785,6 +3414,7 @@ def main() -> int:
                                                               csr)
     _routes_zero()
     seg_record["spmm_launches_by_route"] = spmm_phase(graph, mesh, csr)
+    ONE_BY_ONE["csr"] = csr
     del graph, csr
     torch.cuda.empty_cache()
     _routes_zero()
@@ -2804,6 +3434,9 @@ def main() -> int:
     ssd_record = check_ssd_chunk()
     ssd_record["launches"] = serve_mamba()
     mamba_vs_plain_e2e()
+    seg_record["grid_2x2_launches_by_route"], errs = grid_phases()
+    for rec in (seg_record, smm_record):
+        rec["max_abs_err"] = max(rec["max_abs_err"], errs[rec["name"]])
     log(json.dumps({"kernels": [seg_record, smm_record, fa_record,
                                 bsr_record, ssd_record]}))
     log(smi)

@@ -11,8 +11,10 @@ iteration, with parent vector f (int32 global vertex ids):
   converge when f stops changing; then pointer jumping to the roots.
 
 As in the JAX package, the loop state is the GLOBAL parent vector on the
-host (numpy): each iteration places it on the device and reads the new
-one back, which is what made the JAX loop checkpointable on any grid.
+host (numpy), the same on every rank: each iteration places it on the
+device and reads the new one back, which is what made the JAX loop
+checkpointable on any grid. The loop's tests read grid-wide values, so
+every rank takes the same branch.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core.assign import assign, extract
-from ..core.dist import DistSpMat, DistVec, Grid
+from ..core.dist import DistSpMat, DistVec, Grid, grid_all
 from ..core.plan import spmv_variant
 from ..core.semiring import MIN_INT, Semiring
 from ..core.spmv import spmv_iter
@@ -65,7 +67,7 @@ def fastsv(a: DistSpMat, *, mesh: Grid, max_iters: int = 64,
             layout="col", mesh=mesh)
 
     def check(ok, what):
-        if not bool(ok.all()):
+        if not grid_all(ok, grid):
             raise RuntimeError(f"fastsv: {what} overflowed its router "
                                f"(route_cap {rcap})")
 
@@ -98,7 +100,7 @@ def fastsv(a: DistSpMat, *, mesh: Grid, max_iters: int = 64,
         gf_vals, _ = extract(f, f.data.to(torch.int32), mesh=mesh,
                              route_cap=rcap)
         gf = DistVec(gf_vals, npad, grid, "col")
-        if bool((gf.data == f.data).all()):
+        if grid_all(gf.data == f.data, grid):
             break
         f = gf
     return f.to_global()[:n].astype(np.int64)

@@ -8,8 +8,8 @@ Simplified Azad-Buluç iteration over CombBLAS primitives, as in
     2. each column accepts one proposer; accepted pairs update mateRow/
        mateCol (piece-aligned vector updates + one distributed assign)
 
-Each iteration reads one count back to the host (the accepted proposals,
-the loop test), besides the router's overflow flags.
+Each iteration reads one grid-wide count back to the host (the accepted
+proposals, the loop test), besides the router's grid-wide overflow flags.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import torch
 
 from ..core.assign import assign, extract
 from ..core.coo import SENTINEL
-from ..core.dist import DistSpMat, DistVec, Grid
+from ..core.dist import DistSpMat, DistVec, Grid, grid_all, grid_sum
 from ..core.matops import mat_transpose
 from ..core.plan import spmv_variant
 from ..core.semiring import MAX_INT, Semiring
@@ -63,7 +63,7 @@ def maximal_matching(a: DistSpMat, *, mesh: Grid, max_iters: int = 64):
         # 2. columns accept: unmatched columns with a valid proposer
         accept = (mate_col.data == _NONE) & (h.data > _NONE) & \
             (h.data < 2**31 - 1)
-        if int(accept.sum()) == 0:
+        if int(grid_sum(accept.to(torch.int32), grid)) == 0:
             break
         # 3. accepted rows pick ONE column (max col id wins the assign merge)
         upd_idx = torch.where(accept, h.data,
@@ -74,7 +74,7 @@ def maximal_matching(a: DistSpMat, *, mesh: Grid, max_iters: int = 64):
         # 4. verification: column c keeps row r only if mate_row[r] == c
         #    (two columns may have accepted the same proposer)
         got, ok2 = extract(mate_row, upd_idx, mesh=mesh, route_cap=rcap)
-        if not bool((ok & ok2).all()):
+        if not grid_all(ok & ok2, grid):
             raise RuntimeError(f"maximal_matching: the router overflowed "
                                f"(route_cap {rcap})")
         confirmed = accept & (got == ids_c.data)

@@ -6,19 +6,22 @@ Layering (as in ``repro.core``):
   merge         sort-free merge engine: packed-key dedup, kv stage pipeline
   local_spgemm  ESC and dense-accumulator local multiply, hybrid (§4.1)
   spmv_local    local SpMV / SpMSpV variants (§4.2-4.3)
+  comm          the process grid's collectives over torch.distributed
+                (one process a grid position)
   dist          SpParMat / FullyDist[Sp]Vec containers, process grid
                 (§2.1-2.2)
   mask          output masks (GraphBLAS C⟨M⟩) + membership probes (§4.7)
   matops        tile-local matrix helpers for the apps
-  spgemm        2D SUMMA on the 1x1 grid (§3.2)
-  spmv          distributed SpMV / SpMSpV on the 1x1 grid (§3.1)
-  spmm          distributed SpMM (1.5D and 2D) on the 1x1 grid
-  assign        distributed vector assign / extract on the 1x1 grid (§3.3)
+  spgemm        2D SUMMA (§3.2)
+  spmv          distributed SpMV / SpMSpV (§3.1)
+  spmm          distributed SpMM (1.5D and 2D)
+  assign        distributed vector assign / extract (§3.3)
   plan          capacity planner + variant rules of thumb (§5, §7), local
                 planners
 
-The JAX package's 3D SpGEMM and sharding helpers are not ported yet
-(ROADMAP.md queue 1), so their names are absent here.
+The JAX package's 3D and batched SpGEMM, wire compression and sharding
+helpers are not ported yet (ROADMAP.md queue 1), so their names are absent
+here.
 """
 from . import merge, semiring
 from .coo import COO, SENTINEL, column_range, ewise_intersect, ewise_union

@@ -12,12 +12,10 @@ Irregular vector updates are the latency-bound tail of graph algorithms
    served via an all-gather (every device sees heavy entries, owners
    filter), while the light remainder rides the bounded all-to-all.
 
-This slice runs the 1x1 grid, where every collective (the 1-way
-``all_to_all``, ``psum`` and ``all_gather`` over an axis of size 1) is the
-identity: each is written as such, with a comment naming the JAX call. The
-routing itself is kept, bucket capacities and all, because the ``ok`` flags
-depend on it. On 1x1 the one piece always holds all the traffic, so with
-``skew_aware`` every valid entry takes the heavy path.
+The all-to-alls, the census's ``psum`` and the heavy entries'
+``all_gather`` are ``core/comm.py``'s; over axes of size 1 (the 1x1 grid)
+each is the identity. The routing itself runs on every grid, bucket
+capacities and all, because the ``ok`` flags depend on it.
 
 All updates use GLOBAL int32 indices, SENTINEL-padded.
 """
@@ -25,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from . import comm
 from .coo import SENTINEL, sentinel_like
 from .dist import DistVec, Grid
 from .semiring import PLUS, Monoid, segment_reduce
@@ -65,6 +64,7 @@ def route_to_pieces(gidx: torch.Tensor, payloads, fills, *, n: int, grid,
     localized to the piece, SENTINEL padding.
     """
     pr, pc = grid
+    g = comm.of(grid)
     vb = -(-n // (pr * pc))
     valid = gidx != SENTINEL
     piece = torch.where(valid, gidx // vb, pr * pc)
@@ -74,13 +74,13 @@ def route_to_pieces(gidx: torch.Tensor, payloads, fills, *, n: int, grid,
     (g1, dj1, *p1), ok1 = _bucketize(
         dest_i, (gidx, dest_j) + tuple(payloads), pr, cap // pr,
         (SENTINEL, pc) + tuple(fills))
-    # all_to_all of g1, dj1 and p1 along 'row': the identity on 1x1
+    g1, dj1, *p1 = comm.all_to_all_fields([g1, dj1] + p1, g, "row")
     # stage 2: along 'col' to the destination process column
     valid1 = g1 != SENTINEL
     dj1 = torch.where(valid1, dj1, pc)
     (g2, *p2), ok2 = _bucketize(dj1, (g1,) + tuple(p1), pc, cap // pc,
                                 (SENTINEL,) + tuple(fills))
-    # all_to_all of g2 and p2 along 'col': the identity on 1x1
+    g2, *p2 = comm.all_to_all_fields([g2] + p2, g, "col")
     lidx = torch.where(g2 != SENTINEL, g2 % vb, sentinel_like(g2))
     return lidx, tuple(p2), ok1 & ok2
 
@@ -108,25 +108,27 @@ def assign(v: DistVec, gidx: torch.Tensor, val: torch.Tensor, *,
     del mesh
     assert v.layout == "col"
     pr, pc = v.grid
+    g = comm.of(v.grid)
     route_cap = _route_cap(route_cap, gidx.shape[-1], v.grid)
     vb, n = v.vb, v.n
     gi = gidx.reshape(-1)
     gv = val.reshape((-1,) + tuple(val.shape[3:]))
     mine_extra = None
     if skew_aware:
-        # grid-wide per-piece traffic census (p counts a device; the psum
-        # over ('row', 'col') is the identity on 1x1)
+        # grid-wide per-piece traffic census (p counts a device)
         piece = torch.where(gi != SENTINEL, gi // vb, pr * pc)
-        total = segment_reduce(torch.ones_like(piece), piece, pr * pc, PLUS)
+        counts = segment_reduce(torch.ones_like(piece), piece, pr * pc, PLUS)
+        total = comm.psum(counts, g, comm.WORLD)
         heavy = total.to(torch.float32) > heavy_frac * torch.clamp(
             total.sum(), min=1).to(torch.float32)
         is_heavy = heavy[piece.clamp(0, pr * pc - 1).long()] & \
             (gi != SENTINEL)
-        # heavy entries: broadcast to all (all_gather over ('row', 'col'):
-        # the identity), owners filter; my piece is j * pr + i = 0
-        hg_all = torch.where(is_heavy, gi, sentinel_like(gi))
-        hv_all = gv
-        mine = (hg_all != SENTINEL) & (hg_all // vb == 0)
+        # heavy entries: broadcast to all (all_gather over the grid),
+        # owners filter; my piece is j * pr + i (layout 'col')
+        hg = torch.where(is_heavy, gi, sentinel_like(gi))
+        hg_all = comm.all_gather(hg, g, comm.WORLD, tiled=True)
+        hv_all = comm.all_gather(gv, g, comm.WORLD, tiled=True)
+        mine = (hg_all != SENTINEL) & (hg_all // vb == g.j * pr + g.i)
         mine_extra = (torch.where(mine, hg_all % vb, sentinel_like(gi)),
                       hv_all)
         gi = torch.where(is_heavy, sentinel_like(gi), gi)  # light path only
@@ -168,13 +170,14 @@ def extract(v: DistVec, gidx: torch.Tensor, *, mesh: Grid,
     del mesh
     assert v.layout == "col"
     pr, pc = v.grid
+    g = comm.of(v.grid)
     cap = gidx.shape[-1]
     route_cap = _route_cap(route_cap, cap, v.grid)
     n, vb = v.n, v.vb
     dev = gidx.device
     gi = gidx.reshape(-1)
     d = v.data.reshape(-1)
-    src = 0                                   # row-major rank i * pc + j
+    src = g.rank                              # row-major rank i * pc + j
     slots = torch.arange(cap, dtype=torch.int32, device=dev)
     lidx, (src_r, slot_r), ok1 = route_to_pieces(
         gi, (torch.full((cap,), src, dtype=torch.int32, device=dev), slots),
@@ -187,11 +190,11 @@ def extract(v: DistVec, gidx: torch.Tensor, *, mesh: Grid,
     zero = torch.zeros((), dtype=ans.dtype).item()
     (s1, bj1, a1), okb1 = _bucketize(
         back_i, (slot_r, back_j, ans), pr, route_cap // pr, (cap, pc, zero))
-    # all_to_all of s1, bj1 and a1 along 'row': the identity on 1x1
+    s1, bj1, a1 = comm.all_to_all_fields([s1, bj1, a1], g, "row")
     bj1 = torch.where(s1 != cap, bj1, pc)
     (s2, a2), okb2 = _bucketize(bj1, (s1, a1), pc, route_cap // pc,
                                 (cap, zero))
-    # all_to_all of s2 and a2 along 'col': the identity on 1x1
+    s2, a2 = comm.all_to_all_fields([s2, a2], g, "col")
     out = torch.zeros(cap + 1, dtype=ans.dtype, device=dev)
     out[torch.where(s2 != cap, s2, cap).long()] = a2   # spare slot: dropped
     return out[:cap][None, None], (ok1 & okb1 & okb2).reshape(1, 1)

@@ -1,0 +1,501 @@
+"""The process grid's collectives over ``torch.distributed``.
+
+This is the port's counterpart of the named-axis collectives that the JAX
+package's bodies call under ``shard_map`` (``jax.lax.all_gather``,
+``psum``, ``psum_scatter``, ``all_to_all``, ``ppermute``,
+``axis_index``), and the only module of the port that imports
+``torch.distributed``. As in CombBLAS (MPI, one process per grid
+position), every grid position is one process: rank ``r`` is position
+``(i, j) = divmod(r, pc)``, row-major, as JAX's mesh orders its devices.
+
+Axes are named as in JAX. Axis ``'col'`` varies ``j`` within process row
+``i`` (the ranks ``i*pc .. i*pc+pc-1``); axis ``'row'`` varies ``i``
+within process column ``j``; ``('row', 'col')`` is the whole grid, indexed
+by the rank. Every rank creates the row and column sub-groups in the same
+order (``GridComm.create``).
+
+The 1x1 grid needs no process group: over an axis of size 1 every
+collective is the identity and is computed as such, so the 1x1 results
+are those of a single process.
+
+Transport follows the process group's backend. NCCL moves CUDA tensors
+directly. Gloo moves host tensors only, so on a gloo group a CUDA payload
+is copied to pinned host memory, exchanged, and copied back; that is the
+configuration of several ranks sharing one card, where NCCL refuses two
+ranks on one GPU. The kernels run on the card either way.
+
+Data-moving collectives (gathers, all-to-alls, permutes, broadcasts) view
+their payload as bytes, so any dtype (bool included) moves in one call and
+several fields can share one buffer (``tile_permute``). Reductions are
+computed as a gather followed by a sum in axis order, so every rank of the
+axis gets the same bits and a float sum does not depend on the backend's
+reduction order.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .coo import COO
+
+WORLD = ("row", "col")
+
+
+@dataclasses.dataclass(frozen=True)
+class GridComm:
+    """This process's place in a ``pr`` x ``pc`` grid and its groups."""
+
+    pr: int
+    pc: int
+    rank: int
+    backend: str | None         # None on the 1x1 grid (no process group)
+    groups: dict                # axis -> ProcessGroup
+
+    @property
+    def i(self) -> int:
+        return self.rank // self.pc
+
+    @property
+    def j(self) -> int:
+        return self.rank % self.pc
+
+    def size(self, axis) -> int:
+        if axis == "row":
+            return self.pr
+        if axis == "col":
+            return self.pc
+        return self.pr * self.pc
+
+    def index(self, axis) -> int:
+        """``jax.lax.axis_index(axis)``."""
+        if axis == "row":
+            return self.i
+        if axis == "col":
+            return self.j
+        return self.rank
+
+    def global_rank(self, axis, k: int) -> int:
+        """The world rank of member ``k`` of this process's ``axis``."""
+        if axis == "row":
+            return k * self.pc + self.j
+        if axis == "col":
+            return self.i * self.pc + k
+        return k
+
+    @staticmethod
+    def create(pr: int, pc: int) -> "GridComm":
+        if pr * pc == 1:
+            return GridComm(1, 1, 0, None, {})
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                f"a {pr}x{pc} grid needs torch.distributed initialized with "
+                f"{pr * pc} ranks (one process a grid position), e.g. "
+                "init_process_group('nccl' or 'gloo', "
+                f"init_method='tcp://localhost:<port>', world_size={pr * pc}, "
+                "rank=...); none is initialized")
+        world = dist.get_world_size()
+        if world != pr * pc:
+            raise RuntimeError(
+                f"a {pr}x{pc} grid needs a world of {pr * pc} ranks; "
+                f"torch.distributed has {world}")
+        rank = dist.get_rank()
+        # every rank creates every group, in the same order
+        rows = [dist.new_group([i * pc + j for j in range(pc)])
+                for i in range(pr)]
+        cols = [dist.new_group([i * pc + j for i in range(pr)])
+                for j in range(pc)]
+        i, j = divmod(rank, pc)
+        groups = {"col": rows[i], "row": cols[j], WORLD: dist.group.WORLD}
+        return GridComm(pr, pc, rank, dist.get_backend(), groups)
+
+
+_GRIDS: dict = {}
+
+
+def init_world(rank: int, world: int, port: int, backend: str) -> None:
+    """Join this process to a world of ``world`` ranks on this host
+    (``tcp://localhost:<port>``), as rank ``rank``, over ``backend``
+    ('nccl' with a card a rank, 'gloo' otherwise)."""
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+
+
+def close_world() -> None:
+    """Leave the world and forget its grids."""
+    _GRIDS.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def of(grid) -> GridComm:
+    """The ``GridComm`` of a ``(pr, pc)`` grid on this process, created on
+    first use (a collective: every rank reaches it in the same order).
+    Raises ``RuntimeError`` unless ``pr * pc`` is 1 or the world has
+    ``pr * pc`` ranks."""
+    key = (int(grid[0]), int(grid[1]))
+    if key not in _GRIDS:
+        _GRIDS[key] = GridComm.create(*key)
+    return _GRIDS[key]
+
+
+# --------------------------------------------------------------------------
+# transport
+# --------------------------------------------------------------------------
+
+# exchange accounting of this process: the collectives called, the bytes
+# this rank put on the wire (its send buffer) and the host seconds spent in
+# them, staging copies included (for an exchange in flight, the seconds to
+# issue it and to wait for it: the time it was not hidden)
+stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_stats() -> None:
+    stats.update(calls=0, bytes=0, seconds=0.0)
+
+
+def _book(nbytes: int, seconds: float) -> None:
+    stats["calls"] += 1
+    stats["bytes"] += int(nbytes)
+    stats["seconds"] += seconds
+
+def _staged(g: GridComm, x: torch.Tensor) -> bool:
+    """Whether ``x`` crosses the wire through host memory: a CUDA payload
+    on a gloo group (gloo moves host tensors only)."""
+    return g.backend == "gloo" and x.is_cuda
+
+
+def _to_wire(g: GridComm, x: torch.Tensor) -> torch.Tensor:
+    if not _staged(g, x):
+        return x
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)                # synchronous: gloo reads it on its thread
+    return host
+
+
+def _from_wire(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if x.device == like.device:
+        return x
+    return x.to(like.device, non_blocking=True)
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _unbytes(b: torch.Tensor, dtype, shape) -> torch.Tensor:
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if b.storage_offset() % itemsize:
+        b = b.clone()                 # a field packed at an odd offset
+    return b.view(dtype).reshape(shape)
+
+
+class Pending:
+    """An exchange in flight; ``wait()`` returns its result."""
+
+    def __init__(self, work, finish, nbytes=None, issued=0.0):
+        self._work, self._finish = work, finish
+        self._nbytes, self._issued = nbytes, issued
+
+    def wait(self):
+        t0 = time.perf_counter()
+        if self._work is not None:
+            self._work.wait()
+        out = self._finish()
+        if self._nbytes is not None:
+            _book(self._nbytes, self._issued + time.perf_counter() - t0)
+        return out
+
+
+def _issued(work, finish, nbytes, t0, async_op):
+    """The result of a collective issued at ``t0``: a ``Pending`` that
+    books it on ``wait()``, or the value, booked now."""
+    p = Pending(work, finish, nbytes, time.perf_counter() - t0)
+    return p if async_op else p.wait()
+
+
+def _done(value) -> Pending:
+    return Pending(None, lambda: value)
+
+
+# --------------------------------------------------------------------------
+# data-moving collectives
+# --------------------------------------------------------------------------
+
+def _gathered_wire(x: torch.Tensor, g: GridComm, axis) -> torch.Tensor:
+    """Every member's bytes of ``x`` over ``axis``, concatenated in axis
+    order, where the backend delivers them (host memory on a gloo group)."""
+    t0 = time.perf_counter()
+    wire = _to_wire(g, _bytes(x))
+    parts = [torch.empty_like(wire) for _ in range(g.size(axis))]
+    dist.all_gather(parts, wire, group=g.groups[axis])
+    out = torch.cat(parts)
+    _book(wire.numel(), time.perf_counter() - t0)
+    return out
+
+
+def all_gather(x: torch.Tensor, g: GridComm, axis, *, tiled: bool = False):
+    """``jax.lax.all_gather(x, axis, tiled=tiled)``: stacked on a new dim 0
+    in axis order, or concatenated along dim 0 with ``tiled``."""
+    n = g.size(axis)
+    if n == 1:
+        return x if tiled else x[None]
+    out = _from_wire(_gathered_wire(x, g, axis), x)
+    out = _unbytes(out, x.dtype, (n,) + tuple(x.shape))
+    return out.reshape((n * x.shape[0],) + tuple(x.shape[1:])) if tiled \
+        else out
+
+
+def _all_gather_host(x: torch.Tensor, g: GridComm, axis) -> torch.Tensor:
+    """``all_gather`` (stacked) delivered on the host, for a caller that
+    reads it there: a gloo result stays where it arrived."""
+    n = g.size(axis)
+    if n == 1:
+        return x.cpu()[None]
+    out = _gathered_wire(x, g, axis).cpu()
+    return _unbytes(out, x.dtype, (n,) + tuple(x.shape))
+
+
+def all_to_all(x: torch.Tensor, g: GridComm, axis):
+    """``jax.lax.all_to_all(x, axis, 0, 0, tiled=True)``: dim 0 of ``x``
+    splits into ``n`` equal chunks, chunk ``t`` goes to member ``t``, and
+    the result's chunk ``s`` came from member ``s``."""
+    n = g.size(axis)
+    if n == 1:
+        return x
+    t0 = time.perf_counter()
+    wire = _to_wire(g, _bytes(x))
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=g.groups[axis])
+    res = _unbytes(_from_wire(out, x), x.dtype, x.shape)
+    _book(wire.numel(), time.perf_counter() - t0)
+    return res
+
+
+def ppermute(x: torch.Tensor, g: GridComm, axis, perm, *,
+             async_op: bool = False):
+    """``jax.lax.ppermute(x, axis, perm)``: ``perm`` holds (src, dst)
+    pairs of axis positions; a member no pair sends to gets zeros. An
+    ``all_to_all_single`` with one non-empty split each way (gloo has no
+    send/recv for CUDA tensors)."""
+    n = g.size(axis)
+    if n == 1:
+        return _done(x) if async_op else x
+    t0 = time.perf_counter()
+    me = g.index(axis)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    wire = _to_wire(g, _bytes(x))
+    nb = wire.numel()
+    ins = [0] * n
+    outs = [0] * n
+    if dst:
+        ins[dst[0]] = nb
+    if src:
+        outs[src[0]] = nb
+    send = wire if dst else wire[:0]
+    out = torch.empty_like(wire) if src else wire.new_empty(0)
+    work = dist.all_to_all_single(out, send, outs, ins,
+                                  group=g.groups[axis], async_op=async_op)
+
+    def finish():
+        got = out if src else torch.zeros_like(wire)
+        return _unbytes(_from_wire(got, x), x.dtype, x.shape)
+
+    return _issued(work, finish, send.numel(), t0, async_op)
+
+
+def broadcast(x: torch.Tensor, g: GridComm, axis, owner: int, *,
+              async_op: bool = False):
+    """Member ``owner``'s ``x`` on every member of ``axis``."""
+    if g.size(axis) == 1:
+        return _done(x) if async_op else x
+    t0 = time.perf_counter()
+    wire = _to_wire(g, _bytes(x))
+    if wire.data_ptr() == x.data_ptr():
+        wire = wire.clone()           # never overwrite the caller's tensor
+    work = dist.broadcast(wire, src=g.global_rank(axis, owner),
+                          group=g.groups[axis], async_op=async_op)
+    finish = lambda: _unbytes(_from_wire(wire, x), x.dtype, x.shape)
+    sent = wire.numel() if g.index(axis) == owner else 0
+    return _issued(work, finish, sent, t0, async_op)
+
+
+# --------------------------------------------------------------------------
+# reductions
+# --------------------------------------------------------------------------
+
+def _sum_in_order(parts, op=torch.add):
+    red = parts[0]
+    for t in range(1, parts.shape[0]):
+        red = op(red, parts[t])
+    return red
+
+
+def psum(x: torch.Tensor, g: GridComm, axis, op=torch.add):
+    """``jax.lax.psum(x, axis)``: the sum over the axis, in axis order, the
+    same bits on every member (``op`` replaces the sum: a monoid's min or
+    max)."""
+    if g.size(axis) == 1:
+        return x
+    return _sum_in_order(all_gather(x, g, axis), op)
+
+
+def psum_scatter(x: torch.Tensor, g: GridComm, axis):
+    """``jax.lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)``:
+    member ``k`` gets chunk ``k`` of dim 0 summed over the axis (an
+    all-to-all, then the sum in axis order)."""
+    n = g.size(axis)
+    if n == 1:
+        return x
+    parts = all_to_all(x, g, axis)
+    return _sum_in_order(parts.reshape((n, x.shape[0] // n)
+                                       + tuple(x.shape[1:])))
+
+
+# --------------------------------------------------------------------------
+# tiles
+# --------------------------------------------------------------------------
+
+def _pack(fields):
+    return torch.cat([_bytes(f) for f in fields])
+
+
+def _unpack(buf, like):
+    """Split a ``_pack`` buffer back into tensors shaped and typed like
+    ``like``."""
+    out, o = [], 0
+    for f in like:
+        nb = f.numel() * f.element_size()
+        out.append(_unbytes(buf[o:o + nb], f.dtype, f.shape))
+        o += nb
+    return out
+
+
+def permute_fields(fields, g: GridComm, axis, perm, *,
+                   async_op: bool = False):
+    """``ppermute`` of several tensors in ONE collective: they are packed
+    into one byte buffer (the JAX package's tree-level ``ppermute``)."""
+    if g.size(axis) == 1:
+        return _done(tuple(fields)) if async_op else tuple(fields)
+    p = ppermute(_pack(fields), g, axis, perm, async_op=True)
+    finish = lambda: tuple(_unpack(p.wait(), fields))
+    return Pending(None, finish) if async_op else finish()
+
+
+def broadcast_fields(fields, g: GridComm, axis, owner: int, *,
+                     async_op: bool = False):
+    """Member ``owner``'s tensors on every member of ``axis``, in one
+    collective."""
+    if g.size(axis) == 1:
+        return _done(tuple(fields)) if async_op else tuple(fields)
+    p = broadcast(_pack(fields), g, axis, owner, async_op=True)
+    finish = lambda: tuple(_unpack(p.wait(), fields))
+    return Pending(None, finish) if async_op else finish()
+
+
+def all_gather_fields(fields, g: GridComm, axis):
+    """Every member's tensors of ``axis``, in axis order, in one
+    collective: a list of tuples."""
+    if g.size(axis) == 1:
+        return [tuple(fields)]
+    parts = all_gather(_pack(fields), g, axis)
+    return [tuple(_unpack(parts[k], fields)) for k in range(g.size(axis))]
+
+
+def all_to_all_fields(fields, g: GridComm, axis):
+    """``all_to_all`` of several tensors in ONE collective: chunk ``t`` of
+    dim 0 of every field travels to member ``t`` in one row of bytes."""
+    n = g.size(axis)
+    if n == 1:
+        return tuple(fields)
+    wide = [_bytes(f).reshape(n, -1) for f in fields]
+    out = all_to_all(torch.cat(wide, dim=1), g, axis)
+    res, o = [], 0
+    for f, w in zip(fields, wide):
+        res.append(_unbytes(out[:, o:o + w.shape[1]].contiguous(), f.dtype,
+                            f.shape))
+        o += w.shape[1]
+    return tuple(res)
+
+
+def _tile(fields, like: COO) -> COO:
+    r, c, v, n = fields
+    return COO(r, c, v, n, like.shape, like.order)
+
+
+def _fields(tile: COO):
+    return (tile.row, tile.col, tile.val, tile.nnz)
+
+
+def tile_permute(tile: COO, g: GridComm, axis, perm, *,
+                 async_op: bool = False):
+    """Move whole tiles between ranks in one collective; each tile keeps
+    its entry order and tag."""
+    p = permute_fields(_fields(tile), g, axis, perm, async_op=True)
+    finish = lambda: _tile(p.wait(), tile)
+    return Pending(None, finish) if async_op else finish()
+
+
+def as_psum(tile: COO, g: GridComm, axis) -> COO:
+    """A tile as the JAX package's masked ``psum`` along ``axis`` delivers
+    it (the owner's tile plus zeros from every other member): that sum
+    turns a float -0.0 into +0.0, and adding +0.0 reproduces it bit for bit
+    (x + 0 + ... + 0 == x + 0)."""
+    if g.size(axis) == 1 or not tile.val.is_floating_point():
+        return tile
+    return COO(tile.row, tile.col, tile.val + 0.0, tile.nnz, tile.shape,
+               tile.order)
+
+
+def tile_broadcast(tile: COO, g: GridComm, axis, owner: int, *,
+                   async_op: bool = False):
+    """Member ``owner``'s tile on every member of ``axis``, in one
+    collective, as a masked ``psum`` delivers it (``as_psum``)."""
+    p = broadcast_fields(_fields(tile), g, axis, owner, async_op=True)
+    finish = lambda: as_psum(_tile(p.wait(), tile), g, axis)
+    return Pending(None, finish) if async_op else finish()
+
+
+def tile_all_gather(tile: COO, g: GridComm, axis):
+    """Every member's tile of ``axis``, in axis order, in one collective."""
+    return [_tile(f, tile) for f in all_gather_fields(_fields(tile), g, axis)]
+
+
+# --------------------------------------------------------------------------
+# host views of every rank's data (the same on every rank)
+# --------------------------------------------------------------------------
+
+def gather_grid(x: torch.Tensor, grid):
+    """Every rank's ``x`` as one host array shaped ``(pr, pc) + x.shape``
+    (the global array of a per-rank field), the same on every rank."""
+    g = of(grid)
+    full = _all_gather_host(x, g, WORLD)
+    return full.numpy().reshape((g.pr, g.pc) + tuple(x.shape))
+
+
+def gather_prefixes(fields, n: int, grid):
+    """Every rank's first ``n`` entries of each 1-d-leading ``fields``
+    array, without the padding past them: the counts are gathered first,
+    then each rank sends its prefix padded to the largest count. Returns
+    (counts[pr*pc], [host arrays shaped (pr*pc, max) + rest]) in rank
+    order."""
+    g = of(grid)
+    dev = fields[0].device
+    cnt = gather_grid(torch.tensor([int(n)], dtype=torch.int64, device=dev),
+                      grid).reshape(-1)
+    m = int(cnt.max()) if cnt.size else 0
+    heads = [f[:m] for f in fields]
+    buf = _pack(heads)
+    parts = _all_gather_host(buf, g, WORLD)
+    like = [torch.empty(h.shape, dtype=h.dtype, device="meta")
+            for h in heads]
+    out = [[] for _ in fields]
+    for k in range(g.pr * g.pc):
+        for t, h in enumerate(_unpack(parts[k], like)):
+            out[t].append(h.numpy())
+    return cnt, [np.stack(o) for o in out]
+

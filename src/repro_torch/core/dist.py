@@ -1,21 +1,30 @@
 """Distributed sparse matrix container (SpParMat analogue) and its grid.
 
 Data model (DESIGN.md §3): a distributed matrix stores each field as ONE
-tensor whose leading dims are the process-grid dims:
+tensor whose leading dims are the process-grid dims. In the JAX package
+that tensor is global, sharded so each device owns its tile; in the port
+every grid position is one process (SPMD, ``core/comm.py``), and a
+process's fields are its own shard of JAX's global array:
 
-  DistSpMat  : row/col/val/nnz with shapes (pr, pc, cap …)
-  DistVec    : data (pr, pc, vb)            — fully distributed dense vector
-  DistSpVec  : idx/val (pr, pc, cap), nnz (pr, pc) — sparse vector
+  DistSpMat  : row/col/val/nnz with shapes (1, 1, cap …) of (pr, pc, cap …)
+  DistVec    : data (1, 1, vb)            — fully distributed dense vector
+  DistSpVec  : idx/val (1, 1, cap), nnz (1, 1) — sparse vector
+
+``cap`` is one value across the grid, as in JAX, so ``.tile()`` and all
+the local code see one tile as on the 1x1 grid.
 
 Index discipline (paper §1, two index types): global indices are int64 and
 live ONLY on the host (numpy) during assembly/extraction; device-resident
-indices are tile-local int32.
+indices are tile-local int32. Assembly takes the same global COO on every
+rank (as JAX's host code does) and each rank keeps its own tile;
+extraction gathers every tile's nnz prefix, so every rank gets the same
+global arrays.
 
 Load balance (paper §2.3/§6): ``random_permute=True`` at assembly applies a
 seeded random row+column permutation — CombBLAS's standard trick.
 
-This slice of the port runs the 1x1 grid only: a grid of several processes
-needs the ``torch.distributed`` slice (ROADMAP.md, modules to port).
+A grid of several positions needs ``torch.distributed`` initialized with
+one rank a position (``make_grid``); the 1x1 grid needs no process group.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from ..obs import recorder as _obs
+from . import comm
 from .coo import COO, SENTINEL, resolve_device
 
 
@@ -33,16 +43,16 @@ def _ceil(a, b):
     return -(-a // b)
 
 
-def _check_grid(pr: int, pc: int) -> None:
-    if pr * pc != 1:
-        raise NotImplementedError(
-            f"a {pr}x{pc} grid needs the torch.distributed slice of the port "
-            "(ROADMAP.md); this slice runs the 1x1 grid only")
+def _check_grid(pr: int, pc: int) -> comm.GridComm:
+    """This process's place in the grid; a grid of several positions
+    raises ``RuntimeError`` unless the world has one rank a position."""
+    return comm.of((pr, pc))
 
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """Process grid for sparse ops: ``pr`` x ``pc`` ranks on ``device``."""
+    """Process grid for sparse ops: ``pr`` x ``pc`` ranks, this process's
+    tensors on ``device``."""
 
     pr: int
     pc: int
@@ -50,9 +60,31 @@ class Grid:
 
 
 def make_grid(pr: int, pc: int, *, device=None) -> Grid:
-    """Process grid for sparse ops (the JAX package's mesh)."""
-    _check_grid(pr, pc)
+    """Process grid for sparse ops (the JAX package's mesh).
+
+    A grid of several positions needs ``torch.distributed`` initialized
+    with ``pr * pc`` ranks; each rank calls ``make_grid`` (it creates the
+    row and column groups, a collective) and is grid position
+    ``divmod(rank, pc)``. The device is ``cuda:(rank % device_count)``
+    unless the caller asks for another (``device='cpu'``).
+    """
+    g = _check_grid(pr, pc)
+    if device is None and pr * pc > 1 and torch.cuda.is_available():
+        device = f"cuda:{g.rank % torch.cuda.device_count()}"
     return Grid(pr, pc, resolve_device(device))
+
+
+def grid_all(ok: torch.Tensor, grid) -> bool:
+    """``bool(jnp.all(ok))`` of the global flags: the same answer on every
+    rank, so every rank takes the same branch."""
+    return bool(comm.gather_grid(ok.all().reshape(1), grid).all())
+
+
+def grid_sum(x: torch.Tensor, grid) -> torch.Tensor:
+    """``jnp.sum`` of the global array whose shard is ``x``, the same bits
+    on every rank."""
+    return comm.psum(x.sum().reshape(1), comm.of(grid),
+                     comm.WORLD).reshape(())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,10 +96,10 @@ class DistSpMat:
     pieces align).
     """
 
-    row: torch.Tensor   # (pr, pc, cap) int32, tile-local row index
-    col: torch.Tensor   # (pr, pc, cap) int32, tile-local col index
-    val: torch.Tensor   # (pr, pc, cap, *vdims)
-    nnz: torch.Tensor   # (pr, pc) int32
+    row: torch.Tensor   # (1, 1, cap) int32, tile-local row index
+    col: torch.Tensor   # (1, 1, cap) int32, tile-local col index
+    val: torch.Tensor   # (1, 1, cap, *vdims)
+    nnz: torch.Tensor   # (1, 1) int32
     shape: tuple[int, int]
     grid: tuple[int, int]
     # per-tile entry order, same vocabulary as COO.order. 'row' is the
@@ -99,17 +131,26 @@ class DistSpMat:
         return _ceil(self.shape[1], self.pr * self.pc) * self.pr
 
     def tile(self) -> COO:
-        """The local COO view (the 1x1 grid's one tile)."""
+        """This process's tile as a local COO."""
         return COO(self.row.reshape(self.cap), self.col.reshape(self.cap),
                    self.val.reshape((self.cap,) + tuple(self.val.shape[3:])),
                    self.nnz.reshape(()), (self.mb, self.nb), self.order)
 
     @staticmethod
     def from_tile(t: COO, shape, grid) -> "DistSpMat":
-        """Wrap the 1x1 grid's one tile back into a DistSpMat."""
+        """Wrap this process's tile back into a DistSpMat."""
         return DistSpMat(t.row[None, None], t.col[None, None],
                          t.val[None, None], t.nnz.reshape(1, 1),
                          tuple(shape), tuple(grid), order=t.order)
+
+    def host_nnz(self) -> np.ndarray:
+        """Every tile's nnz as a host (pr, pc) array, the same on every
+        rank (the JAX package's ``device_get(a.nnz)``)."""
+        return comm.gather_grid(self.nnz.reshape(()), self.grid)
+
+    @property
+    def total_nnz(self) -> torch.Tensor:
+        return grid_sum(self.nnz, self.grid)
 
     # ---------------- host-side assembly / extraction ----------------
     @staticmethod
@@ -118,15 +159,17 @@ class DistSpMat:
                         device=None, cap: int | None = None,
                         pad: float = 1.25, random_permute: bool = False,
                         seed: int = 0, vdims=(), order: str = "row"):
-        """Assemble from global int64 COO (host-side numpy).
+        """Assemble from global int64 COO (host-side numpy), the same on
+        every rank; each rank keeps its own tile.
 
         The tiles land on ``mesh.device`` (else ``device``; the GPU by
         default). ``order`` picks the per-tile entry sort — ``'row'`` (the
-        maintained invariant) or ``'col'``.
+        maintained invariant) or ``'col'``. ``cap`` defaults to ``pad`` x
+        the fullest tile of the grid, rounded up to 8.
         """
         M, N = shape
         pr, pc = grid
-        _check_grid(pr, pc)
+        g = _check_grid(pr, pc)
         if order not in ("row", "col"):
             raise ValueError(f"order must be 'row' or 'col', got {order!r}")
         dev = mesh.device if mesh is not None else resolve_device(device)
@@ -140,40 +183,42 @@ class DistSpMat:
             rows, cols = rp[rows], cp[cols]
         mb = _ceil(M, pr * pc) * pc
         nb = _ceil(N, pr * pc) * pr
-        ti, tj = rows // mb, cols // nb
-        lr = (rows % mb).astype(np.int32)
-        lc = (cols % nb).astype(np.int32)
-        tid = ti * pc + tj
-        within_keys = (lc, lr) if order == "row" else (lr, lc)
-        perm = np.lexsort(within_keys + (tid,))
-        tid, lr, lc, vals_s = tid[perm], lr[perm], lc[perm], vals[perm]
+        tid = (rows // mb) * pc + cols // nb
         counts = np.bincount(tid, minlength=pr * pc)
         if cap is None:
             cap = max(8, int(math.ceil(counts.max() * pad / 8) * 8)) \
                 if len(rows) else 8
         if counts.max() > cap:
             raise ValueError(f"tile overflow: max nnz {counts.max()} > cap {cap}")
-        starts = np.zeros(pr * pc, np.int64)
+        if pr * pc > 1:
+            # this rank's entries only, before any sort
+            mine = tid == g.rank
+            rows, cols, vals = rows[mine], cols[mine], vals[mine]
+            tid = np.zeros(len(rows), np.int64)
+            counts = counts[g.rank:g.rank + 1]
+        lr = (rows % mb).astype(np.int32)
+        lc = (cols % nb).astype(np.int32)
+        within_keys = (lc, lr) if order == "row" else (lr, lc)
+        perm = np.lexsort(within_keys + (tid,))
+        tid, lr, lc, vals_s = tid[perm], lr[perm], lc[perm], vals[perm]
+        ntile = len(counts)
+        starts = np.zeros(ntile, np.int64)
         starts[1:] = np.cumsum(counts)[:-1]
-        R = np.full((pr * pc, cap), SENTINEL, np.int32)
-        Cc = np.full((pr * pc, cap), SENTINEL, np.int32)
-        V = np.zeros((pr * pc, cap) + tuple(vdims), vals.dtype)
+        R = np.full((ntile, cap), SENTINEL, np.int32)
+        Cc = np.full((ntile, cap), SENTINEL, np.int32)
+        V = np.zeros((ntile, cap) + tuple(vdims), vals.dtype)
         within = np.arange(len(rows)) - starts[tid]
         R[tid, within] = lr
         Cc[tid, within] = lc
         V[tid, within] = vals_s
-        return DistSpMat.from_numpy(
-            R.reshape(pr, pc, cap), Cc.reshape(pr, pc, cap),
-            V.reshape((pr, pc, cap) + tuple(vdims)),
-            counts.reshape(pr, pc).astype(np.int32), (int(M), int(N)),
+        return DistSpMat._local(
+            R.reshape(1, 1, cap), Cc.reshape(1, 1, cap),
+            V.reshape((1, 1, cap) + tuple(vdims)),
+            counts.reshape(1, 1).astype(np.int32), (int(M), int(N)),
             (pr, pc), order, dev)
 
     @staticmethod
-    def from_numpy(row, col, val, nnz, shape, grid, order, device=None):
-        """A DistSpMat from host arrays laid out like the fields — e.g. the
-        arrays of a ``repro`` DistSpMat, so both packages compute on the
-        same tiles."""
-        dev = resolve_device(device)
+    def _local(row, col, val, nnz, shape, grid, order, dev):
         return DistSpMat(
             row=torch.tensor(np.asarray(row, np.int32), device=dev),
             col=torch.tensor(np.asarray(col, np.int32), device=dev),
@@ -182,21 +227,32 @@ class DistSpMat:
             shape=(int(shape[0]), int(shape[1])),
             grid=(int(grid[0]), int(grid[1])), order=order)
 
+    @staticmethod
+    def from_numpy(row, col, val, nnz, shape, grid, order, device=None):
+        """A DistSpMat from host arrays laid out like the JAX package's
+        global fields (leading dims (pr, pc)) — e.g. the arrays of a
+        ``repro`` DistSpMat, so both packages compute on the same tiles.
+        Each rank keeps its own tile."""
+        g = _check_grid(*grid)
+        sl = (slice(g.i, g.i + 1), slice(g.j, g.j + 1))
+        return DistSpMat._local(
+            np.asarray(row)[sl], np.asarray(col)[sl], np.asarray(val)[sl],
+            np.asarray(nnz)[sl], shape, grid, order, resolve_device(device))
+
     def to_global_coo(self):
-        """Gather to host as (rows, cols, vals) in global int64 coords."""
-        pr, pc, cap = self.pr, self.pc, self.cap
-        R = self.row.cpu().numpy().reshape(pr, pc, cap)
-        C = self.col.cpu().numpy().reshape(pr, pc, cap)
-        V = self.val.cpu().numpy().reshape((pr, pc, cap)
-                                           + tuple(self.val.shape[3:]))
-        Nz = self.nnz.cpu().numpy().reshape(pr, pc)
+        """Gather to host as (rows, cols, vals) in global int64 coords, the
+        same on every rank. Only each tile's nnz prefix crosses the wire."""
+        pr, pc = self.grid
+        t = self.tile()
+        cnt, (R, C, V) = comm.gather_prefixes(
+            (t.row, t.col, t.val), int(t.nnz), self.grid)
         rows, cols, vals = [], [], []
         for i in range(pr):
             for j in range(pc):
-                k = int(Nz[i, j])
-                rows.append(R[i, j, :k].astype(np.int64) + i * self.mb)
-                cols.append(C[i, j, :k].astype(np.int64) + j * self.nb)
-                vals.append(V[i, j, :k])
+                k = int(cnt[i * pc + j])
+                rows.append(R[i * pc + j, :k].astype(np.int64) + i * self.mb)
+                cols.append(C[i * pc + j, :k].astype(np.int64) + j * self.nb)
+                vals.append(V[i * pc + j, :k])
         return (np.concatenate(rows), np.concatenate(cols),
                 np.concatenate(vals))
 
@@ -225,7 +281,7 @@ def _vec_device(mesh: Grid | None, device) -> torch.device:
 class DistVec:
     """Fully distributed dense vector, no replication (paper §2.2)."""
 
-    data: torch.Tensor  # (pr, pc, vb, *vdims)
+    data: torch.Tensor  # (1, 1, vb, *vdims): this rank's piece
     n: int
     grid: tuple[int, int]
     layout: str = "col"
@@ -247,26 +303,25 @@ class DistVec:
     @staticmethod
     def from_global(x, grid, layout="col", mesh: Grid = None,
                     device=None) -> "DistVec":
-        """Split the host vector ``x`` into pieces of vb = ceil(n / (pr*pc))
-        (zero-padded past n) on ``mesh.device`` (else ``device``)."""
+        """Split the host vector ``x`` (the same on every rank) into pieces
+        of vb = ceil(n / (pr*pc)) (zero-padded past n); this rank keeps
+        its piece, on ``mesh.device`` (else ``device``)."""
         pr, pc = grid
-        _check_grid(pr, pc)
+        g = _check_grid(pr, pc)
         x = np.asarray(x)
         n = x.shape[0]
         vb = _ceil(n, pr * pc)
-        xp = np.zeros((pr * pc * vb,) + x.shape[1:], x.dtype)
-        xp[:n] = x
-        pieces = xp.reshape((pr * pc, vb) + x.shape[1:])
-        out = np.empty((pr, pc, vb) + x.shape[1:], x.dtype)
-        for i in range(pr):
-            for j in range(pc):
-                out[i, j] = pieces[_piece_id(i, j, grid, layout)]
-        return DistVec(torch.from_numpy(out).to(_vec_device(mesh, device)),
-                       int(n), (pr, pc), layout)
+        k = _piece_id(g.i, g.j, grid, layout)
+        piece = np.zeros((vb,) + x.shape[1:], x.dtype)
+        mine = x[k * vb:(k + 1) * vb]
+        piece[:len(mine)] = mine
+        return DistVec(torch.from_numpy(piece[None, None]).to(
+            _vec_device(mesh, device)), int(n), (pr, pc), layout)
 
     def to_global(self) -> np.ndarray:
+        """The whole vector on the host, the same on every rank."""
         pr, pc = self.grid
-        d = self.data.cpu().numpy()
+        d = comm.gather_grid(self.data[0, 0], self.grid)
         xp = np.empty((pr * pc, self.vb) + d.shape[3:], d.dtype)
         for i in range(pr):
             for j in range(pc):
@@ -279,9 +334,9 @@ class DistSpVec:
     """Fully distributed sparse vector (FullyDistSpVec): piece-local int32
     indices, SENTINEL-padded past each piece's ``nnz``."""
 
-    idx: torch.Tensor   # (pr, pc, cap) int32, piece-local indices
-    val: torch.Tensor   # (pr, pc, cap)
-    nnz: torch.Tensor   # (pr, pc) int32
+    idx: torch.Tensor   # (1, 1, cap) int32, piece-local indices
+    val: torch.Tensor   # (1, 1, cap)
+    nnz: torch.Tensor   # (1, 1) int32
     n: int
     grid: tuple[int, int]
     layout: str = "col"
@@ -309,7 +364,7 @@ class DistSpVec:
         ``cap`` defaults to ``pad`` × the fullest piece, rounded up to 8;
         a piece above ``cap`` raises ``ValueError('piece overflow')``."""
         pr, pc = grid
-        _check_grid(pr, pc)
+        g = _check_grid(pr, pc)
         idx = np.asarray(idx, np.int64)
         val = np.asarray(val)
         vb = _ceil(n, pr * pc)
@@ -321,41 +376,36 @@ class DistSpVec:
                                        * pad / 8) * 8))
         if len(idx) and counts.max() > cap:
             raise ValueError("piece overflow")
-        order = np.lexsort((local, piece))
-        piece, local, val_s = piece[order], local[order], val[order]
-        starts = np.zeros(pr * pc, np.int64)
-        starts[1:] = np.cumsum(counts)[:-1]
-        I = np.full((pr * pc, cap), SENTINEL, np.int32)
-        V = np.zeros((pr * pc, cap), val.dtype)
-        within = np.arange(len(idx)) - starts[piece]
-        I[piece, within] = local
-        V[piece, within] = val_s
-        Ii = np.empty((pr, pc, cap), np.int32)
-        Vv = np.empty((pr, pc, cap), val.dtype)
-        Nz = np.empty((pr, pc), np.int32)
-        for i in range(pr):
-            for j in range(pc):
-                k = _piece_id(i, j, grid, layout)
-                Ii[i, j], Vv[i, j], Nz[i, j] = I[k], V[k], counts[k]
+        k = _piece_id(g.i, g.j, grid, layout)
+        mine = piece == k
+        local, val_s = local[mine], val[mine]
+        order = np.argsort(local, kind="stable")
+        c = len(order)
+        I = np.full((1, 1, cap), SENTINEL, np.int32)
+        V = np.zeros((1, 1, cap), val.dtype)
+        I[0, 0, :c] = local[order]
+        V[0, 0, :c] = val_s[order]
         dev = _vec_device(mesh, device)
-        return DistSpVec(torch.from_numpy(Ii).to(dev),
-                         torch.from_numpy(Vv).to(dev),
-                         torch.from_numpy(Nz).to(dev), int(n), (pr, pc),
-                         layout)
+        return DistSpVec(torch.from_numpy(I).to(dev),
+                         torch.from_numpy(V).to(dev),
+                         torch.tensor([[c]], dtype=torch.int32, device=dev),
+                         int(n), (pr, pc), layout)
 
     def to_global(self):
-        """(global int64 indices, values) of the stored entries below n."""
+        """(global int64 indices, values) of the stored entries below n,
+        the same on every rank; only each piece's nnz prefix is
+        gathered."""
         pr, pc = self.grid
-        I = self.idx.cpu().numpy()
-        V = self.val.cpu().numpy()
-        Nz = self.nnz.cpu().numpy()
+        cnt, (I, V) = comm.gather_prefixes(
+            (self.idx[0, 0], self.val[0, 0]), int(self.nnz.reshape(())),
+            self.grid)
         idxs, vals = [], []
         for i in range(pr):
             for j in range(pc):
                 k = _piece_id(i, j, self.grid, self.layout)
-                c = int(Nz[i, j])
-                idxs.append(I[i, j, :c].astype(np.int64) + k * self.vb)
-                vals.append(V[i, j, :c])
+                c = int(cnt[i * pc + j])
+                idxs.append(I[i * pc + j, :c].astype(np.int64) + k * self.vb)
+                vals.append(V[i * pc + j, :c])
         idx = np.concatenate(idxs)
         val = np.concatenate(vals)
         keep = idx < self.n

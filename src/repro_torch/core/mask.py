@@ -31,7 +31,7 @@ from typing import Callable, Optional
 import torch
 
 from .coo import COO, SENTINEL, _vmask
-from .dist import DistSpMat, DistVec
+from .dist import DistSpMat, DistVec, grid_sum
 from .merge import _unpack, key_dtype, pack_keys
 
 
@@ -198,12 +198,13 @@ def value_mask(val_pred: Callable) -> MaskSpec:
 
 def mask_allowed_count(mask: MaskSpec) -> int | None:
     """Host-side count of mask-admissible output slots (planner input):
-    the admissible rows of a vector mask, padding slots included as JAX
-    counts them; None for pattern masks (``plan_spgemm`` accounts those per
-    tile). Reads one scalar back from the device."""
+    the admissible rows of a vector mask over the whole grid, padding
+    slots included as JAX counts them; None for pattern masks
+    (``plan_spgemm`` accounts those per tile). Reads one scalar back from
+    the device, the same on every rank."""
     if mask.vec is None:
         return None
     member = torch.as_tensor(mask.pred(mask.vec.data))
     if mask.complement:
         member = ~member
-    return int(member.sum())
+    return int(grid_sum(member.to(torch.int64), mask.vec.grid))

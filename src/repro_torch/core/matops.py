@@ -3,23 +3,30 @@
 Tile-local operations on a ``DistSpMat`` and piece-aligned vector ops:
 elementwise tile ops and masking a sparse vector with a dense vector in the
 same layout need no communication — the payoff of CombBLAS's superimposed
-distributions. On the 1x1 grid every collective of the JAX package's
-versions (``all_gather``/``psum_scatter`` along an axis of size 1, the
-transpose ``ppermute``) is the identity.
+distributions. The reductions, the row/column scalings and the transpose
+exchange along the grid's axes as the JAX package's bodies do
+(``core/comm.py``); over axes of size 1 (the 1x1 grid) those collectives
+are the identity.
 """
 from __future__ import annotations
 
 import torch
 
+from . import comm
 from .coo import COO, SENTINEL, _vmask, sentinel_like
-from .dist import DistSpMat, DistSpVec, DistVec, Grid
+from .dist import DistSpMat, DistSpVec, DistVec, Grid, grid_sum
 from .semiring import Monoid
+
+
+def transpose_perm(q: int):
+    """(src, dst) pairs on a row-major q x q grid: (i, j) -> (j, i)."""
+    return [(i * q + j, j * q + i) for i in range(q) for j in range(q)]
 
 
 def mat_apply_local(a: DistSpMat, fn, *, mesh: Grid) -> DistSpMat:
     """Apply ``fn: COO -> COO`` (same capacity) tile-wise; the result
     carries the order tag ``fn`` reports."""
-    del mesh                          # the 1x1 grid's one tile is local
+    del mesh                          # each rank's tile is local
     return DistSpMat.from_tile(fn(a.tile()), a.shape, a.grid)
 
 
@@ -31,53 +38,70 @@ def mat_ewise_local(a: DistSpMat, b: DistSpMat, fn, *, mesh: Grid) \
     return DistSpMat.from_tile(fn(a.tile(), b.tile()), a.shape, a.grid)
 
 
+def reduce_over(local: torch.Tensor, add: Monoid, g, axis):
+    """This member's piece of ``local`` reduced over ``axis``: a
+    ``psum_scatter`` for tagged sums, else an ``all_gather`` and ``add.op``
+    in axis order (the JAX bodies' two forms)."""
+    if add.tag == "sum":
+        return comm.psum_scatter(local, g, axis)
+    red = comm.psum(local, g, axis, add.op)
+    return red.reshape((g.size(axis), -1) + tuple(red.shape[1:]))[
+        g.index(axis)]
+
+
 def mat_reduce(a: DistSpMat, axis: int, add: Monoid, *, mesh: Grid) \
         -> DistVec:
     """Row (axis=1) or column (axis=0) reduction → DistVec, layout 'row'
-    for axis=1 and 'col' for axis=0 (JAX reduces the tile partials with a
-    ``psum_scatter``, or ``all_gather`` + ``add.op``, along 'col' resp.
-    'row': the identity on 1x1)."""
+    for axis=1 (reduced along 'col') and 'col' for axis=0 (along 'row')."""
     del mesh
-    local = a.tile().reduce(axis, add)       # (mb,) or (nb,): the one piece
+    g = comm.of(a.grid)
+    local = a.tile().reduce(axis, add)       # (mb,) or (nb,)
+    piece = reduce_over(local, add, g, "col" if axis == 1 else "row")
     n = a.shape[0] if axis == 1 else a.shape[1]
-    return DistVec(local[None, None], n, a.grid, "row" if axis == 1 else "col")
+    return DistVec(piece[None, None], n, a.grid, "row" if axis == 1 else "col")
 
 
 def mat_scale_cols(a: DistSpMat, v: DistVec, mul=torch.mul, *,
                    mesh: Grid) -> DistSpMat:
-    """A[:, j] *= v[j]. v layout 'col' (JAX all-gathers it along 'row', as
-    SpMV's x: the identity on 1x1)."""
+    """A[:, j] *= v[j]. v layout 'col' (all-gathered along 'row', as
+    SpMV's x)."""
     del mesh
     assert v.layout == "col"
-    t = a.tile().scale_cols(v.data.reshape(-1), mul)
+    xj = comm.all_gather(v.data.reshape(-1), comm.of(a.grid), "row",
+                         tiled=True)
+    t = a.tile().scale_cols(xj, mul)
     return DistSpMat.from_tile(t, a.shape, a.grid)
 
 
 def mat_scale_rows(a: DistSpMat, v: DistVec, mul=torch.mul, *,
                    mesh: Grid) -> DistSpMat:
-    """A[i, :] *= v[i]. v layout 'row' (all-gathered along 'col' in JAX)."""
+    """A[i, :] *= v[i]. v layout 'row' (all-gathered along 'col')."""
     del mesh
     assert v.layout == "row"
-    t = a.tile().scale_rows(v.data.reshape(-1), mul)
+    xi = comm.all_gather(v.data.reshape(-1), comm.of(a.grid), "col",
+                         tiled=True)
+    t = a.tile().scale_rows(xi, mul)
     return DistSpMat.from_tile(t, a.shape, a.grid)
 
 
 def mat_transpose(a: DistSpMat, *, mesh: Grid) -> DistSpMat:
-    """A^T: JAX swaps tiles across the diagonal (a ``ppermute``, the
-    identity on 1x1), then swaps row and col locally; (row, col)-sorted
-    tiles become (col, row)-sorted in the new coordinates."""
+    """A^T on a square grid: tiles swap across the diagonal (one packed
+    ``ppermute``), then row and col swap locally; (row, col)-sorted tiles
+    become (col, row)-sorted in the new coordinates."""
     del mesh
     assert a.pr == a.pc
-    t = a.tile().transpose()
+    t = comm.tile_permute(a.tile(), comm.of(a.grid), comm.WORLD,
+                          transpose_perm(a.pr)).transpose()
     return DistSpMat.from_tile(t, (a.shape[1], a.shape[0]), a.grid)
 
 
 def mat_select_lower(a: DistSpMat, *, mesh: Grid, strict=True) -> DistSpMat:
     """Keep entries with global row > col (strict lower triangle)."""
     del mesh
+    g = comm.of(a.grid)
     t = a.tile()
-    # tile (0, 0): tile-local indices are the global ones
-    grow, gcol = t.row.long(), t.col.long()
+    grow = t.row.long() + g.i * a.mb
+    gcol = t.col.long() + g.j * a.nb
     keep = (grow > gcol) if strict else (grow >= gcol)
     return DistSpMat.from_tile(_prune_mask(t, keep), a.shape, a.grid)
 
@@ -95,12 +119,12 @@ def _prune_mask(t: COO, keep: torch.Tensor) -> COO:
 
 
 def mat_sum(a: DistSpMat) -> torch.Tensor:
-    """Σ stored values (arithmetic)."""
-    return torch.where(a.row != SENTINEL, a.val, 0).sum()
+    """Σ stored values (arithmetic) over the grid, the same on every rank."""
+    return grid_sum(torch.where(a.row != SENTINEL, a.val, 0), a.grid)
 
 
 def mat_nnz(a: DistSpMat) -> torch.Tensor:
-    return a.nnz.sum()
+    return grid_sum(a.nnz, a.grid)
 
 
 # ---------------- piece-aligned vector ops (no communication) -------------
@@ -116,7 +140,7 @@ def vec_apply(u: DistVec, fn) -> DistVec:
 
 def vec_sum(u: DistVec) -> torch.Tensor:
     # padding beyond n is zero by construction in from_global; keep it so
-    return u.data.sum()
+    return grid_sum(u.data, u.grid)
 
 
 def spvec_mask(x: DistSpVec, v: DistVec, keep_fn) -> DistSpVec:
@@ -151,4 +175,4 @@ def vec_scatter_spvec(v: DistVec, x: DistSpVec, fn) -> DistVec:
 
 
 def spvec_nnz(x: DistSpVec) -> torch.Tensor:
-    return x.nnz.sum()
+    return grid_sum(x.nnz, x.grid)

@@ -22,18 +22,24 @@ Apps call ``spgemm`` / ``spmspv`` below with NO capacity arguments; explicit
 caps remain available as overrides. The audits, deadlines and the
 degradation ladder of the JAX package wait for the port's robustness slice:
 where the JAX planner would take a ladder rung, this one raises.
+
+On a grid of several ranks every host read that steers the planner or its
+retry loop is a collective value (the gathered tile nnz, the grid-wide
+``ok`` flags, the grid-wide frontier size), so every rank takes the same
+branch.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Optional
 
 import numpy as np
 
 from ..obs import recorder as _obs
 from .coo import COO
-from .dist import DistSpMat, DistSpVec, Grid
+from .dist import DistSpMat, DistSpVec, Grid, grid_all, grid_sum
 from .local_spgemm import compression_ratio, local_algo, spgemm_flops
 from .semiring import ARITHMETIC, Semiring
 from .spgemm import spgemm_2d as _spgemm_2d
@@ -48,6 +54,13 @@ MEM_BUDGET_ENTRIES = 1 << 22
 # concat-and-sort merge beats the merge tree (DESIGN.md §4.4/§4.6).
 SORT_MERGE_ENTRIES = 1 << 13
 
+# Hybrid-schedule rule of thumb (DESIGN.md §4.6/§4.8, after McFarland et
+# al. arXiv 2504.06408): when the per-stage wire volumes are skewed
+# (coefficient of variation of the stage operand sizes above this), batch
+# the sparsest stages into one exchange (the all-to-all leg) and stream the
+# dense stages as per-stage broadcasts; uniform stages keep the rotation.
+HYBRID_STAGE_SKEW = 0.5
+
 
 def _pow2(x: float, lo: int = 64) -> int:
     """Round up to a power of two (cap quantization)."""
@@ -55,7 +68,8 @@ def _pow2(x: float, lo: int = 64) -> int:
 
 
 def _host_nnz(a: DistSpMat) -> np.ndarray:
-    return a.nnz.cpu().numpy().astype(np.float64)
+    """Every tile's nnz, gathered: the same (pr, pc) array on every rank."""
+    return a.host_nnz().astype(np.float64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,11 +166,11 @@ def plan_spgemm(a: DistSpMat, b: DistSpMat | None = None, *,
     # operands at once — fine on small grids, memory-hostile at scale.
     # Merge strategy (§4.4): tiny product volume -> 'sort'; q·prod_cap
     # beyond the scratch budget -> 'incremental'; 'deferred' where the
-    # engine's cap slack and tree work pay off; else 'sort'. The per-stage
-    # hybrid schedule needs q >= 2, so q = 1 never picks it.
+    # engine's cap slack and tree work pay off; else 'sort'.
     if variant is None and schedule is not None:
         variant = ("rotation" if schedule == "rotate" else
                    "allgather" if schedule == "alltoall" else "hybrid")
+    auto_sched = variant is None and schedule is None
     if variant is None:
         variant = "allgather" if q * (a.cap + b.cap) <= mem_budget \
             else "rotation"
@@ -170,6 +184,19 @@ def plan_spgemm(a: DistSpMat, b: DistSpMat | None = None, *,
             merge = "deferred"
         else:
             merge = "sort"
+    if schedule is None and auto_sched and variant == "rotation" and q >= 2:
+        # per-stage schedule pick (§4.8): stage k moves A(·,k)/B(k,·); when
+        # the stage volumes are skewed, batch the sparsest stages (one
+        # exchange) and broadcast the rest per stage. The gather count is
+        # memory-bounded: each batched stage keeps one more operand pair.
+        sk = na.max(axis=0) + nb_.max(axis=1)
+        cv = float(sk.std() / max(sk.mean(), 1.0))
+        g = int(min(q - 1, mem_budget // max(a.cap + b.cap, 1)))
+        if cv > HYBRID_STAGE_SKEW and g >= 1:
+            sparsest = set(int(k) for k in np.argsort(sk)[:g])
+            schedule = tuple("gather" if k in sparsest else "bcast"
+                             for k in range(q))
+            variant = "hybrid"
     return SpGEMMPlan(p_cap, o_cap, variant, merge, p_ceil, o_ceil,
                       stage_est, out_est, schedule=schedule, overlap=overlap,
                       compress=compress)
@@ -205,7 +232,7 @@ def spgemm(a: DistSpMat, b: DistSpMat | None = None,
                            out_cap=p.out_cap, variant=p.variant,
                            merge=p.merge, mask=mask, schedule=p.schedule,
                            overlap=p.overlap, compress=p.compress)
-        if bool(ok.all()):
+        if grid_all(ok, c.grid):
             if p.attempts > 1:
                 _plan_event("plan.spgemm.done", p)
             return c, p
@@ -220,6 +247,34 @@ def spgemm(a: DistSpMat, b: DistSpMat | None = None,
             f"SpGEMM still overflowing after {p.attempts} attempts "
             f"(prod_cap={p.prod_cap}, out_cap={p.out_cap}) — "
             f"degradation ladder exhausted (degraded={p.degraded})")
+
+
+def demote_stage(plan: SpGEMMPlan, stage: int, q: int) -> SpGEMMPlan:
+    """Re-plan the hybrid schedule away from a persistently slow stage:
+    the stage moves from the per-stage broadcast to the batched 'gather'
+    leg (§4.8). Whole-sweep schedules first expand to ``('bcast',) * q``;
+    the result is a length-``q`` tuple with ``variant='hybrid'``, recorded
+    in ``plan.degraded`` as ``demote-stage:<k>``."""
+    if not 0 <= stage < q:
+        raise ValueError(f"stage {stage} outside [0, q={q})")
+    s = plan.schedule
+    base = tuple(s) if isinstance(s, (tuple, list)) else ("bcast",) * q
+    if len(base) != q:
+        raise ValueError(
+            f"plan schedule has {len(base)} stages, expected q={q}")
+    if base[stage] == "gather":
+        return plan                       # already off the broadcast path
+    warnings.warn(
+        f"robust: demoting exchange stage {stage} to the batched 'gather' "
+        f"leg (persistent straggler; schedule was {s!r})",
+        RuntimeWarning, stacklevel=2)
+    _obs.event("ladder.demote_stage", stage=stage,
+               schedule=s if (s is None or isinstance(s, str)) else "hybrid")
+    _obs.counter_add("ladder.demotions")
+    sched = base[:stage] + ("gather",) + base[stage + 1:]
+    return dataclasses.replace(
+        plan, schedule=sched, variant="hybrid",
+        degraded=tuple(plan.degraded) + (f"demote-stage:{stage}",))
 
 
 def _plan_event(kind: str, p):
@@ -355,7 +410,8 @@ def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring, *, mesh: Grid,
             from .mask import mask_allowed_count
             allowed = mask_allowed_count(mask)
         plan = plan_spmspv(
-            a, int(x.nnz.sum()), safety=safety, prod_cap=prod_cap,
+            a, int(grid_sum(x.nnz, x.grid)), safety=safety,
+            prod_cap=prod_cap,
             out_cap=out_cap, variant=variant, merge=merge,
             add_tag=sr.add.tag, mask_allowed=allowed)
     p = plan
@@ -364,7 +420,7 @@ def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring, *, mesh: Grid,
         y, ok = _spmspv_2d(a, x, sr, mesh=mesh, variant=p.variant,
                            merge=p.merge, prod_cap=p.prod_cap,
                            out_cap=p.out_cap, mask=mask)
-        if bool(ok.all()):
+        if grid_all(ok, y.grid):
             if p.attempts > 1:
                 _plan_event("plan.spmspv.done", p)
             return y, p

@@ -1,17 +1,30 @@
-"""Distributed SpGEMM: 2D SUMMA (paper §3.2), on the 1x1 grid.
+"""Distributed SpGEMM: 2D SUMMA (paper §3.2).
 
 On a q×q grid the 2D algorithm runs q stages, each a local O(flops)
 expansion of one A tile and one B tile, and merges the q stage buffers. The
-exchange schedule only decides how a stage's tiles reach a device:
+exchange schedule decides how a stage's tiles reach a rank
+(``core/comm.py``, one process a grid position):
 
-  - schedule='rotate'   (variant='rotation'): Cannon's systolic rotation;
-  - schedule='alltoall' (variant='allgather'): every stage's operands
-                        gathered in one shot;
-  - schedule='bcast' or a per-stage tuple (variant='hybrid').
+  - schedule='rotate'   (variant='rotation'): Cannon's systolic schedule.
+                        One grid-wide permute skews A and B, then q stages
+                        of neighbour rotation (A left along 'col', B up
+                        along 'row'), each followed by a local expansion.
+  - schedule='alltoall' (variant='allgather'): every rank all-gathers its
+                        process row of A and process column of B in one
+                        shot, then runs the q local multiplies.
+  - schedule='bcast' or a per-stage tuple (variant='hybrid'): SUMMA stage
+                        order k = s with a broadcast per stage from the
+                        stage's owner; a tuple schedule's 'gather' stages
+                        are batched into one exchange up front.
 
-This slice runs q = 1: one stage, whose operands are the local tiles, and
-no exchange at all; the collectives come with the ``torch.distributed``
-slice. What q = 1 keeps is the merge, whose mode the planner picks:
+Overlap (§4.8): with overlap=True every stage loop is double buffered —
+stage s+1's exchange is issued (``async_op``) before stage s's local
+expand, mask filter and merge, and the dead final rotation is dropped.
+overlap=False is bulk-synchronous: each exchange starts after the
+previous stage's work. Both run identical per-stage math, so their results
+are bitwise equal.
+
+The merge, whose mode the planner picks:
 
   merge='deferred'    compact each stage (kv_from_products) and fold the
                       compacted streams pairwise (kv_tree);
@@ -22,13 +35,17 @@ slice. What q = 1 keeps is the merge, whose mode the planner picks:
 
 Under the rotate schedule the three modes run distinct code; under the
 others 'deferred' and 'incremental' share the stage-merge tree
-(``_staged_tail``), as in the JAX package.
+(``_staged_tail``), as in the JAX package. Wire compression
+(``compress=``), the batched and the 3D SpGEMM wait for a later slice.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
 from ..obs import recorder as _obs
+from . import comm
 from .coo import COO
 from .dist import DistSpMat, Grid
 from .local_spgemm import _expand
@@ -65,6 +82,23 @@ def _schedule_from(variant, schedule, q):
     if schedule not in ("rotate", "alltoall", "bcast"):
         raise ValueError(f"unknown schedule {schedule!r}")
     return schedule
+
+
+@lru_cache(maxsize=None)
+def _cannon_perms(q, skew_a=True):
+    """(src, dst) pairs on a row-major q×q grid for the initial skew."""
+    if skew_a:  # A(i, j) -> A(i, (j - i) mod q)
+        return tuple((r * q + c, r * q + (c - r) % q)
+                     for r in range(q) for c in range(q))
+    # B(i, j) -> B((i - j) mod q, j)
+    return tuple((r * q + c, ((r - c) % q) * q + c)
+                 for r in range(q) for c in range(q))
+
+
+@lru_cache(maxsize=None)
+def _shift_perm(axis_len):
+    """One step to the left along an axis: member s sends to s - 1."""
+    return tuple((s, (s - 1) % axis_len) for s in range(axis_len))
 
 
 def _merge_products(rows, cols, vals, nvalid, shape, sr, out_cap,
@@ -107,22 +141,44 @@ def _staged_tail(outs, shape, sr, merge, prod_cap, stage_cap, out_cap,
     return apply_val_pred(c, val_pred, ident), ok & okm
 
 
+def _rotate_sweep(q, overlap, rotate, step, state, at, bt):
+    """Run the q Cannon stages, double-buffered or bulk-synchronous.
+
+    overlap=True issues the next rotation before the current stage's
+    expand and merge, so the exchange runs under the compute; the last
+    stage multiplies its operands without rotating them (the dead final
+    rotation is dropped). overlap=False rotates after each stage's work.
+    Stage order and per-stage math are the same either way, so the results
+    are bitwise equal. ``step(state, at, bt) -> (state, y)``; returns the
+    final state and the list of the stages' ``y``.
+    """
+    ys = []
+    for s in range(q):
+        last = s == q - 1
+        nxt = rotate(at, bt) if overlap and not last else None
+        state, y = step(state, at, bt)
+        ys.append(y)
+        if not last:
+            if nxt is None:
+                nxt = rotate(at, bt)
+            at, bt = nxt[0].wait(), nxt[1].wait()
+    return state, ys
+
+
 def _local_spgemm_2d(a_tile: COO, b_tile: COO, sr, q, prod_cap, out_cap,
-                     schedule, merge, mask: LocalMask | None = None,
-                     val_pred=None):
-    """The per-device body of the 2D algorithm, for q = 1.
+                     schedule, merge, g, overlap=True,
+                     mask: LocalMask | None = None, val_pred=None):
+    """The per-rank body of the 2D algorithm (the JAX package's
+    ``shard_map`` body), ``g`` this rank's ``comm.GridComm``.
 
     The engine paths ('deferred'/'incremental') compact each stage to
     stage_cap = min(prod_cap, out_cap) — sound because a stage's distinct
     count is bounded by the final nnz(C), and checked pre-clamp by the ok
     flags — then rank-merge the compacted streams, decoding rows/cols once.
-    ``mask`` prunes the stage's expanded products against the local mask
+    ``mask`` prunes every stage's expanded products against the local mask
     tile BEFORE any merge stage (§4.7); ``val_pred`` drops merged entries by
     output value in the final compaction.
     """
-    if q != 1:
-        raise NotImplementedError(
-            "q > 1 needs the torch.distributed slice of the port (ROADMAP.md)")
     if merge not in MERGES:
         raise ValueError(f"unknown merge {merge!r}")
     shape = (a_tile.shape[0], b_tile.shape[1])
@@ -131,42 +187,109 @@ def _local_spgemm_2d(a_tile: COO, b_tile: COO, sr, q, prod_cap, out_cap,
     if key_dtype(shape) is None:
         merge = "sort"        # unpackable tile: the engine needs packed keys
 
-    # the one stage multiplies the local tiles: no exchange at q = 1
-    if schedule != "rotate":
-        outs = [_expand(a_tile, b_tile, sr, prod_cap)]
+    if schedule == "alltoall":
+        # gather my process row of A and process column of B (the broadcast
+        # formulation; all stages' operands live at once, so every stage
+        # waits for the one exchange and ``overlap`` has nothing to hide)
+        ar = comm.tile_all_gather(a_tile, g, "col")
+        bc = comm.tile_all_gather(b_tile, g, "row")
+        outs = [_expand(ar[s], bc[s], sr, prod_cap) for s in range(q)]
         return _staged_tail(outs, shape, sr, merge, prod_cap, stage_cap,
                             out_cap, mask, val_pred)
 
-    r, c, v, n, ok = _expand(a_tile, b_tile, sr, prod_cap)
+    if schedule != "rotate":
+        # hybrid SUMMA stage order k = s: a broadcast per stage from its
+        # owner ('bcast'), the tuple schedule's 'gather' stages batched into
+        # one exchange up front
+        sched = schedule if isinstance(schedule, tuple) else ("bcast",) * q
+        gs = [s for s in range(q) if sched[s] == "gather"]
+        eag_a = eag_b = None
+        if gs:
+            eag_a = [comm.as_psum(t, g, "col")
+                     for t in comm.tile_all_gather(a_tile, g, "col")]
+            eag_b = [comm.as_psum(t, g, "row")
+                     for t in comm.tile_all_gather(b_tile, g, "row")]
+
+        def fetch(s):
+            if s in gs:
+                return (comm.Pending(None, lambda: eag_a[s]),
+                        comm.Pending(None, lambda: eag_b[s]))
+            return (comm.tile_broadcast(a_tile, g, "col", s, async_op=True),
+                    comm.tile_broadcast(b_tile, g, "row", s, async_op=True))
+
+        outs = []
+        cur = fetch(0)
+        for s in range(q):
+            ap, bp = cur[0].wait(), cur[1].wait()
+            if overlap and s + 1 < q:
+                cur = fetch(s + 1)      # issued before this stage's expand
+            outs.append(_expand(ap, bp, sr, prod_cap))
+            if not overlap and s + 1 < q:
+                cur = fetch(s + 1)      # after this stage's expansion
+        return _staged_tail(outs, shape, sr, merge, prod_cap, stage_cap,
+                            out_cap, mask, val_pred)
+
+    # rotation (Cannon): skew, then q stages of neighbour rotation
+    a_rot = comm.tile_permute(a_tile, g, comm.WORLD, _cannon_perms(q, True))
+    b_rot = comm.tile_permute(b_tile, g, comm.WORLD, _cannon_perms(q, False))
+    ok0 = torch.ones((), dtype=torch.bool, device=a_tile.device)
+    left = _shift_perm(q)
+
+    def rotate(at, bt):
+        return (comm.tile_permute(at, g, "col", left, async_op=True),
+                comm.tile_permute(bt, g, "row", left, async_op=True))
+
     if merge == "incremental":
-        kacc, vacc, nacc = kv_empty(shape, out_cap, v.dtype, sr.add,
-                                    device=v.device)
-        # mask-filter + compact the stage, then O(n) rank-placement merge
-        # into the sorted kv accumulator — never re-sorted
+        def step(state, at, bt):
+            kacc, vacc, nacc, ok = state
+            r, c, v, n, okx = _expand(at, bt, sr, prod_cap)
+            if kacc is None:
+                kacc, vacc, nacc = kv_empty(shape, out_cap, v.dtype, sr.add,
+                                            device=v.device)
+            # mask-filter + compact the stage, then O(n) rank-placement
+            # merge into the sorted kv accumulator — never re-sorted
+            ks, vs, ns, okc = kv_from_products(
+                r, c, v, torch.clamp(n, max=prod_cap), shape, sr.add,
+                stage_cap, mask=mask)
+            kacc, vacc, nacc, okm = kv_merge2(kacc, vacc, nacc, ks, vs, ns,
+                                              sr.add, out_cap)
+            return (kacc, vacc, nacc, ok & okx & okc & okm), None
+
+        state, _ = _rotate_sweep(q, overlap, rotate, step,
+                                 (None, None, None, ok0), a_rot, b_rot)
+        kacc, vacc, nacc, ok = state
+        c = kv_to_coo(kacc, vacc, nacc, shape, sr.add, out_cap)
+        return apply_val_pred(c, val_pred, ident), ok
+
+    if merge == "sort":
+        # seed path: collect q padded product buffers, concat, sort once
+        def step(ok, at, bt):
+            r, c, v, n, okx = _expand(at, bt, sr, prod_cap)
+            if mask is not None:
+                r, c, v = filter_products(r, c, v, shape, mask, ident)
+            return ok & okx, (r, c, v)
+
+        ok, ys = _rotate_sweep(q, overlap, rotate, step, ok0, a_rot, b_rot)
+        rows = torch.cat([y[0] for y in ys])
+        cols = torch.cat([y[1] for y in ys])
+        vals = torch.cat([y[2] for y in ys])
+        cm, ok2 = _merge_products(rows, cols, vals, rows.shape[0], shape, sr,
+                                  out_cap, val_pred=val_pred)
+        return cm, ok & ok2
+
+    # deferred (merge tree): mask-filter + compact each stage, then fold the
+    # q sorted kv streams pairwise — no concat-and-sort
+    def step(ok, at, bt):
+        r, c, v, n, okx = _expand(at, bt, sr, prod_cap)
         ks, vs, ns, okc = kv_from_products(
             r, c, v, torch.clamp(n, max=prod_cap), shape, sr.add, stage_cap,
             mask=mask)
-        kacc, vacc, nacc, okm = kv_merge2(kacc, vacc, nacc, ks, vs, ns,
-                                          sr.add, out_cap)
-        c = kv_to_coo(kacc, vacc, nacc, shape, sr.add, out_cap)
-        return apply_val_pred(c, val_pred, ident), ok & okc & okm
+        return ok & okx & okc, (ks, vs, ns)
 
-    if merge == "sort":
-        # seed path: the padded product buffer, sorted once
-        if mask is not None:
-            r, c, v = filter_products(r, c, v, shape, mask, ident)
-        cm, ok2 = _merge_products(r, c, v, r.shape[0], shape, sr, out_cap,
-                                  val_pred=val_pred)
-        return cm, ok & ok2
-
-    # deferred (merge tree): mask-filter + compact the stage, then fold the
-    # sorted kv streams pairwise — no concat-and-sort
-    ks, vs, ns, okc = kv_from_products(
-        r, c, v, torch.clamp(n, max=prod_cap), shape, sr.add, stage_cap,
-        mask=mask)
-    k, vv, nn, okm = kv_tree([(ks, vs, ns)], sr.add, out_cap)
+    ok, items = _rotate_sweep(q, overlap, rotate, step, ok0, a_rot, b_rot)
+    k, vv, nn, okm = kv_tree(items, sr.add, out_cap)
     cm = kv_to_coo(k, vv, nn, shape, sr.add, out_cap)
-    return apply_val_pred(cm, val_pred, ident), ok & okc & okm
+    return apply_val_pred(cm, val_pred, ident), ok & okm
 
 
 @_obs.timed("spgemm2d")
@@ -177,22 +300,24 @@ def spgemm_2d(a: DistSpMat, b: DistSpMat, sr: Semiring = ARITHMETIC, *,
               overlap: bool = True, compress: str | None = None):
     """C = A ⊕.⊗ B (optionally C⟨M⟩). Returns (DistSpMat, ok[pr,pc]).
 
-    ``schedule`` overrides the variant-derived exchange schedule. With one
-    stage there is nothing to overlap, so ``overlap`` changes nothing here.
-    ``compress='int8'`` (wire compression) waits for the distributed slice.
+    ``schedule`` overrides the variant-derived exchange schedule: 'rotate',
+    'alltoall', 'bcast', or a length-q tuple of 'bcast'|'gather' (§4.8).
+    ``overlap`` toggles double-buffered (default) vs bulk-synchronous stage
+    loops; results are bitwise equal either way. ``compress='int8'`` (wire
+    compression) waits for a later slice and raises. ``ok`` is this rank's
+    flag, shaped (1, 1).
 
     ``mask.mat`` must be tile-aligned with C (same grid, C's shape): the
-    mask never communicates, and each device prunes its expanded products
+    mask never communicates, and each rank prunes its expanded products
     against its own mask tile before any merge stage (§4.7).
     """
-    del overlap
     if a.grid != b.grid or a.pr != a.pc:
         raise ValueError("2D SpGEMM needs a square grid shared by A and B")
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"inner dimensions differ: {a.shape} @ {b.shape}")
     if compress is not None:
         raise NotImplementedError(
-            "compressed exchange waits for the torch.distributed slice")
+            "compressed exchange (dist/compression.py) is not ported yet")
     q = a.pr
     sched = _schedule_from(variant, schedule, q)
     mm = mask.mat if mask is not None else None
@@ -202,9 +327,11 @@ def spgemm_2d(a: DistSpMat, b: DistSpMat, sr: Semiring = ARITHMETIC, *,
         raise ValueError("mask must be tile-aligned with C")
     lm = mask.local(mm.tile()) if mm is not None else None
     with _obs.span("spgemm2d.execute", q=q, variant=variant, merge=merge,
-                   schedule=sched if isinstance(sched, str) else "hybrid"):
+                   schedule=sched if isinstance(sched, str) else "hybrid",
+                   overlap=overlap):
         c, ok = _local_spgemm_2d(a.tile(), b.tile(), sr, q, prod_cap,
-                                 out_cap, sched, merge, mask=lm,
+                                 out_cap, sched, merge, comm.of(a.grid),
+                                 overlap=overlap, mask=lm,
                                  val_pred=val_pred)
         _obs.sync(c.row.device)
     # every merge path ends in dedup(order='row'), so C keeps the invariant

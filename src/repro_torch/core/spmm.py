@@ -9,16 +9,17 @@ the two dense matrices (X gather + Y reduce-scatter), never the sparse one:
   2. local SpMM (row-sorted products + row-segment reduce)
   3. psum_scatter partial Y along 'col' → Y pieces, layout 'row'
 
-This slice runs the 1x1 grid, where the all-gathers and the reduce-scatter
-over axes of size 1 are the identity: each is written as such, with a
-comment naming the JAX call.
+The gathers and the reduce-scatter are ``core/comm.py``'s; over axes of
+size 1 (the 1x1 grid) they are the identity.
 """
 from __future__ import annotations
 
 import torch
 
+from . import comm
 from .coo import COO
 from .dist import DistSpMat, DistVec, Grid
+from .matops import reduce_over
 from .semiring import ARITHMETIC, Semiring, segment_reduce
 
 
@@ -44,12 +45,13 @@ def spmm_15d(a: DistSpMat, x: DistVec, sr: Semiring = ARITHMETIC, *,
     'row'."""
     del mesh
     assert x.layout == "col"
-    # all_gather of the X pieces along 'row': the identity on 1x1
-    xj = x.data.reshape((-1,) + tuple(x.data.shape[3:]))      # (nb, k)
+    g = comm.of(a.grid)
+    xj = comm.all_gather(x.data.reshape((-1,) + tuple(x.data.shape[3:])),
+                         g, "row", tiled=True)                # (nb, k)
     y_part = local_spmm(a.tile(), xj, sr)                     # (mb, k)
-    # psum_scatter (tagged sums) or all_gather + add.op along 'col': the
-    # identity on 1x1
-    return DistVec(y_part[None, None], a.shape[0], a.grid, "row")
+    # psum_scatter (tagged sums) or all_gather + add.op along 'col'
+    y = reduce_over(y_part, sr.add, g, "col")
+    return DistVec(y[None, None], a.shape[0], a.grid, "row")
 
 
 def spmm_2d(a: DistSpMat, x: torch.Tensor, sr: Semiring = ARITHMETIC, *,
@@ -57,18 +59,20 @@ def spmm_2d(a: DistSpMat, x: torch.Tensor, sr: Semiring = ARITHMETIC, *,
     """True-2D SpMM: X 2D-block distributed (the paper's "true 2D
     distribution ... for other dense matrices").
 
-    X: (nb·pc, k), split P('col', 'row'): device (i, j) owns X's row block
-    j restricted to k-panel i. The panels are all-gathered along 'row' and
-    partial Y is reduce-scattered along 'col'. Output: (mb·pc, k), Y rows
-    in 'row' layout.
+    X: (nb·pc, k), split P('col', 'row'): rank (i, j) holds its shard,
+    X's row block j restricted to k-panel i, ``x`` of shape (nb, k/pr).
+    The panels are all-gathered along 'row' and partial Y is
+    reduce-scattered along 'col'. Returns this rank's shard of Y
+    (mb·pc, k) split P(('row', 'col'), None): rows block i·pc + j, of
+    shape (mb/pc, k).
     """
     del mesh
     pr, pc = a.grid
-    k = x.shape[1]
-    assert k % pr == 0, "k must divide the process-row count"
-    assert x.shape[0] == a.nb * pc, (x.shape, a.nb, pc)
-    # all_gather of the k-panels along 'row' (axis 1): the identity on 1x1
-    y_part = local_spmm(a.tile(), x, sr)                      # (mb, k)
-    # psum_scatter (tagged sums) or all_gather + add.op along 'col': the
-    # identity on 1x1
-    return y_part
+    g = comm.of(a.grid)
+    assert x.shape[0] == a.nb, (x.shape, a.nb)
+    # the k-panels of block j, gathered along 'row' into (nb, k)
+    panels = comm.all_gather(x, g, "row")                     # (pr, nb, k/pr)
+    xj = panels.permute(1, 0, 2).reshape(x.shape[0], -1)
+    y_part = local_spmm(a.tile(), xj, sr)                     # (mb, k)
+    # psum_scatter (tagged sums) or all_gather + add.op along 'col'
+    return reduce_over(y_part, sr.add, g, "col")

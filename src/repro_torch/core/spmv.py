@@ -14,11 +14,8 @@ SpMSpV keeps the frontier sparse end to end (§4.3): sparse pieces gather
 along 'row', the local SpMSpV variant produces a sparse partial, and
 partials merge along 'col' densely or sparsely (bucketed all-to-all).
 
-This slice runs the 1x1 grid (``dist.make_grid``), where every collective
-(``all_gather``/``psum``/``psum_scatter`` along an axis of size 1, the
-transpose ``ppermute``, the 1-way ``all_to_all``) is the identity: each is
-written as such, with a comment naming the JAX call, and every layout tag
-and ``ok`` flag is kept. The exchange audits of the JAX package
+The collectives are ``core/comm.py``'s; over axes of size 1 (the 1x1
+grid) each is the identity. The exchange audits of the JAX package
 (``robust.audit.guard_exchange`` / ``audit_obj``) wait for the port's
 robustness slice.
 """
@@ -27,18 +24,22 @@ from __future__ import annotations
 import torch
 
 from ..obs import recorder as _obs
+from . import comm
 from . import spmv_local as L
 from .coo import COO, SENTINEL, sentinel_like
 from .dist import DistSpMat, DistSpVec, DistVec, Grid
+from .matops import reduce_over, transpose_perm
 from .semiring import ARITHMETIC, Semiring
 
 
 def transpose_layout(v: DistVec, *, mesh: Grid) -> DistVec:
-    """Swap piece (i,j) <-> (j,i): converts layout 'row' <-> 'col' (a
-    ``ppermute`` in JAX, the identity on 1x1)."""
+    """Swap piece (i,j) <-> (j,i): converts layout 'row' <-> 'col' (one
+    ``ppermute`` over the grid)."""
     del mesh
     assert v.grid[0] == v.grid[1], "layout transpose needs a square grid"
-    return DistVec(v.data, v.n, v.grid, "row" if v.layout == "col" else "col")
+    d = comm.ppermute(v.data, comm.of(v.grid), comm.WORLD,
+                      transpose_perm(v.grid[0]))
+    return DistVec(d, v.n, v.grid, "row" if v.layout == "col" else "col")
 
 
 @_obs.timed("spmv")
@@ -47,11 +48,12 @@ def spmv(a: DistSpMat, x: DistVec, sr: Semiring = ARITHMETIC, *,
     """y = A x. x must be layout 'col'; the result is layout 'row'."""
     del mesh
     assert x.layout == "col", "spmv expects a column-layout input vector"
+    g = comm.of(a.grid)
     local_fn = L.spmv_row if variant == "row" else L.spmv_col
-    xj = x.data.reshape(-1)           # all_gather along 'row': identity
-    y = local_fn(a.tile(), xj, sr)    # (mb,)
-    # psum_scatter (tagged sums) or all_gather + add.op along 'col':
-    # the identity on 1x1
+    xj = comm.all_gather(x.data.reshape(-1), g, "row", tiled=True)  # (nb,)
+    y_part = local_fn(a.tile(), xj, sr)                             # (mb,)
+    # psum_scatter (tagged sums) or all_gather + add.op along 'col'
+    y = reduce_over(y_part, sr.add, g, "col")
     return DistVec(y[None, None], a.shape[0], a.grid, "row")
 
 
@@ -89,6 +91,7 @@ def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring = ARITHMETIC, *,
                              "(mask.vector_mask)")
         assert mv.layout == "row" and mv.grid == a.grid \
             and mv.n == a.shape[0], "mask must be piece-aligned with y"
+    g = comm.of(a.grid)
     with _obs.span("spmspv.execute", variant=variant, merge=merge):
         tile = a.tile()
         allow = None
@@ -96,24 +99,39 @@ def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring = ARITHMETIC, *,
             member = torch.as_tensor(mask.pred(mv.data.reshape(-1)))
             if mask.complement:
                 member = ~member
-            allow = member            # all_gather along 'col': identity
-        # the frontier pieces of column block j, localized to the block
-        # (offset i * vb_in with i = 0) and all-gathered along 'row': the
-        # identity, and so is the psum of their counts. JAX then moves the
-        # padding that the gather interleaves to the end; one piece has its
-        # padding at the end already.
-        (yi, yv, yn), ok = local_fn(tile, x.idx.reshape(-1),
-                                    x.val.reshape(-1), x.nnz.reshape(()), sr,
+            # process row i's pieces j = 0..pc-1 are exactly the tile's row
+            # range [i*mb, (i+1)*mb) in j order (layout 'row')
+            allow = comm.all_gather(member, g, "col", tiled=True)  # (mb,)
+        # gather the frontier pieces of column block j, localized to the
+        # block, along 'row', and the psum of their counts
+        xi_l = x.idx.reshape(-1)
+        xv_l = x.val.reshape(-1)
+        xn_l = x.nnz.reshape(())
+        gi, gv, gn = xi_l, xv_l, xn_l
+        if pr > 1:
+            vb_in = a.nb // pr
+            xi_blk = torch.where(xi_l != SENTINEL, xi_l + g.i * vb_in,
+                                 sentinel_like(xi_l))
+            gi = comm.all_gather(xi_blk, g, "row", tiled=True)
+            gv = comm.all_gather(xv_l, g, "row", tiled=True)
+            gn = comm.psum(xn_l, g, "row")
+            # the gather interleaves each piece's padding: move it to the
+            # end (a stable partition), as the local kernels expect
+            order = torch.argsort((gi == SENTINEL).to(torch.uint8),
+                                  stable=True)
+            gi, gv = gi[order], gv[order]
+        (yi, yv, yn), ok = local_fn(tile, gi, gv, gn, sr,
                                     prod_cap=prod_cap, out_cap=out_cap,
                                     allow=allow)
         if merge == "dense" and sr.add.tag == "sum":
-            piece = L.spvec_to_dense(yi, yv, a.mb, zero=0)
-            # psum_scatter along 'col': identity. spvec_from_dense clamps
-            # nnz to out_cap: detect the overflow before re-sparsifying
+            dense = L.spvec_to_dense(yi, yv, a.mb, zero=0)
+            piece = comm.psum_scatter(dense, g, "col")
+            # spvec_from_dense clamps nnz to out_cap: detect the overflow
+            # before re-sparsifying
             ok = ok & ((piece != 0).sum() <= out_cap)
             ri, rv, rn = L.spvec_from_dense(piece, out_cap, zero=0)
         else:
-            ri, rv, rn, ok = _sparse_merge(yi, yv, ok, sr, pc, vb_out,
+            ri, rv, rn, ok = _sparse_merge(yi, yv, ok, sr, g, vb_out,
                                            out_cap)
         _obs.sync(ri.device)
     y = DistSpVec(ri[None, None], rv[None, None], rn.reshape(1, 1),
@@ -121,13 +139,13 @@ def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring = ARITHMETIC, *,
     return y, ok.reshape(1, 1)
 
 
-def _sparse_merge(yi, yv, ok, sr: Semiring, pc: int, vb_out: int,
-                  out_cap: int):
+def _sparse_merge(yi, yv, ok, sr: Semiring, g, vb_out: int, out_cap: int):
     """Bucket the partial entries by destination piece (``out_cap // pc``
-    slots each, at least 8), exchange the buckets (a 1-way ``all_to_all``
-    along 'col': the identity) and merge duplicates from the pc sources.
-    ``ok`` turns false when a bucket or the merged piece overflows."""
+    slots each, at least 8), exchange the buckets (an ``all_to_all`` along
+    'col') and merge duplicates from the pc sources. ``ok`` turns false
+    when a bucket or the merged piece overflows."""
     dev = yi.device
+    pc = g.pc
     dest = torch.where(yi != SENTINEL, yi // vb_out, pc)
     cap_d = max(out_cap // pc, 8)
     d_s, order = torch.sort(dest, stable=True)
@@ -146,11 +164,13 @@ def _sparse_merge(yi, yv, ok, sr: Semiring, pc: int, vb_out: int,
                     device=dev)
     bi[slot] = yi[order]
     bv[slot] = yv[order]
-    bi, bv = bi[:-1], bv[:-1]
-    # localize to my piece (j = 0) and merge duplicates from the sources
+    bi = comm.all_to_all(bi[:-1], g, "col")
+    bv = comm.all_to_all(bv[:-1], g, "col")
+    # localize to my piece and merge duplicates from the pc sources
     valid = bi != SENTINEL
     s = sentinel_like(bi)
-    d = COO(torch.where(valid, bi, s), torch.where(valid, 0, s), bv,
+    d = COO(torch.where(valid, bi - g.j * vb_out, s),
+            torch.where(valid, 0, s), bv,
             valid.sum(dtype=torch.int32), (vb_out, 1), "none").dedup(sr.add)
     ok = ok & (d.nnz <= out_cap)             # pre-clamp nnz
     merged = d.with_cap(out_cap, sr.add.identity)
@@ -158,9 +178,12 @@ def _sparse_merge(yi, yv, ok, sr: Semiring, pc: int, vb_out: int,
 
 
 def transpose_spvec_layout(v: DistSpVec, *, mesh: Grid) -> DistSpVec:
-    """Layout 'row' <-> 'col' of a sparse vector (a ``ppermute`` in JAX,
-    the identity on 1x1)."""
+    """Layout 'row' <-> 'col' of a sparse vector: pieces (i,j) <-> (j,i),
+    the three fields in one ``ppermute``."""
     del mesh
     assert v.grid[0] == v.grid[1]
-    return DistSpVec(v.idx, v.val, v.nnz, v.n, v.grid,
+    idx, val, nnz = comm.permute_fields(
+        (v.idx, v.val, v.nnz), comm.of(v.grid), comm.WORLD,
+        transpose_perm(v.grid[0]))
+    return DistSpVec(idx, val, nnz, v.n, v.grid,
                      "row" if v.layout == "col" else "col")

@@ -181,12 +181,17 @@ class TestLocal:
 
 
 def test_one_by_one_grid_only():
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    """Without an initialized world of 4 ranks (one process a grid
+    position), a 2x2 grid and a matrix on it raise a clear RuntimeError;
+    the 1x1 grid needs no process group."""
+    with pytest.raises(RuntimeError, match="torch.distributed initialized "
+                                           "with 4 ranks"):
         t_make_grid(2, 2, device="cpu")
     r = np.asarray([0, 1], np.int64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="4 ranks"):
         TDist.from_global_coo((4, 4), r, r, np.ones(2, np.float32), (2, 2),
                               device="cpu")
+    assert t_make_grid(1, 1, device="cpu").pr == 1
 
 
 def test_default_device_is_the_gpu():

@@ -160,9 +160,11 @@ def test_distspvec_piece_overflow():
 
 
 def test_vectors_refuse_a_larger_grid():
-    with pytest.raises(NotImplementedError):
+    """Vectors on a grid of several positions need an initialized world
+    of that many ranks: without one they raise a clear RuntimeError."""
+    with pytest.raises(RuntimeError, match="4 ranks"):
         TVec.from_global(np.zeros(8, np.float32), (2, 2), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="2 ranks"):
         TSpVec.from_global(np.arange(3), np.ones(3), 8, (1, 2), device="cpu")
 
 
