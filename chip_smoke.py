@@ -130,7 +130,17 @@ Phases (any failure exits non-zero and prints no result line):
    pinned host memory), the backend printed. 16: phase 3's graph (written
    under build/grid/) on 2x2, the planner's pick and rotate with overlap
    on and off, alltoall and bcast, each giving scipy's and phase 3's
-   triangles; rotate's C bitwise equal with overlap on and off. 17: phase
+   triangles; rotate's C bitwise equal with overlap on and off; (c)
+   ``spgemm_2d_batched`` of the masked product in 4 column batches, their
+   sums adding to the triangles and their entries together bitwise equal
+   to the unbatched C; (d) ``compress='int8'`` on MCL's first expansion
+   P.P (phase 3's graph with unit self-loops, column-normalized, f32; caps
+   from scipy's counts of each rank's stage products and C tile) under
+   rotate with overlap on and off (bitwise equal) and alltoall, and
+   batched with compression: index structure as the uncompressed C's,
+   max abs error > 0 and within the JAX package's bound 2 (vmax/254) vmax
+   (k+1), each run's wire bytes beside the uncompressed run's and the
+   ``dist.compress.bytes_in/out`` counters. 17: phase
    10's graph on 2x2, BFS from its 4 roots (levels bitwise equal to
    scipy's) and PageRank (L1 <= 1e-4 to phase 11's float64 reference).
    18: FastSV (phase 12's labels), maximal matching (consistent,
@@ -149,6 +159,22 @@ Phases (any failure exits non-zero and prints no result line):
    fails unless the held calls are all of its launches. Every host answer
    must be the same on every rank. A rank that fails, does not report within
    ``GRID_TIMEOUT_S`` or exits non-zero fails the script.
+20. the 2x2x2 grid (after 16-19): eight ranks, one process a grid
+   position (l, i, j), spawned the same way (``nccl`` with a card a rank,
+   else ``gloo``). (a) phase 16's L (phase 3's graph permuted as
+   ``random_permute`` permutes it, the strict lower triangle, ones) as
+   'acol' A and 'brow' B, ``structural(L)`` as the 'csub' mask:
+   ``spgemm_3d`` (merge 'deferred') with overlap on and off, caps sized
+   from scipy's counts of each rank's work (``work_3d``) and every ``ok``
+   required; the sum of C3 is phase 3's triangles and C3's global COO is
+   phase 16's C bitwise; (b) phase 4's graph, A.A unmasked under
+   ARITHMETIC with ones, nnz and max as phase 4's and scipy's C bitwise.
+   Each rank prints its warm wall (beside phase 16's 2x2 and phase 3's
+   1x1), peak memory, segreduce launches by route (the overlapped run's
+   calls held against the plain version, one rank at a time),
+   semiring_matmul's (0), the descent flag and its exchanges by axis (one
+   layer's SUMMA on 'row', 'col' and 'plane'; the inter-layer all-to-all
+   and the mask's gather on 'layer').
 
 In phases 12-15 every segreduce call of one run is recorded by shape
 (route, dtype, tag, N, D, S); each shape's first call is run again, held
@@ -161,13 +187,14 @@ caller's broken ``sorted_ids`` promise: ``segreduce.descents()``). The two
 lines before the last are a JSON object with one record per kernel
 (segreduce's adds the atomic route's time, the main-path calls' summed time
 and bound, phases 10-15's launches by route and each rank's launches on
-the 2x2 grid) and the card's name and
+the 2x2 and the 2x2x2 grids) and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. The script
 imports nothing of JAX.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -236,6 +263,9 @@ GRID_Q = 2
 GRID_DIR = ROOT / "build" / "grid"
 GRID_HIPMCL_PROTEINS = 8192
 GRID_TIMEOUT_S = 420           # a phase's limit on every rank
+GRID_NBATCH = 4                # phase 16's column batches
+# phase 20: the 2x2x2 grid (layers, q, q), eight ranks
+GRID3 = (2, 2, 2)
 ONE_BY_ONE: dict = {}
 
 
@@ -2063,43 +2093,56 @@ def _hold_rank_calls(seg, mm, routes) -> dict:
             "smm_calls": mm_calls, "smm_err": mm_err}
 
 
-class _RankRun:
-    """One measured run on one rank: segreduce's counts by route,
-    semiring_matmul's launches, the exchange accounting (``core/comm.py``)
-    and the peak memory start from 0 here, and both kernels' calls are
-    recorded by shape. ``done()`` reads the counts back with the wall, then
-    holds the recorded calls (``_hold_rank_calls``), one rank at a time so
-    that no other rank's work shares the card while a kernel is timed."""
+class _Wall:
+    """A measured run: the wall, the peak memory and the exchange
+    accounting (``core/comm.py``) from 0 here."""
 
     def __init__(self, mesh):
         from repro_torch.core import comm
-        from repro_torch.kernels import semiring_matmul as smm
-        self.grid = (mesh.pr, mesh.pc)
-        self._seg, self._mm = _segreduce_calls(), _smm_calls()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        comm.reset_stats()
+        self.t0 = time.perf_counter()
+
+    def done(self, **rec) -> dict:
+        from repro_torch.core import comm
+        torch.cuda.synchronize()
+        rec.update(wall=time.perf_counter() - self.t0,
+                   peak=torch.cuda.max_memory_allocated(),
+                   comm=copy.deepcopy(comm.stats))
+        return rec
+
+
+class _RankRun(_Wall):
+    """One measured run on one rank (``_Wall``) that also counts
+    segreduce's launches by route and semiring_matmul's from 0 here and
+    records both kernels' calls by shape. ``done()`` reads the counts back
+    with the wall, then holds the recorded calls (``_hold_rank_calls``),
+    one rank at a time so that no other rank's work shares the card while
+    a kernel is timed."""
+
+    def __init__(self, mesh):
+        from repro_torch.kernels import semiring_matmul as smm
+        self.grid = (mesh.pr, mesh.pc) if mesh.layers == 1 else \
+            (mesh.layers, mesh.pr, mesh.pc)
+        self._seg, self._mm = _segreduce_calls(), _smm_calls()
         _routes_zero()
         smm.launches = 0
-        comm.reset_stats()
         self.seg, self.mm = self._seg.__enter__(), self._mm.__enter__()
-        self.t0 = time.perf_counter()
+        super().__init__(mesh)
 
     def done(self, **rec) -> dict:
         from repro_torch.core import comm
         from repro_torch.core.dist import grid_all
         from repro_torch.kernels import segreduce
         from repro_torch.kernels import semiring_matmul as smm
-        torch.cuda.synchronize()
-        rec.update(wall=time.perf_counter() - self.t0,
-                   peak=torch.cuda.max_memory_allocated(),
-                   routes=dict(segreduce.route_launches),
-                   smm=smm.launches,
-                   comm=dict(comm.stats))
+        rec = super().done(**rec)
+        rec.update(routes=dict(segreduce.route_launches), smm=smm.launches)
         self._seg.__exit__(None, None, None)
         self._mm.__exit__(None, None, None)
         g = comm.of(self.grid)
         turn = torch.ones(1, dtype=torch.bool, device="cuda")
-        for rk in range(g.pr * g.pc):
+        for rk in range(g.size(comm.WORLD)):
             if rk == g.rank:
                 rec["held"] = _hold_rank_calls(self.seg, self.mm,
                                                rec["routes"])
@@ -2110,8 +2153,10 @@ class _RankRun:
 
 def _grid_tricount(mesh) -> dict:
     """Phase 16 on a rank: phase 3's graph, the planner's pick, then each
-    schedule (rotate with overlap on and off, alltoall, bcast)."""
+    schedule (rotate with overlap on and off, alltoall, bcast); then (c)
+    the batched product and (d) int8 compression on MCL's expansion."""
     from repro_torch.apps.tricount import triangle_count
+    from repro_torch.core import comm
     from repro_torch.core.dist import DistSpMat
     from repro_torch.core.mask import structural
     from repro_torch.core.matops import (mat_apply_local, mat_select_lower,
@@ -2149,10 +2194,156 @@ def _grid_tricount(mesh) -> dict:
             run.done(count=n, merge=pl.merge, attempts=pl.attempts)
         if sched == "rotate":
             kept[overlap] = (c.row, c.col, c.val, c.nnz)
-    rec["overlap_bitwise"] = all(
+            if overlap:
+                kept["c"] = (c, pl)
+    rec["overlap_bitwise"] = _same_fields(kept[True], kept[False])
+    # (c) the same masked product in 4 column batches of L
+    c_full, pl = kept["c"]
+    rec["batched"] = _grid_batched_tricount(mesh, low, mask, pl, c_full)
+    # C's global COO, for phase 20's 2x2x2 product
+    coo = c_full.to_global_coo()
+    if comm.of(c_full.grid).rank == 0:
+        rec["c_coo"] = coo
+    del c_full, kept
+    # (d) int8 wire compression on MCL's first expansion
+    rec["compress"] = _grid_compressed_mcl(mesh, z)
+    return rec
+
+
+def _same_fields(xs, ys) -> bool:
+    """Tensors bitwise equal, the sign of float zeros included."""
+    return all(
         torch.equal(x, y) and torch.equal(torch.signbit(x), torch.signbit(y))
         if x.is_floating_point() else torch.equal(x, y)
-        for x, y in zip(kept[True], kept[False]))
+        for x, y in zip(xs, ys))
+
+
+def _live_sorted(c):
+    """A DistSpMat tile's live (key, val), sorted by key (row-major)."""
+    t = c.tile()
+    n = int(t.nnz)
+    key = t.row[:n].long() * (t.shape[1] + 1) + t.col[:n].long()
+    order = torch.argsort(key)
+    return key[order], t.val[:n][order]
+
+
+def _grid_batched_tricount(mesh, low, mask, pl, c_full) -> dict:
+    """Phase 16 (c) on a rank: ``spgemm_2d_batched`` of the masked
+    tricount product in GRID_NBATCH column batches, with the planned
+    multiply's caps: each batch's sum, and whether the batches' entries,
+    together, are the unbatched C's bitwise (on this rank's tile)."""
+    from repro_torch.core.dist import grid_all
+    from repro_torch.core.matops import mat_sum
+    from repro_torch.core.semiring import ARITHMETIC
+    from repro_torch.core.spgemm import spgemm_2d_batched
+    kw = dict(mesh=mesh, prod_cap=pl.prod_cap, out_cap=pl.out_cap,
+              nbatch=GRID_NBATCH, mask=mask)
+    spgemm_2d_batched(low, low, ARITHMETIC, **kw)              # warm-up
+    run = _RankRun(mesh)
+    outs = spgemm_2d_batched(low, low, ARITHMETIC, **kw)
+    rec = run.done()
+    rec["sums"] = [int(mat_sum(c)) for c, _ in outs]
+    rec["ok"] = all(grid_all(ok, c.grid) for c, ok in outs)
+    kb, vb = zip(*(_live_sorted(c) for c, _ in outs))
+    key, val = torch.cat(kb), torch.cat(vb)
+    order = torch.argsort(key)
+    kf, vf = _live_sorted(c_full)
+    same = torch.equal(key[order], kf) and torch.equal(val[order], vf)
+    rec["union_bitwise"] = grid_all(torch.tensor(same, device=mesh.device),
+                                    low.grid)
+    return rec
+
+
+def _mcl_expansion_operand(z, mesh):
+    """MCL's first expansion operand from phase 3's graph: A with unit
+    self-loops, column-normalized, f32, on this rank's tile. Returns it
+    with the largest |value|, the largest column count and the caps of
+    P·P, sized from scipy's counts of each rank's stage products and C
+    tile (each rank counts its own; the grid takes the largest)."""
+    from repro_torch.core import comm
+    from repro_torch.core.dist import DistSpMat
+    n = int(z["shape"][0])
+    rows = np.concatenate([z["rows"], np.arange(n)])
+    cols = np.concatenate([z["cols"], np.arange(n)])
+    count = np.bincount(cols, minlength=n)
+    vals = (1.0 / count[cols]).astype(np.float32)
+    p = DistSpMat.from_global_coo((n, n), rows, cols, vals,
+                                  (GRID_Q, GRID_Q), mesh=mesh)
+    g = comm.of(p.grid)
+    sizes = work_3d(rows, cols, n, (1, GRID_Q, GRID_Q), False,
+                    tiles=[(g.i, g.j)])
+    keys = ("stage", "partial", "piece", "tile")
+    mine = torch.tensor([sizes[k] for k in keys], dtype=torch.int64,
+                        device=mesh.device)
+    most = comm.gather_grid(mine, p.grid).reshape(-1, len(keys)).max(axis=0)
+    sizes = {k: int(v) for k, v in zip(keys, most)}
+    return p, float(np.abs(vals).max()), int(count.max()), \
+        caps_from(sizes, 1), sizes
+
+
+def _grid_compressed_mcl(mesh, z) -> dict:
+    """Phase 16 (d) on a rank: P·P uncompressed (rotate, caps from scipy's
+    counts), then ``compress='int8'`` under rotate with overlap on and off
+    and under alltoall, and batched with compression: each run's wire
+    bytes and its error against the uncompressed C on this rank's tile.
+    The uncompressed run and the overlapped int8 rotate record and hold
+    their kernel calls (``_RankRun``); the others are timed only."""
+    from repro_torch.core.dist import grid_all
+    from repro_torch.core.semiring import ARITHMETIC
+    from repro_torch.core.spgemm import (_restrict_cols, spgemm_2d,
+                                         spgemm_2d_batched)
+    from repro_torch.obs import recorder
+    p, vmax, kmax, (prod_cap, out_cap), sizes = \
+        _mcl_expansion_operand(z, mesh)
+    caps = dict(mesh=mesh, prod_cap=prod_cap, out_cap=out_cap)
+    rec = {"caps": (prod_cap, out_cap, sizes), "vmax": vmax, "k": kmax,
+           "nnz_p": int(p.host_nnz().sum())}
+    spgemm_2d(p, p, ARITHMETIC, schedule="rotate", **caps)     # cold
+    run = _RankRun(mesh)
+    exact, ok = spgemm_2d(p, p, ARITHMETIC, schedule="rotate", **caps)
+    rec["exact"] = run.done(ok=grid_all(ok, p.grid),
+                            nnz_c=int(exact.host_nnz().sum()))
+    ex = exact.tile()
+
+    def err_to(c, ref):
+        """Max |C - ref| over this rank's tile, -1 if the index structure
+        differs."""
+        t = c.tile()
+        if not (torch.equal(t.row, ref.row) and torch.equal(t.col, ref.col)
+                and torch.equal(t.nnz, ref.nnz)):
+            return -1.0
+        return float((t.val - ref.val).abs().max())
+
+    kept = {}
+    for name, sched, overlap, meter in (
+            ("rotate/overlap", "rotate", True, _RankRun),
+            ("rotate/bulk", "rotate", False, _Wall),
+            ("alltoall", "alltoall", True, _Wall)):
+        kw = dict(caps, schedule=sched, overlap=overlap, compress="int8")
+        run = meter(mesh)
+        c, ok = spgemm_2d(p, p, ARITHMETIC, **kw)
+        rec[name] = run.done(ok=grid_all(ok, p.grid), err=err_to(c, ex))
+        if sched == "rotate":
+            kept[overlap] = (c.row, c.col, c.val, c.nnz)
+        del c
+    rec["overlap_bitwise"] = _same_fields(kept[True], kept[False])
+    del kept
+    with recorder.capture() as r:
+        spgemm_2d(p, p, ARITHMETIC, schedule="rotate", compress="int8",
+                  **caps)
+        counters = r.snapshot()["counters"]
+    rec["counters"] = {k: counters.get(k, 0) for k in
+                       ("dist.compress.bytes_in", "dist.compress.bytes_out")}
+    # batched with compression: A's residual carried batch to batch
+    run = _Wall(mesh)
+    outs = spgemm_2d_batched(p, p, ARITHMETIC, nbatch=GRID_NBATCH,
+                             compress="int8", **caps)
+    rec["batched"] = run.done(
+        ok=all(grid_all(ok, p.grid) for _, ok in outs))
+    slab = -(-p.nb // GRID_NBATCH)
+    rec["batched"]["errs"] = [
+        err_to(c, _restrict_cols(exact, t * slab, slab).tile())
+        for t, (c, _) in enumerate(outs)]
     return rec
 
 
@@ -2362,6 +2553,85 @@ def _check_tricount_grid(recs) -> None:
     if not all(_per_rank(recs, "overlap_bitwise")):
         raise AssertionError("rotate with overlap on and off: C differs")
     log("  rotate with overlap on and off: C bitwise equal on every rank")
+    _check_batched_grid(_per_rank(recs, "batched"))
+    _check_compressed_grid(_per_rank(recs, "compress"))
+    ONE_BY_ONE["grid_c"] = r0["c_coo"]
+    ONE_BY_ONE["grid_wall"] = max(_per_rank(recs, "wall"))
+    ONE_BY_ONE["grid_rotate_wall"] = max(
+        r["schedules"]["rotate/overlap"]["wall"] for r in recs)
+
+
+def _check_batched_grid(recs) -> None:
+    sums = {tuple(r["sums"]) for r in recs}
+    if len(sums) != 1 or sum(recs[0]["sums"]) != EXPECTED_TRIANGLES:
+        raise AssertionError(f"2x2 batched tricount: batch sums {sums}")
+    if not all(r["ok"] and r["union_bitwise"] for r in recs):
+        raise AssertionError("2x2 batched tricount: a batch overflowed, or "
+                             "the batches' entries are not C's")
+    log(f"  (c) spgemm_2d_batched, {GRID_NBATCH} column batches of the "
+        f"masked product: batch sums {recs[0]['sums']}, total "
+        f"{sum(recs[0]['sums'])} (scipy's); the batches' entries together "
+        f"bitwise equal to the unbatched C on every rank; wall "
+        f"{max(_per_rank(recs, 'wall')) * 1e3:.1f} ms")
+    _rank_lines("batched tricount", recs)
+
+
+def _check_compressed_grid(recs) -> None:
+    r0 = recs[0]
+    bound = 2 * (r0["vmax"] / 254) * r0["vmax"] * (r0["k"] + 1)
+    ex = _per_rank(recs, "exact")
+    if not all(x["ok"] for x in ex):
+        raise AssertionError("2x2 P.P: the uncompressed product overflowed")
+    log(f"  (d) int8 wire compression on MCL's first expansion P.P (phase "
+        f"3's graph with unit self-loops, column-normalized, f32; nnz(P) "
+        f"{r0['nnz_p']}, nnz(C) {ex[0]['nnz_c']}; caps (prod, out, scipy's "
+        f"sizes) {r0['caps']}); error bound 2 (vmax/254) vmax (k+1) = "
+        f"{bound:.4g} (vmax {r0['vmax']:.4g}, k {r0['k']}); uncompressed "
+        f"rotate wall {max(_per_rank(ex, 'wall')) * 1e3:.1f} ms, wire "
+        f"{_wire_mb(ex)}")
+    _rank_lines("P.P uncompressed", ex)
+    for name in ("rotate/overlap", "rotate/bulk", "alltoall"):
+        rs = _per_rank(recs, name)
+        err = max(x["err"] for x in rs)
+        if min(x["err"] for x in rs) < 0 or not all(x["ok"] for x in rs):
+            raise AssertionError(f"2x2 P.P int8 {name}: an index structure "
+                                 f"differs from the uncompressed C, or a "
+                                 f"flag is down")
+        if not 0 < err <= bound:
+            raise AssertionError(f"2x2 P.P int8 {name}: max abs err {err} "
+                                 f"outside (0, {bound}]")
+        log(f"    compress='int8' {name}: max abs err {err:.4g} (> 0, "
+            f"within the bound); wall {max(_per_rank(rs, 'wall')) * 1e3:.1f} "
+            f"ms; wire {_wire_mb(rs)}; peak "
+            f"{max(_per_rank(rs, 'peak')) / 2**30:.3f} GiB")
+        if "held" in rs[0]:
+            _rank_lines(f"P.P int8 {name}", rs)
+    if not all(_per_rank(recs, "overlap_bitwise")):
+        raise AssertionError("2x2 P.P int8 rotate: overlap on and off "
+                             "differ")
+    log("    int8 rotate with overlap on and off: C bitwise equal on every "
+        "rank")
+    cts = _per_rank(recs, "counters")
+    log(f"    dist.compress.bytes_in / bytes_out by rank (A's and B's "
+        f"value payloads): "
+        f"{[(c['dist.compress.bytes_in'], c['dist.compress.bytes_out']) for c in cts]}")
+    bt = _per_rank(recs, "batched")
+    errs = [e for x in bt for e in x["errs"]]
+    if min(errs) < 0 or not 0 < max(errs) <= bound \
+            or not all(x["ok"] for x in bt):
+        raise AssertionError(f"2x2 P.P int8 batched: errors {errs} outside "
+                             f"(0, {bound}] or a flag down")
+    log(f"    batched ({GRID_NBATCH}) with compression and error feedback: "
+        f"max abs err by batch "
+        f"{[max(x['errs'][t] for x in bt) for t in range(GRID_NBATCH)]} "
+        f"(each within the bound); wall "
+        f"{max(_per_rank(bt, 'wall')) * 1e3:.1f} ms; wire {_wire_mb(bt)}")
+
+
+def _wire_mb(recs) -> str:
+    """Each rank's bytes put on the wire, in MB."""
+    return "[" + ", ".join(f"{r['comm']['bytes'] / 1e6:.3f}"
+                           for r in recs) + "] MB by rank"
 
 
 def _check_bfs_pagerank_grid(recs) -> None:
@@ -2458,7 +2728,6 @@ def grid_phases() -> tuple[list, dict]:
     """Phases 16-19: four ranks on a 2x2 grid. Returns each rank's
     segreduce launches by route over the four phases' measured runs, and
     the max abs err of each kernel's held calls."""
-    import queue
     import scipy.sparse as sp
     import torch.multiprocessing as mp
     from repro_torch.apps import hipmcl
@@ -2498,12 +2767,21 @@ def grid_phases() -> tuple[list, dict]:
     procs = [ctx.Process(target=grid_rank, daemon=True,
                          args=(rk, port, backend, ONE_BY_ONE["bfs"]["roots"],
                                path, out)) for rk in range(world)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
     checks = {16: _check_tricount_grid, 17: _check_bfs_pagerank_grid,
               18: _check_fastsv_matching_spmm_grid,
               19: lambda recs: _check_hipmcl_grid(recs, ref, family_of, one)}
+    return _run_ranks(procs, out, checks, world, "phases 16-19")
+
+
+def _run_ranks(procs, out, checks, world, what) -> tuple[list, dict]:
+    """Start the ranks, take each phase's records from ``out`` (every rank
+    within GRID_TIMEOUT_S), check them in phase order and stop the ranks.
+    Returns each rank's segreduce launches by route over the measured runs
+    and the max abs err of each kernel's held calls."""
+    import queue
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
     got: dict = {ph: {} for ph in checks}
     launches = [{"sorted": 0, "atomic": 0} for _ in range(world)]
     errs = {"segreduce": 0.0, "semiring_matmul": 0.0}
@@ -2538,12 +2816,287 @@ def grid_phases() -> tuple[list, dict]:
                 p.join()
     bad = [p.exitcode for p in procs if p.exitcode != 0]
     if bad:
-        raise AssertionError(f"phases 16-19: ranks exited with {bad}")
-    log(f"phases 16-19: {time.perf_counter() - t0:.1f} s with the ranks' "
+        raise AssertionError(f"{what}: ranks exited with {bad}")
+    log(f"{what}: {time.perf_counter() - t0:.1f} s with the ranks' "
         f"start-up; segreduce launches of the measured runs by rank "
         f"{launches}, every one held against the plain version (max abs "
         f"err {errs})")
     return launches, errs
+
+
+# --------------------------------------------------------------------------
+# phase 20: the 2x2x2 grid (3D communication-avoiding SpGEMM), eight ranks
+# --------------------------------------------------------------------------
+
+def _pad_to(n, mult):
+    return -(-n // mult) * mult
+
+
+def work_3d(rows, cols, n, grid, masked, tiles=None) -> dict:
+    """Host-side (scipy) sizes of the work of the ranks at ``tiles`` ((i, j)
+    positions, every layer; all by default) in ``spgemm_3d`` of the n x n
+    0/1 matrix (rows, cols) by itself on ``grid`` (L, q, q), masked by its
+    own pattern or not: the largest stage's products, the largest (masked)
+    partial C of a layer's tile, its largest piece for one layer, and the
+    largest C3 tile. On one layer, (1, q, q), these are ``spgemm_2d``'s:
+    stage products and C tiles."""
+    import scipy.sparse as sp
+    L, q, _ = grid
+    pad = _pad_to(n, L * q * q)
+    a = sp.csr_matrix((np.ones(len(rows), np.int64), (rows, cols)),
+                      shape=(pad, pad))
+    tr = pad // q            # A's and C's tile rows, B's tile columns
+    sl = pad // L            # one layer's contraction slab
+    tk = sl // q             # one stage's contraction block
+    kbl = tr // L            # C3's column sub-block
+    sizes = dict(stage=0, partial=0, piece=0, tile=0)
+    for i, j in tiles or [(i, j) for i in range(q) for j in range(q)]:
+        arows = a[i * tr:(i + 1) * tr]
+        colcnt = np.asarray(arows.getnnz(axis=0), np.int64)
+        bcols = a[:, j * tr:(j + 1) * tr].tocsr()
+        rowcnt = np.asarray(bcols.getnnz(axis=1), np.int64)
+        m = a[i * tr:(i + 1) * tr, j * tr:(j + 1) * tr]
+        total = None
+        for l in range(L):
+            for k in range(q):
+                lo = l * sl + k * tk
+                sizes["stage"] = max(sizes["stage"], int(
+                    colcnt[lo:lo + tk] @ rowcnt[lo:lo + tk]))
+            part = (arows[:, l * sl:(l + 1) * sl]
+                    @ bcols[l * sl:(l + 1) * sl]).tocsr()
+            if masked:
+                part = part.multiply(m).tocsr()
+            sizes["partial"] = max(sizes["partial"], part.nnz)
+            if part.nnz:
+                sizes["piece"] = max(sizes["piece"], int(np.bincount(
+                    part.tocoo().col // kbl, minlength=L).max()))
+            total = part if total is None else total + part
+        total = total.tocsc()
+        for l in range(L):
+            sizes["tile"] = max(sizes["tile"],
+                                total[:, l * kbl:(l + 1) * kbl].nnz)
+    return sizes
+
+
+def caps_from(sizes, L) -> tuple[int, int]:
+    """(prod_cap, out_cap) that hold ``work_3d``'s sizes: prod_cap each
+    stage, each partial C and L times each piece (every piece fits cap_l =
+    prod_cap // L), out_cap each C3 tile."""
+    prod_cap = _pad_to(max(sizes["stage"], sizes["partial"],
+                           L * sizes["piece"], 1), 8 * L)
+    return prod_cap, _pad_to(max(sizes["tile"], 1), 8)
+
+
+def caps_3d(rows, cols, n, grid, masked) -> tuple[int, int, dict]:
+    """``caps_from(work_3d(...))`` over every rank, with the sizes."""
+    sizes = work_3d(rows, cols, n, grid, masked)
+    return caps_from(sizes, grid[0]) + (sizes,)
+
+
+def _grid3_lower():
+    """Phase 3's graph permuted as ``from_global_coo(random_permute=True,
+    seed=0)`` permutes it, its strict lower triangle L with unit values:
+    phase 16's operand in global coordinates."""
+    z = np.load(GRID_DIR / "rmat15.npz")
+    n = int(z["shape"][0])
+    rp = np.random.default_rng(0).permutation(n).astype(np.int64)
+    r, c = rp[z["rows"]], rp[z["cols"]]
+    low = r > c
+    return n, r[low], c[low]
+
+
+def _grid3_dense_graph():
+    """Phase 4's graph (R-MAT scale 11, edge factor 64), unit values."""
+    from repro_torch.io.rmat import rmat_coo
+    shape, rows, cols, _ = rmat_coo(DENSE_SCALE, DENSE_EDGE_FACTOR,
+                                    seed=RMAT_SEED, symmetrize=True,
+                                    drop_self_loops=True)
+    return shape[0], rows, cols
+
+
+def _grid3_product(mesh, n, rows, cols, caps, masked, rank) -> dict:
+    """One phase-20 product on a rank: A = (rows, cols) as 'acol', B as
+    'brow' (and the mask as 'csub'), ``spgemm_3d`` cold, then measured
+    with overlap on (its kernel calls recorded and held, ``_RankRun``) and
+    off (timed); merge 'deferred'. C3's global COO on rank 0."""
+    from repro_torch.core.dist import DistSpMat3D, grid_all
+    from repro_torch.core.mask import structural
+    from repro_torch.core.semiring import ARITHMETIC
+    from repro_torch.core.spgemm import spgemm_3d
+    grid = (mesh.layers, mesh.pr, mesh.pc)
+    ones = np.ones(len(rows), np.float32)
+    t0 = time.perf_counter()
+    a3, b3 = (DistSpMat3D.from_global_coo((n, n), rows, cols, ones, grid, d,
+                                          mesh=mesh)
+              for d in ("acol", "brow"))
+    mask = None
+    if masked:
+        mask = structural(DistSpMat3D.from_global_coo(
+            (n, n), rows, cols, ones, grid, "csub", mesh=mesh))
+    torch.cuda.synchronize()
+    rec = {"t_asm": time.perf_counter() - t0}
+    kw = dict(mesh=mesh, prod_cap=caps[0], out_cap=caps[1], mask=mask,
+              merge="deferred")
+    spgemm_3d(a3, b3, ARITHMETIC, **kw)                        # cold
+    kept = {}
+    for overlap in (True, False):
+        run = (_RankRun if overlap else _Wall)(mesh)
+        c3, ok = spgemm_3d(a3, b3, ARITHMETIC, overlap=overlap, **kw)
+        rec["overlap" if overlap else "bulk"] = run.done(
+            ok=grid_all(ok, grid))
+        kept[overlap] = c3
+    rec["overlap_bitwise"] = _same_fields(
+        *((c.row, c.col, c.val, c.nnz) for c in (kept[True], kept[False])))
+    c3 = kept[True]
+    rec["nnz"] = int(c3.host_nnz().sum())
+    r, c, v = c3.to_global_coo()
+    if rank == 0:
+        order = np.lexsort((c, r))
+        rec["coo"] = (r[order], c[order], v[order])
+    return rec
+
+
+def grid3_rank(rank, port, backend, caps, out) -> None:
+    """One rank of phase 20: joins a world of eight, makes the 2x2x2 grid
+    (its device ``cuda:(rank % device_count)``) and puts each product's
+    record on ``out``; a failure puts its traceback there instead."""
+    import traceback
+    from repro_torch.core import comm
+    from repro_torch.core.dist import make_grid
+    try:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        L, q, _ = GRID3
+        comm.init_world(rank, L * q * q, port, backend)
+        mesh = make_grid(q, q, L)
+        n, r, c = _grid3_lower()
+        out.put((rank, "20a", _grid3_product(mesh, n, r, c,
+                                             caps["tricount"], True, rank)))
+        n, r, c = _grid3_dense_graph()
+        out.put((rank, "20b", _grid3_product(mesh, n, r, c, caps["dense"],
+                                             False, rank)))
+        comm.close_world()
+    except BaseException:                                  # noqa: BLE001
+        out.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _axis_lines(what, recs) -> None:
+    """Each rank's exchanges by axis: one layer's SUMMA ('row', 'col',
+    'plane') apart from the inter-layer exchanges ('layer')."""
+    for rk, r in enumerate(recs):
+        parts = []
+        for ax in ("row", "col", "plane", "layer", "world"):
+            a = r["comm"]["axes"].get(ax)
+            if a:
+                parts.append(f"{ax} {a['calls']} calls, "
+                             f"{a['bytes'] / 1e6:.3f} MB, "
+                             f"{a['seconds'] * 1e3:.1f} ms")
+        log(f"    {what}, rank {rk} exchanges by axis: " + "; ".join(parts))
+
+
+def _check_grid3(recs, name, caps, walls) -> None:
+    """Checks shared by phase 20's two products: every flag up, overlap on
+    and off bitwise equal; prints the walls and each rank's lines."""
+    for key in ("overlap", "bulk"):
+        if not all(r[key]["ok"] for r in recs):
+            raise AssertionError(f"2x2x2 {name} ({key}): a rank's ok flag is "
+                                 f"down with the host-sized caps {caps}")
+    if not all(_per_rank(recs, "overlap_bitwise")):
+        raise AssertionError(f"2x2x2 {name}: overlap on and off differ")
+    on, off = _per_rank(recs, "overlap"), _per_rank(recs, "bulk")
+    if any(r["smm"] for r in on):
+        raise AssertionError(f"2x2x2 {name}: semiring_matmul launched "
+                             f"{[r['smm'] for r in on]}")
+    log(f"  {name}: caps from scipy's counts of each rank's work "
+        f"(prod_cap, out_cap, sizes) {caps}; every ok flag up; overlap on "
+        f"and off bitwise equal on every rank; warm wall "
+        f"{max(_per_rank(on, 'wall')) * 1e3:.1f} ms overlapped, "
+        f"{max(_per_rank(off, 'wall')) * 1e3:.1f} ms bulk (the slowest "
+        f"rank){walls}; assembly {max(_per_rank(recs, 't_asm')):.2f} s")
+    _rank_lines(f"{name}, overlap", on)
+    _axis_lines(f"{name}, overlap", on)
+    _axis_lines(f"{name}, bulk", off)
+
+
+def _check_grid3_tricount(recs, caps) -> None:
+    r, c, v = recs[0]["coo"]
+    count = int(v.astype(np.float64).sum())
+    want = ONE_BY_ONE["grid_c"]
+    wo = np.lexsort((want[1], want[0]))
+    same = (np.array_equal(r, want[0][wo]) and np.array_equal(c, want[1][wo])
+            and np.array_equal(v.view(np.uint32),
+                               want[2][wo].astype(np.float32).view(np.uint32)))
+    if count != EXPECTED_TRIANGLES or not same:
+        raise AssertionError(f"2x2x2 tricount: {count} triangles, C3 "
+                             f"{'equal to' if same else 'differs from'} "
+                             f"phase 16's C")
+    log(f"phase 20, masked tricount product on 2x2x2 (spgemm_3d, merge "
+        f"deferred, mask structural(L) as 'csub'): sum of C3 {count} "
+        f"(scipy's), nnz(C3) {recs[0]['nnz']}, C3's global COO bitwise "
+        f"equal to phase 16's 2x2 masked C")
+    one = ONE_BY_ONE["tricount"][1]
+    walls = (f"; beside phase 16's 2x2 {ONE_BY_ONE['grid_wall'] * 1e3:.1f}"
+             f" ms (the planned tricount) and rotate "
+             f"{ONE_BY_ONE['grid_rotate_wall'] * 1e3:.1f} ms, and phase 3's "
+             f"1x1 {one * 1e3:.1f} ms; eight processes share one card, so "
+             f"this is no scaling result")
+    _check_grid3(recs, "tricount product", caps, walls)
+
+
+def _check_grid3_dense(recs, caps) -> None:
+    import scipy.sparse as sp
+    r, c, v = recs[0]["coo"]
+    n, rows, cols = _grid3_dense_graph()
+    a = sp.csr_matrix((np.ones(len(rows), np.float32), (rows, cols)),
+                      shape=(n, n))
+    ref = (a @ a).tocoo()
+    order = np.lexsort((ref.col, ref.row))
+    same = (np.array_equal(r, ref.row[order].astype(np.int64))
+            and np.array_equal(c, ref.col[order].astype(np.int64))
+            and np.array_equal(v, ref.data[order].astype(np.float32)))
+    got = (len(r), int(v.max()))
+    want = (EXPECTED_DENSE["nnz_c"], EXPECTED_DENSE["max_c"])
+    if got != want or not same or recs[0]["nnz"] != want[0]:
+        raise AssertionError(f"2x2x2 A.A of phase 4's graph: (nnz, max) "
+                             f"{got}, expected {want}; equal to scipy: "
+                             f"{same}")
+    log(f"phase 20 (b), phase 4's graph A.A unmasked on 2x2x2 (ARITHMETIC, "
+        f"ones): nnz {got[0]}, max {got[1]}, bitwise equal to scipy's")
+    _check_grid3(recs, "A.A", caps, "")
+
+
+def grid3_phase() -> tuple[list, dict]:
+    """Phase 20: eight ranks on a 2x2x2 grid. Returns each rank's
+    segreduce launches by route over the measured runs, and the max abs
+    err of each kernel's held calls."""
+    import torch.multiprocessing as mp
+    L, q, _ = GRID3
+    world = L * q * q
+    t0 = time.perf_counter()
+    n, r, c = _grid3_lower()
+    caps = {"tricount": caps_3d(r, c, n, GRID3, True)}
+    n, r, c = _grid3_dense_graph()
+    caps["dense"] = caps_3d(r, c, n, GRID3, False)
+    log(f"phase 20 caps from scipy's counts ({time.perf_counter() - t0:.2f}"
+        f" s): {caps}")
+    torch.cuda.empty_cache()
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    log(f"phase 20: {world} ranks on {torch.cuda.device_count()} card(s), "
+        f"backend {backend}"
+        + ("" if backend == "nccl" else " (NCCL refuses two ranks on one "
+           "card: exchanges are staged through pinned host memory)")
+        + "; eight processes share one card, so no wall here is a scaling "
+        "result")
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=grid3_rank, daemon=True,
+                         args=(rk, port, backend, caps, out))
+             for rk in range(world)]
+    checks = {"20a": lambda recs: _check_grid3_tricount(recs,
+                                                       caps["tricount"]),
+              "20b": lambda recs: _check_grid3_dense(recs, caps["dense"])}
+    return _run_ranks(procs, out, checks, world, "phase 20")
 
 
 def _runs(rec):
@@ -3435,8 +3988,10 @@ def main() -> int:
     ssd_record["launches"] = serve_mamba()
     mamba_vs_plain_e2e()
     seg_record["grid_2x2_launches_by_route"], errs = grid_phases()
+    seg_record["grid_2x2x2_launches_by_route"], errs3 = grid3_phase()
     for rec in (seg_record, smm_record):
-        rec["max_abs_err"] = max(rec["max_abs_err"], errs[rec["name"]])
+        rec["max_abs_err"] = max(rec["max_abs_err"], errs[rec["name"]],
+                                 errs3[rec["name"]])
     log(json.dumps({"kernels": [seg_record, smm_record, fa_record,
                                 bsr_record, ssd_record]}))
     log(smi)

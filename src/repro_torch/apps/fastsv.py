@@ -39,12 +39,12 @@ def fastsv(a: DistSpMat, *, mesh: Grid, max_iters: int = 64,
     """Connected-component labels (int64) of the *symmetric* graph ``a``.
 
     ``checkpoint_dir``, ``elastic`` and ``watchdog`` are not ported yet
-    (ROADMAP.md queue 1 items 6-7) and raise.
+    (ROADMAP.md queue 1, "checkpoints and elastic state") and raise.
     """
     if elastic:
         raise NotImplementedError(
             "fastsv(elastic=True): elastic recovery is not ported yet "
-            "(ROADMAP.md queue 1 items 6-7)")
+            "(ROADMAP.md queue 1, 'checkpoints and elastic state')")
     del checkpoint_every              # a checkpoint cadence: no checkpoints
     loop = CheckpointedLoop(checkpoint_dir, watchdog=watchdog, name="fastsv")
     n = a.shape[0]

@@ -48,13 +48,13 @@ def hipmcl(a: DistSpMat, *, mesh: Grid, inflation: float = 2.0,
     iterate's tile nnz and grown on overflow; the caps in the signature
     are optional overrides only. Callers should include self-loops in
     ``a`` (MCL standard practice). ``checkpoint_dir``, ``elastic`` and
-    ``watchdog`` are not ported yet (ROADMAP.md queue 1 items 6-7) and
-    raise.
+    ``watchdog`` are not ported yet (ROADMAP.md queue 1, "checkpoints and
+    elastic state") and raise.
     """
     if elastic:
         raise NotImplementedError(
             "hipmcl(elastic=True): elastic recovery is not ported yet "
-            "(ROADMAP.md queue 1 items 6-7)")
+            "(ROADMAP.md queue 1, 'checkpoints and elastic state')")
     del checkpoint_every              # a checkpoint cadence: no checkpoints
     loop = CheckpointedLoop(checkpoint_dir, watchdog=watchdog, name="hipmcl")
     n = a.shape[0]

@@ -30,12 +30,13 @@ def pagerank(a: DistSpMat, *, mesh: Grid, alpha: float = 0.85,
 
     (Build A from an edge list as A[dst, src] = 1, or pass mat_transpose of
     the usual adjacency.) ``checkpoint_dir``, ``elastic`` and ``watchdog``
-    are not ported yet (ROADMAP.md queue 1 items 6-7) and raise.
+    are not ported yet (ROADMAP.md queue 1, "checkpoints and elastic
+    state") and raise.
     """
     if elastic:
         raise NotImplementedError(
             "pagerank(elastic=True): elastic recovery is not ported yet "
-            "(ROADMAP.md queue 1 items 6-7)")
+            "(ROADMAP.md queue 1, 'checkpoints and elastic state')")
     del checkpoint_every              # a checkpoint cadence: no checkpoints
     loop = CheckpointedLoop(checkpoint_dir, watchdog=watchdog,
                             name="pagerank")

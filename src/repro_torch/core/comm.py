@@ -5,14 +5,18 @@ package's bodies call under ``shard_map`` (``jax.lax.all_gather``,
 ``psum``, ``psum_scatter``, ``all_to_all``, ``ppermute``,
 ``axis_index``), and the only module of the port that imports
 ``torch.distributed``. As in CombBLAS (MPI, one process per grid
-position), every grid position is one process: rank ``r`` is position
-``(i, j) = divmod(r, pc)``, row-major, as JAX's mesh orders its devices.
+position), every grid position is one process: on a ``pr`` x ``pc`` grid
+of ``L`` layers, rank ``r`` is position ``(l, i, j)``, row-major over
+``(layer, row, col)``, as JAX orders the devices of its mesh (on one layer,
+``(i, j) = divmod(r, pc)``).
 
 Axes are named as in JAX. Axis ``'col'`` varies ``j`` within process row
-``i`` (the ranks ``i*pc .. i*pc+pc-1``); axis ``'row'`` varies ``i``
-within process column ``j``; ``('row', 'col')`` is the whole grid, indexed
-by the rank. Every rank creates the row and column sub-groups in the same
-order (``GridComm.create``).
+``i`` of one layer; axis ``'row'`` varies ``i`` within process column
+``j`` of one layer; ``PLANE = ('row', 'col')`` is one layer's grid,
+indexed ``i*pc + j``; axis ``'layer'`` varies ``l`` over the ``L`` ranks
+that share ``(i, j)``; ``WORLD`` is every rank, indexed by the rank. On one
+layer ``PLANE`` and ``WORLD`` are the same ranks and the same group. Every
+rank creates the sub-groups in the same order (``GridComm.create``).
 
 The 1x1 grid needs no process group: over an axis of size 1 every
 collective is the identity and is computed as such, so the 1x1 results
@@ -30,6 +34,10 @@ several fields can share one buffer (``tile_permute``). Reductions are
 computed as a gather followed by a sum in axis order, so every rank of the
 axis gets the same bits and a float sum does not depend on the backend's
 reduction order.
+
+``stats`` books every exchange by axis as well as in total, so a caller
+can tell one layer's SUMMA (``'row'``, ``'col'``, ``PLANE``) from the
+inter-layer exchanges (``'layer'``).
 """
 from __future__ import annotations
 
@@ -42,22 +50,34 @@ import torch.distributed as dist
 
 from .coo import COO
 
-WORLD = ("row", "col")
+PLANE = ("row", "col")
+WORLD = ("layer", "row", "col")
 
 
 @dataclasses.dataclass(frozen=True)
 class GridComm:
-    """This process's place in a ``pr`` x ``pc`` grid and its groups."""
+    """This process's place in a ``layers`` x ``pr`` x ``pc`` grid and its
+    groups."""
 
     pr: int
     pc: int
     rank: int
     backend: str | None         # None on the 1x1 grid (no process group)
     groups: dict                # axis -> ProcessGroup
+    layers: int = 1
+
+    @property
+    def plane(self) -> int:
+        """Ranks in one layer."""
+        return self.pr * self.pc
+
+    @property
+    def l(self) -> int:                                    # noqa: E743
+        return self.rank // self.plane
 
     @property
     def i(self) -> int:
-        return self.rank // self.pc
+        return self.rank % self.plane // self.pc
 
     @property
     def j(self) -> int:
@@ -68,7 +88,11 @@ class GridComm:
             return self.pr
         if axis == "col":
             return self.pc
-        return self.pr * self.pc
+        if axis == "layer":
+            return self.layers
+        if axis == PLANE:
+            return self.plane
+        return self.layers * self.plane
 
     def index(self, axis) -> int:
         """``jax.lax.axis_index(axis)``."""
@@ -76,41 +100,69 @@ class GridComm:
             return self.i
         if axis == "col":
             return self.j
+        if axis == "layer":
+            return self.l
+        if axis == PLANE:
+            return self.rank % self.plane
         return self.rank
 
     def global_rank(self, axis, k: int) -> int:
         """The world rank of member ``k`` of this process's ``axis``."""
+        base = self.l * self.plane
         if axis == "row":
-            return k * self.pc + self.j
+            return base + k * self.pc + self.j
         if axis == "col":
-            return self.i * self.pc + k
+            return base + self.i * self.pc + k
+        if axis == "layer":
+            return k * self.plane + self.i * self.pc + self.j
+        if axis == PLANE:
+            return base + k
         return k
 
     @staticmethod
-    def create(pr: int, pc: int) -> "GridComm":
-        if pr * pc == 1:
+    def create(pr: int, pc: int, layers: int = 1) -> "GridComm":
+        n = layers * pr * pc
+        if n == 1:
             return GridComm(1, 1, 0, None, {})
+        name = f"{pr}x{pc}" if layers == 1 else f"{layers}x{pr}x{pc}"
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError(
-                f"a {pr}x{pc} grid needs torch.distributed initialized with "
-                f"{pr * pc} ranks (one process a grid position), e.g. "
+                f"a {name} grid needs torch.distributed initialized with "
+                f"{n} ranks (one process a grid position), e.g. "
                 "init_process_group('nccl' or 'gloo', "
-                f"init_method='tcp://localhost:<port>', world_size={pr * pc}, "
+                f"init_method='tcp://localhost:<port>', world_size={n}, "
                 "rank=...); none is initialized")
         world = dist.get_world_size()
-        if world != pr * pc:
+        if world != n:
             raise RuntimeError(
-                f"a {pr}x{pc} grid needs a world of {pr * pc} ranks; "
+                f"a {name} grid needs a world of {n} ranks; "
                 f"torch.distributed has {world}")
         rank = dist.get_rank()
-        # every rank creates every group, in the same order
-        rows = [dist.new_group([i * pc + j for j in range(pc)])
-                for i in range(pr)]
-        cols = [dist.new_group([i * pc + j for i in range(pr)])
-                for j in range(pc)]
-        i, j = divmod(rank, pc)
-        groups = {"col": rows[i], "row": cols[j], WORLD: dist.group.WORLD}
-        return GridComm(pr, pc, rank, dist.get_backend(), groups)
+        plane = pr * pc
+        # every rank creates every group, in this one order: each layer's
+        # process rows, then its process columns; then, with several
+        # layers, the layers' planes and the layer axes
+        rows, cols = [], []
+        for l in range(layers):
+            b = l * plane
+            rows.append([dist.new_group([b + i * pc + j for j in range(pc)])
+                         for i in range(pr)])
+            cols.append([dist.new_group([b + i * pc + j for i in range(pr)])
+                         for j in range(pc)])
+        planes, layer_axes = [dist.group.WORLD], []
+        if layers > 1:
+            planes = [dist.new_group(range(l * plane, (l + 1) * plane))
+                      for l in range(layers)]
+            layer_axes = [dist.new_group([l * plane + p
+                                          for l in range(layers)])
+                          for p in range(plane)]
+        l, p = divmod(rank, plane)
+        i, j = divmod(p, pc)
+        groups = {"col": rows[l][i], "row": cols[l][j], PLANE: planes[l],
+                  WORLD: dist.group.WORLD}
+        if layer_axes:
+            groups["layer"] = layer_axes[p]
+        return GridComm(pr, pc, rank, dist.get_backend(), groups, layers)
 
 
 _GRIDS: dict = {}
@@ -131,14 +183,22 @@ def close_world() -> None:
         dist.destroy_process_group()
 
 
+def _key(grid) -> tuple[int, int, int]:
+    """``(L, pr, pc)`` of a 2-D ``(pr, pc)`` or 3-D ``(L, pr, pc)`` grid."""
+    if len(grid) == 2:
+        return 1, int(grid[0]), int(grid[1])
+    return int(grid[0]), int(grid[1]), int(grid[2])
+
+
 def of(grid) -> GridComm:
-    """The ``GridComm`` of a ``(pr, pc)`` grid on this process, created on
-    first use (a collective: every rank reaches it in the same order).
-    Raises ``RuntimeError`` unless ``pr * pc`` is 1 or the world has
-    ``pr * pc`` ranks."""
-    key = (int(grid[0]), int(grid[1]))
+    """The ``GridComm`` of a ``(pr, pc)`` or ``(L, pr, pc)`` grid on this
+    process, created on first use (a collective: every rank reaches it in
+    the same order). Raises ``RuntimeError`` unless the grid has one
+    position or the world has a rank for each."""
+    key = _key(grid)
     if key not in _GRIDS:
-        _GRIDS[key] = GridComm.create(*key)
+        L, pr, pc = key
+        _GRIDS[key] = GridComm.create(pr, pc, L)
     return _GRIDS[key]
 
 
@@ -149,18 +209,30 @@ def of(grid) -> GridComm:
 # exchange accounting of this process: the collectives called, the bytes
 # this rank put on the wire (its send buffer) and the host seconds spent in
 # them, staging copies included (for an exchange in flight, the seconds to
-# issue it and to wait for it: the time it was not hidden)
-stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+# issue it and to wait for it: the time it was not hidden); in total and
+# by axis ('row', 'col', 'layer', 'plane' for PLANE, 'world')
+stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "axes": {}}
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, bytes=0, seconds=0.0)
+    stats.update(calls=0, bytes=0, seconds=0.0, axes={})
 
 
-def _book(nbytes: int, seconds: float) -> None:
-    stats["calls"] += 1
-    stats["bytes"] += int(nbytes)
-    stats["seconds"] += seconds
+def _axis_name(axis) -> str:
+    if axis == PLANE:
+        return "plane"
+    if axis == WORLD:
+        return "world"
+    return axis
+
+
+def _book(nbytes: int, seconds: float, axis) -> None:
+    for rec in (stats, stats["axes"].setdefault(
+            _axis_name(axis), {"calls": 0, "bytes": 0, "seconds": 0.0})):
+        rec["calls"] += 1
+        rec["bytes"] += int(nbytes)
+        rec["seconds"] += seconds
+
 
 def _staged(g: GridComm, x: torch.Tensor) -> bool:
     """Whether ``x`` crosses the wire through host memory: a CUDA payload
@@ -196,9 +268,9 @@ def _unbytes(b: torch.Tensor, dtype, shape) -> torch.Tensor:
 class Pending:
     """An exchange in flight; ``wait()`` returns its result."""
 
-    def __init__(self, work, finish, nbytes=None, issued=0.0):
+    def __init__(self, work, finish, nbytes=None, issued=0.0, axis=None):
         self._work, self._finish = work, finish
-        self._nbytes, self._issued = nbytes, issued
+        self._nbytes, self._issued, self._axis = nbytes, issued, axis
 
     def wait(self):
         t0 = time.perf_counter()
@@ -206,14 +278,15 @@ class Pending:
             self._work.wait()
         out = self._finish()
         if self._nbytes is not None:
-            _book(self._nbytes, self._issued + time.perf_counter() - t0)
+            _book(self._nbytes, self._issued + time.perf_counter() - t0,
+                  self._axis)
         return out
 
 
-def _issued(work, finish, nbytes, t0, async_op):
-    """The result of a collective issued at ``t0``: a ``Pending`` that
-    books it on ``wait()``, or the value, booked now."""
-    p = Pending(work, finish, nbytes, time.perf_counter() - t0)
+def _issued(work, finish, nbytes, t0, async_op, axis):
+    """The result of a collective over ``axis`` issued at ``t0``: a
+    ``Pending`` that books it on ``wait()``, or the value, booked now."""
+    p = Pending(work, finish, nbytes, time.perf_counter() - t0, axis)
     return p if async_op else p.wait()
 
 
@@ -233,7 +306,7 @@ def _gathered_wire(x: torch.Tensor, g: GridComm, axis) -> torch.Tensor:
     parts = [torch.empty_like(wire) for _ in range(g.size(axis))]
     dist.all_gather(parts, wire, group=g.groups[axis])
     out = torch.cat(parts)
-    _book(wire.numel(), time.perf_counter() - t0)
+    _book(wire.numel(), time.perf_counter() - t0, axis)
     return out
 
 
@@ -271,7 +344,7 @@ def all_to_all(x: torch.Tensor, g: GridComm, axis):
     out = torch.empty_like(wire)
     dist.all_to_all_single(out, wire, group=g.groups[axis])
     res = _unbytes(_from_wire(out, x), x.dtype, x.shape)
-    _book(wire.numel(), time.perf_counter() - t0)
+    _book(wire.numel(), time.perf_counter() - t0, axis)
     return res
 
 
@@ -305,7 +378,7 @@ def ppermute(x: torch.Tensor, g: GridComm, axis, perm, *,
         got = out if src else torch.zeros_like(wire)
         return _unbytes(_from_wire(got, x), x.dtype, x.shape)
 
-    return _issued(work, finish, send.numel(), t0, async_op)
+    return _issued(work, finish, send.numel(), t0, async_op, axis)
 
 
 def broadcast(x: torch.Tensor, g: GridComm, axis, owner: int, *,
@@ -321,7 +394,7 @@ def broadcast(x: torch.Tensor, g: GridComm, axis, owner: int, *,
                           group=g.groups[axis], async_op=async_op)
     finish = lambda: _unbytes(_from_wire(wire, x), x.dtype, x.shape)
     sent = wire.numel() if g.index(axis) == owner else 0
-    return _issued(work, finish, sent, t0, async_op)
+    return _issued(work, finish, sent, t0, async_op, axis)
 
 
 # --------------------------------------------------------------------------
@@ -422,21 +495,28 @@ def all_to_all_fields(fields, g: GridComm, axis):
     return tuple(res)
 
 
-def _tile(fields, like: COO) -> COO:
-    r, c, v, n = fields
-    return COO(r, c, v, n, like.shape, like.order)
+# A tile on the wire is a payload: the tile and, when its values are
+# int8-compressed, its dequantization scale (else None). The scale travels
+# in the same packed exchange as the tile's four fields, as the JAX
+# package's tree-level collectives carry it.
+
+def _fields(tile: COO, scale=None):
+    fields = (tile.row, tile.col, tile.val, tile.nnz)
+    return fields if scale is None else fields + (scale,)
 
 
-def _fields(tile: COO):
-    return (tile.row, tile.col, tile.val, tile.nnz)
+def _payload(fields, like: COO):
+    tile = COO(*fields[:4], like.shape, like.order)
+    return tile, (fields[4] if len(fields) > 4 else None)
 
 
-def tile_permute(tile: COO, g: GridComm, axis, perm, *,
+def tile_permute(tile: COO, g: GridComm, axis, perm, *, scale=None,
                  async_op: bool = False):
-    """Move whole tiles between ranks in one collective; each tile keeps
-    its entry order and tag."""
-    p = permute_fields(_fields(tile), g, axis, perm, async_op=True)
-    finish = lambda: _tile(p.wait(), tile)
+    """Move whole tiles (and their scales) between ranks in one
+    collective; each tile keeps its entry order and tag. Returns the
+    payload (tile, scale)."""
+    p = permute_fields(_fields(tile, scale), g, axis, perm, async_op=True)
+    finish = lambda: _payload(p.wait(), tile)              # noqa: E731
     return Pending(None, finish) if async_op else finish()
 
 
@@ -444,7 +524,8 @@ def as_psum(tile: COO, g: GridComm, axis) -> COO:
     """A tile as the JAX package's masked ``psum`` along ``axis`` delivers
     it (the owner's tile plus zeros from every other member): that sum
     turns a float -0.0 into +0.0, and adding +0.0 reproduces it bit for bit
-    (x + 0 + ... + 0 == x + 0)."""
+    (x + 0 + ... + 0 == x + 0). An int8 payload and its positive scale
+    come through that sum unchanged."""
     if g.size(axis) == 1 or not tile.val.is_floating_point():
         return tile
     return COO(tile.row, tile.col, tile.val + 0.0, tile.nnz, tile.shape,
@@ -452,17 +533,23 @@ def as_psum(tile: COO, g: GridComm, axis) -> COO:
 
 
 def tile_broadcast(tile: COO, g: GridComm, axis, owner: int, *,
-                   async_op: bool = False):
-    """Member ``owner``'s tile on every member of ``axis``, in one
-    collective, as a masked ``psum`` delivers it (``as_psum``)."""
-    p = broadcast_fields(_fields(tile), g, axis, owner, async_op=True)
-    finish = lambda: as_psum(_tile(p.wait(), tile), g, axis)
+                   scale=None, async_op: bool = False):
+    """Member ``owner``'s payload on every member of ``axis``, in one
+    collective, its tile as a masked ``psum`` delivers it (``as_psum``)."""
+    p = broadcast_fields(_fields(tile, scale), g, axis, owner, async_op=True)
+
+    def finish():
+        t, sc = _payload(p.wait(), tile)
+        return as_psum(t, g, axis), sc
+
     return Pending(None, finish) if async_op else finish()
 
 
-def tile_all_gather(tile: COO, g: GridComm, axis):
-    """Every member's tile of ``axis``, in axis order, in one collective."""
-    return [_tile(f, tile) for f in all_gather_fields(_fields(tile), g, axis)]
+def tile_all_gather(tile: COO, g: GridComm, axis, *, scale=None):
+    """Every member's payload of ``axis``, in axis order, in one
+    collective."""
+    return [_payload(f, tile)
+            for f in all_gather_fields(_fields(tile, scale), g, axis)]
 
 
 # --------------------------------------------------------------------------
@@ -470,18 +557,17 @@ def tile_all_gather(tile: COO, g: GridComm, axis):
 # --------------------------------------------------------------------------
 
 def gather_grid(x: torch.Tensor, grid):
-    """Every rank's ``x`` as one host array shaped ``(pr, pc) + x.shape``
-    (the global array of a per-rank field), the same on every rank."""
-    g = of(grid)
-    full = _all_gather_host(x, g, WORLD)
-    return full.numpy().reshape((g.pr, g.pc) + tuple(x.shape))
+    """Every rank's ``x`` as one host array shaped ``grid + x.shape`` (the
+    global array of a per-rank field), the same on every rank."""
+    full = _all_gather_host(x, of(grid), WORLD)
+    return full.numpy().reshape(tuple(grid) + tuple(x.shape))
 
 
 def gather_prefixes(fields, n: int, grid):
     """Every rank's first ``n`` entries of each 1-d-leading ``fields``
     array, without the padding past them: the counts are gathered first,
     then each rank sends its prefix padded to the largest count. Returns
-    (counts[pr*pc], [host arrays shaped (pr*pc, max) + rest]) in rank
+    (counts[ranks], [host arrays shaped (ranks, max) + rest]) in rank
     order."""
     g = of(grid)
     dev = fields[0].device
@@ -494,7 +580,7 @@ def gather_prefixes(fields, n: int, grid):
     like = [torch.empty(h.shape, dtype=h.dtype, device="meta")
             for h in heads]
     out = [[] for _ in fields]
-    for k in range(g.pr * g.pc):
+    for k in range(g.size(WORLD)):
         for t, h in enumerate(_unpack(parts[k], like)):
             out[t].append(h.numpy())
     return cnt, [np.stack(o) for o in out]

@@ -7,6 +7,7 @@ every grid position is one process (SPMD, ``core/comm.py``), and a
 process's fields are its own shard of JAX's global array:
 
   DistSpMat  : row/col/val/nnz with shapes (1, 1, cap …) of (pr, pc, cap …)
+  DistSpMat3D: (1, 1, 1, cap) of (L, q, q, cap) on a grid of L layers
   DistVec    : data (1, 1, vb)            — fully distributed dense vector
   DistSpVec  : idx/val (1, 1, cap), nnz (1, 1) — sparse vector
 
@@ -51,32 +52,35 @@ def _check_grid(pr: int, pc: int) -> comm.GridComm:
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """Process grid for sparse ops: ``pr`` x ``pc`` ranks, this process's
-    tensors on ``device``."""
+    """Process grid for sparse ops: ``layers`` x ``pr`` x ``pc`` ranks, this
+    process's tensors on ``device``."""
 
     pr: int
     pc: int
     device: torch.device
+    layers: int = 1
 
 
-def make_grid(pr: int, pc: int, *, device=None) -> Grid:
-    """Process grid for sparse ops (the JAX package's mesh).
+def make_grid(pr: int, pc: int, layers: int = 1, *, device=None) -> Grid:
+    """Process grid for sparse ops (the JAX package's mesh): axes
+    ('row', 'col'), or ('layer', 'row', 'col') with ``layers`` > 1.
 
     A grid of several positions needs ``torch.distributed`` initialized
-    with ``pr * pc`` ranks; each rank calls ``make_grid`` (it creates the
-    row and column groups, a collective) and is grid position
-    ``divmod(rank, pc)``. The device is ``cuda:(rank % device_count)``
-    unless the caller asks for another (``device='cpu'``).
+    with ``layers * pr * pc`` ranks; each rank calls ``make_grid`` (it
+    creates the row, column and layer groups, a collective) and is grid
+    position ``(l, i, j)``, row-major (``divmod(rank, pc)`` on one layer).
+    The device is ``cuda:(rank % device_count)`` unless the caller asks
+    for another (``device='cpu'``).
     """
-    g = _check_grid(pr, pc)
-    if device is None and pr * pc > 1 and torch.cuda.is_available():
+    g = comm.of((layers, pr, pc))
+    if device is None and layers * pr * pc > 1 and torch.cuda.is_available():
         device = f"cuda:{g.rank % torch.cuda.device_count()}"
-    return Grid(pr, pc, resolve_device(device))
+    return Grid(pr, pc, resolve_device(device), layers)
 
 
 def grid_all(ok: torch.Tensor, grid) -> bool:
-    """``bool(jnp.all(ok))`` of the global flags: the same answer on every
-    rank, so every rank takes the same branch."""
+    """``bool(jnp.all(ok))`` of the global flags of a 2-D or 3-D grid: the
+    same answer on every rank, so every rank takes the same branch."""
     return bool(comm.gather_grid(ok.all().reshape(1), grid).all())
 
 
@@ -261,6 +265,191 @@ class DistSpMat:
         out = np.full(self.shape + tuple(self.val.shape[3:]), zero, v.dtype)
         out[r, c] = v
         return out
+
+
+# --------------------------------------------------------------------------
+# 3D (communication-avoiding) distributed sparse matrix
+# --------------------------------------------------------------------------
+
+def _pad_to(n, mult):
+    return _ceil(n, mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class DistSpMat3D:
+    """Sparse matrix on an (L, q, q) grid (paper §3.2, Fig 1).
+
+    dist='acol': input-A style — columns sliced into L outer slabs; layer l
+                 holds slab l as a 2D (q×q) matrix.
+    dist='brow': input-B style — rows sliced into L outer slabs.
+    dist='csub': output style (Fig 2) — within each column block j, columns
+                 are sub-sliced into L pieces; layer l holds sub-piece l.
+
+    This process holds tile ``(l, i, j)``: fields of shape (1, 1, 1, cap).
+    """
+
+    row: torch.Tensor   # (1, 1, 1, cap) int32
+    col: torch.Tensor
+    val: torch.Tensor
+    nnz: torch.Tensor   # (1, 1, 1) int32
+    shape: tuple[int, int]
+    grid: tuple[int, int, int]
+    dist: str
+    order: str = "none"
+
+    def __post_init__(self):
+        comm.of(self.grid)
+
+    @property
+    def L(self):
+        return self.grid[0]
+
+    @property
+    def q(self):
+        return self.grid[1]
+
+    @property
+    def cap(self):
+        return self.row.shape[-1]
+
+    def block_sizes(self):
+        """(tile_rows, tile_cols) of each local tile.
+
+        Every dimension is padded to a multiple of L*q*q so that (a) the
+        contraction dims of acol-A and brow-B tiles agree and (b) partial-C
+        column blocks subdivide exactly L ways for the inter-layer
+        all-to-all.
+        """
+        return _block_sizes(self.shape, self.L, self.q, self.dist)
+
+    def tile(self) -> COO:
+        """This process's tile as a local COO."""
+        return COO(self.row.reshape(self.cap), self.col.reshape(self.cap),
+                   self.val.reshape(self.cap), self.nnz.reshape(()),
+                   self.block_sizes(), self.order)
+
+    @staticmethod
+    def from_tile(t: COO, shape, grid, dist: str) -> "DistSpMat3D":
+        """Wrap this process's tile back into a DistSpMat3D."""
+        return DistSpMat3D(t.row.reshape(1, 1, 1, -1),
+                           t.col.reshape(1, 1, 1, -1),
+                           t.val.reshape(1, 1, 1, -1), t.nnz.reshape(1, 1, 1),
+                           tuple(shape), tuple(grid), dist, order=t.order)
+
+    def _global_offsets(self, l, i, j):
+        tr, tc = self.block_sizes()
+        if self.dist == "acol":
+            return i * tr, l * (tc * self.q) + j * tc
+        if self.dist == "brow":
+            return l * (tr * self.q) + i * tr, j * tc
+        if self.dist == "csub":
+            return i * tr, j * (tc * self.L) + l * tc
+        raise ValueError(self.dist)
+
+    def host_nnz(self) -> np.ndarray:
+        """Every tile's nnz as a host (L, q, q) array, the same on every
+        rank."""
+        return comm.gather_grid(self.nnz.reshape(()), self.grid)
+
+    @staticmethod
+    @_obs.timed("dist.assemble3d")
+    def from_global_coo(shape, rows, cols, vals, grid, dist, *,
+                        mesh: Grid = None, device=None, cap=None, pad=1.25,
+                        random_permute=False, seed=0) -> "DistSpMat3D":
+        """Assemble from global int64 COO (host numpy), the same on every
+        rank; each rank keeps its own tile ``(l, i, j)``, on ``mesh.device``
+        (else ``device``; the GPU by default). ``cap`` defaults to ``pad`` x
+        the fullest tile of the grid, rounded up to 8."""
+        L, q, _ = grid
+        M, N = shape
+        g = comm.of(grid)
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        vals = np.asarray(vals)
+        if random_permute:
+            rng = np.random.default_rng(seed)
+            rp = rng.permutation(M).astype(np.int64)
+            cp = rp if M == N else rng.permutation(N).astype(np.int64)
+            rows, cols = rp[rows], cp[cols]
+        tr, tc = _block_sizes((M, N), L, q, dist)
+        if dist == "acol":
+            l = cols // (tc * q)
+            i, j = rows // tr, (cols % (tc * q)) // tc
+            lr, lc = rows % tr, cols % tc
+        elif dist == "brow":
+            l = rows // (tr * q)
+            i, j = (rows % (tr * q)) // tr, cols // tc
+            lr, lc = rows % tr, cols % tc
+        else:  # csub
+            rem = cols % (tc * L)
+            l, j = rem // tc, cols // (tc * L)
+            i = rows // tr
+            lr, lc = rows % tr, rem % tc
+        tid = (l * q + i) * q + j
+        counts = np.bincount(tid, minlength=L * q * q)
+        if cap is None:
+            cap = max(8, int(math.ceil((counts.max() if len(rows) else 1)
+                                       * pad / 8) * 8))
+        if len(rows) and counts.max() > cap:
+            raise ValueError(f"tile overflow: {counts.max()} > {cap}")
+        # this rank's entries, sorted (row, col) within the tile
+        mine = tid == g.rank
+        lr = lr[mine].astype(np.int32)
+        lc = lc[mine].astype(np.int32)
+        vals = vals[mine]
+        order = np.lexsort((lc, lr))
+        n = len(order)
+        R = np.full((1, 1, 1, cap), SENTINEL, np.int32)
+        Cc = np.full((1, 1, 1, cap), SENTINEL, np.int32)
+        V = np.zeros((1, 1, 1, cap), vals.dtype)
+        R[0, 0, 0, :n] = lr[order]
+        Cc[0, 0, 0, :n] = lc[order]
+        V[0, 0, 0, :n] = vals[order]
+        dev = mesh.device if mesh is not None else resolve_device(device)
+        return DistSpMat3D(
+            row=torch.from_numpy(R).to(dev), col=torch.from_numpy(Cc).to(dev),
+            val=torch.from_numpy(V).to(dev),
+            nnz=torch.full((1, 1, 1), n, dtype=torch.int32, device=dev),
+            shape=(int(M), int(N)), grid=(L, q, q), dist=dist, order="row")
+
+    def to_global_coo(self):
+        """Gather to host as (rows, cols, vals) in global int64 coords, the
+        same on every rank. Only each tile's nnz prefix crosses the wire."""
+        L, q = self.L, self.q
+        t = self.tile()
+        cnt, (R, C, V) = comm.gather_prefixes(
+            (t.row, t.col, t.val), int(t.nnz), self.grid)
+        rows, cols, vals = [], [], []
+        for l in range(L):
+            for i in range(q):
+                for j in range(q):
+                    r = (l * q + i) * q + j
+                    k = int(cnt[r])
+                    ro, co = self._global_offsets(l, i, j)
+                    rows.append(R[r, :k].astype(np.int64) + ro)
+                    cols.append(C[r, :k].astype(np.int64) + co)
+                    vals.append(V[r, :k])
+        return (np.concatenate(rows), np.concatenate(cols),
+                np.concatenate(vals))
+
+    def regrid(self, grid, **kw):
+        """Not in the port: a grid position is a process, so a lost layer
+        means a new world — the design of ROADMAP.md's "checkpoints and
+        elastic state" item."""
+        raise NotImplementedError(
+            "DistSpMat3D.regrid waits for ROADMAP.md's 'checkpoints and "
+            "elastic state' item (in the port a lost layer is a new world)")
+
+
+def _block_sizes(shape, L, q, dist):
+    M, N = shape
+    if dist == "acol":
+        return _pad_to(M, L * q * q) // q, _pad_to(N, L * q * q) // (L * q)
+    if dist == "brow":
+        return _pad_to(M, L * q * q) // (L * q), _pad_to(N, L * q * q) // q
+    if dist == "csub":
+        return _pad_to(M, L * q * q) // q, _pad_to(N, L * q * q) // (L * q)
+    raise ValueError(dist)
 
 
 # --------------------------------------------------------------------------

@@ -31,7 +31,7 @@ from typing import Callable, Optional
 import torch
 
 from .coo import COO, SENTINEL, _vmask
-from .dist import DistSpMat, DistVec, grid_sum
+from .dist import DistSpMat, DistSpMat3D, DistVec, grid_sum
 from .merge import _unpack, key_dtype, pack_keys
 
 
@@ -145,18 +145,18 @@ class MaskSpec:
     below (``structural`` / ``complement_of`` / ``vector_mask`` /
     ``value_mask``); at most one pattern operand (or none, for a pure value
     mask) may be set, and it must be tile/piece-aligned with the output —
-    masks never communicate. The 3D pattern operand (``mat3``) comes with
-    the 3D SpGEMM.
+    masks never communicate.
     """
 
     mat: DistSpMat | None = None      # SpGEMM 2D pattern operand
+    mat3: DistSpMat3D | None = None   # SpGEMM 3D pattern operand ('csub')
     vec: DistVec | None = None        # SpMSpV row-membership operand
     complement: bool = False
     pred: Callable | None = None      # over mask operand values
     val_pred: Callable | None = None  # over OUTPUT values (fused select)
 
     def __post_init__(self):
-        operands = sum(x is not None for x in (self.mat, self.vec))
+        operands = sum(x is not None for x in (self.mat, self.mat3, self.vec))
         if operands > 1:
             raise ValueError("MaskSpec takes at most one pattern operand")
         if operands == 0 and self.val_pred is None:
@@ -170,15 +170,19 @@ class MaskSpec:
         return local_mask(tile, pred=self.pred, complement=self.complement)
 
 
-def structural(m: DistSpMat, *, complement: bool = False,
+def structural(m: DistSpMat | DistSpMat3D, *, complement: bool = False,
                pred: Callable | None = None,
                val_pred: Callable | None = None) -> MaskSpec:
     """Keep output entries stored in ``m`` (complement: NOT stored)."""
+    if isinstance(m, DistSpMat3D):
+        return MaskSpec(mat3=m, complement=complement, pred=pred,
+                        val_pred=val_pred)
     return MaskSpec(mat=m, complement=complement, pred=pred,
                     val_pred=val_pred)
 
 
-def complement_of(m: DistSpMat, *, pred: Callable | None = None,
+def complement_of(m: DistSpMat | DistSpMat3D, *,
+                  pred: Callable | None = None,
                   val_pred: Callable | None = None) -> MaskSpec:
     return structural(m, complement=True, pred=pred, val_pred=val_pred)
 

@@ -90,9 +90,10 @@ def mat_transpose(a: DistSpMat, *, mesh: Grid) -> DistSpMat:
     become (col, row)-sorted in the new coordinates."""
     del mesh
     assert a.pr == a.pc
-    t = comm.tile_permute(a.tile(), comm.of(a.grid), comm.WORLD,
-                          transpose_perm(a.pr)).transpose()
-    return DistSpMat.from_tile(t, (a.shape[1], a.shape[0]), a.grid)
+    t, _ = comm.tile_permute(a.tile(), comm.of(a.grid), comm.WORLD,
+                             transpose_perm(a.pr))
+    return DistSpMat.from_tile(t.transpose(), (a.shape[1], a.shape[0]),
+                               a.grid)
 
 
 def mat_select_lower(a: DistSpMat, *, mesh: Grid, strict=True) -> DistSpMat:

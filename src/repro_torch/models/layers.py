@@ -16,7 +16,7 @@ JAX promotes mixed float types silently and torch's products refuse them,
 so the Mamba2 mixer writes each cast out (``_mm``, ``_promoted``) and
 returns the type the reference returns for the same input types.
 
-Not ported yet (ROADMAP §1, "Still to port", item 7: the LM stack):
+Not ported yet (ROADMAP §1, "Still to port": the rest of the LM stack):
 M-RoPE, MLA and expert-parallel MoE. Their entry points raise
 ``NotImplementedError``.
 """
@@ -37,8 +37,8 @@ from .config import ModelConfig
 def _not_ported(name: str):
     def stub(*args, **kwargs):
         raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP §1, still to port, item 7: "
-            f"the LM stack)")
+            f"{name} is not ported yet (ROADMAP §1, still to port: 'the "
+            f"rest of the LM stack')")
     stub.__name__ = name
     return stub
 

@@ -15,7 +15,8 @@ of the seed and the leaf's path.
 Ported families: decoders with GQA attention and a dense or MoE FFN, the
 attention-free Mamba2 stack (``kind="ssm"``) and the Mamba/attention hybrid
 (``kind="hybrid"``). MLA, M-RoPE and the audio/vision frontends raise
-``NotImplementedError`` (ROADMAP §1, still to port, item 7).
+``NotImplementedError`` (ROADMAP §1, still to port: "the rest of the LM
+stack").
 """
 from __future__ import annotations
 
@@ -203,7 +204,7 @@ class Model(nn.Module):
         if cfg.use_mla or cfg.frontend == "audio_frames":
             raise NotImplementedError(
                 f"{cfg.name}: MLA and the audio frontend are not ported yet "
-                f"(ROADMAP §1, still to port, item 7)")
+                f"(ROADMAP §1, still to port: 'the rest of the LM stack')")
         self.cfg = cfg
 
     # ---------------- embedding ----------------
@@ -211,7 +212,8 @@ class Model(nn.Module):
         if "vision_embeds" in batch or "features" in batch:
             raise NotImplementedError("the port embeds tokens only; the "
                                       "vision and audio frontends wait in "
-                                      "ROADMAP §1, item 7")
+                                      "ROADMAP §1, 'the rest of the LM "
+                                      "stack'")
         x = nn.functional.embedding(batch["tokens"], params["embed"])
         return x.to(_dtype(self.cfg.dtype))
 

@@ -5,8 +5,10 @@
 watchdog, no topology or straggler hooks. The iteration sequence, the
 ``done`` handling and the ``<name>.iter`` span are those of the JAX loop,
 so an app's body runs the same iterations in both packages. Checkpoints
-and elastic recovery are ROADMAP.md queue 1 item 7, the fault sites and the
-degradation ladder item 6: asking for any of them raises.
+and elastic recovery (ROADMAP.md queue 1, "checkpoints and elastic
+state"), the fault sites ("robust/'s detection layer") and the degradation
+ladder ("the degradation ladder") are not ported: asking for any of them
+raises.
 """
 from __future__ import annotations
 
@@ -31,8 +33,9 @@ class CheckpointedLoop:
         if asked:
             raise NotImplementedError(
                 f"CheckpointedLoop({', '.join(asked)}=...): checkpoints and "
-                "elastic recovery are not ported yet (ROADMAP.md queue 1 "
-                "items 6-7); this port runs the bare loop only")
+                "elastic recovery are not ported yet (ROADMAP.md queue 1, "
+                "'checkpoints and elastic state'); this port runs the bare "
+                "loop only")
         # ``name`` labels this loop's span site (``<name>.iter``)
         self.name = name
 

@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import jax
 import torch
 
 from repro.core import local_spgemm as JL
@@ -205,8 +206,30 @@ def test_default_device_is_the_gpu():
 
 
 def test_compress_waits_for_distributed_slice(meshes):
-    _, tmesh = meshes
-    _, ta = graph_pair(seed=7)
-    with pytest.raises(NotImplementedError):
-        t_spgemm_2d(ta, ta, tsr.ARITHMETIC, mesh=tmesh, prod_cap=4096,
-                    out_cap=2048, compress="int8")
+    """``compress='int8'`` no longer waits for the distributed slice: on
+    the 1x1 grid it runs, held against JAX's (jitted) ``spgemm_2d``. C's
+    index structure and ``ok`` are bitwise; its values (sums of dequantized
+    products) within 1e-5 of the largest |C|; the residual bitwise against
+    JAX's ``quantize_payload`` run op by op, as the JAX package runs it at
+    the wire boundary (under ``jit`` XLA contracts the residual's multiply
+    and subtract into one FMA)."""
+    from repro.dist.compression import quantize_payload
+    jmesh, tmesh = meshes
+    ja, ta = graph_pair(seed=7)
+    kw = dict(prod_cap=4096, out_cap=2048, compress="int8")
+    jc, jok, jres = jax_spgemm_2d(ja, ja, jsr.ARITHMETIC, mesh=jmesh,
+                                  ef_resid=jax.numpy.zeros_like(ja.val), **kw)
+    tc, tok, tres = t_spgemm_2d(ta, ta, tsr.ARITHMETIC, mesh=tmesh,
+                                ef_resid=torch.zeros_like(ta.val), **kw)
+    assert bool(tok.all()) and bool(jok.all())
+    for f in ("row", "col", "nnz"):
+        np.testing.assert_array_equal(np_of(getattr(tc, f)),
+                                      np_of(getattr(jc, f)))
+    want = np_of(jc.val)
+    np.testing.assert_allclose(np_of(tc.val), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    np.testing.assert_array_equal(np_of(tres),
+                                  np_of(quantize_payload(ja.val, ja.nnz)[2]))
+    exact, _ = t_spgemm_2d(ta, ta, tsr.ARITHMETIC, mesh=tmesh,
+                           prod_cap=4096, out_cap=2048)
+    assert np.abs(np_of(tc.val) - np_of(exact.val)).max() > 0

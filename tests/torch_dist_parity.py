@@ -10,15 +10,17 @@ within ``timeout`` seconds fails it too, and every rank is stopped.
 
 ``JaxReference(module, func, grids)`` runs ``module.func(F)`` for each
 grid, ``F`` a ``Frame`` over the JAX package, in a subprocess with 4
-forced XLA host devices (so its 2x2 and 1x2/2x1 meshes exist), and returns
-the pickled results by grid. The subprocess starts at once; ``result()``
+forced XLA host devices (so its 2x2 and 1x2/2x1 meshes exist; ``devices=8``
+for a 2x2x2 mesh), and returns the pickled results by grid. A grid is
+``(pr, pc)``, or ``(L, q, q)`` for a mesh of ``L`` layers. The subprocess starts at once; ``result()``
 waits for it, so the port's ranks and the reference run side by side. The
 test modules import no JAX, so a spawned rank never pays for it; the same
 ``func(F)`` over the port runs on the ranks (``port_cases``).
 
 Each rank's fields are its own shard; ``stack_shards`` lays a list of
 per-rank (1, 1, ...) arrays out as the JAX package's global (pr, pc, ...)
-array, so both compare as whole arrays.
+array (per-rank (1, 1, 1, ...) as (L, q, q, ...)), so both compare as
+whole arrays.
 """
 from __future__ import annotations
 
@@ -101,24 +103,25 @@ def run_ranks(fn, world: int, *args, timeout: float = 240.0):
 
 def stack_shards(shards, grid):
     """Per-rank (1, 1, ...) arrays in rank order -> the global (pr, pc, ...)
-    array."""
-    pr, pc = grid
+    array; on a grid of layers, (1, 1, 1, ...) -> (L, q, q, ...)."""
     arr = [np.asarray(s) for s in shards]
     return np.concatenate(arr, axis=0).reshape(
-        (pr, pc) + arr[0].shape[2:])
+        tuple(grid) + arr[0].shape[len(grid):])
 
 
 class JaxReference:
-    """``module.func(F)`` over the JAX package, a subprocess with 4 XLA
-    host devices."""
+    """``module.func(F)`` over the JAX package, a subprocess with
+    ``devices`` XLA host devices."""
 
-    def __init__(self, module: str, func: str, grids, timeout: float = 600.0):
+    def __init__(self, module: str, func: str, grids, timeout: float = 600.0,
+                 devices: int = 4):
         self.timeout = timeout
         fd, self.path = tempfile.mkstemp(suffix=".pkl")
         os.close(fd)
         env = dict(os.environ)
         env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
-                            " --xla_force_host_platform_device_count=4")
+                            " --xla_force_host_platform_device_count="
+                            f"{devices}")
         env["JAX_PLATFORMS"] = "cpu"
         env["PYTHONPATH"] = os.pathsep.join(
             [str(ROOT / "src"), str(ROOT / "tests")]
@@ -180,6 +183,7 @@ def np_tree(x):
 
 _MODULES = ("dist", "matops", "spmv", "assign", "spmm", "semiring", "mask",
             "plan", "spgemm", "coo")
+_PACKAGE_MODULES = ("dist.compression",)
 _APPS = ("tricount", "bfs", "pagerank", "fastsv", "matching", "hipmcl")
 
 
@@ -198,18 +202,25 @@ class Frame:
             setattr(self, m, importlib.import_module(f"{package}.core.{m}"))
         for m in _APPS:
             setattr(self, m, importlib.import_module(f"{package}.apps.{m}"))
+        for m in _PACKAGE_MODULES:
+            setattr(self, m.split(".")[-1],
+                    importlib.import_module(f"{package}.{m}"))
+        # (pr, pc) or (L, q, q): the mesh of L layers
+        pr, pc = self.grid[-2:]
+        layers = self.grid[0] if len(self.grid) == 3 else 1
         if package == "repro":
             import jax.numpy as jnp
-            self.mesh = self.dist.make_grid(*grid)
-            self.i = self.j = None
+            self.mesh = self.dist.make_grid(pr, pc, layers)
+            self.l = self.i = self.j = None
             self.shard = jnp.asarray
         else:
             import torch
-            self.mesh = self.dist.make_grid(*grid, device="cpu")
+            self.mesh = self.dist.make_grid(pr, pc, layers, device="cpu")
             g = self.dist.comm.of(grid)
-            self.i, self.j = g.i, g.j
+            self.l, self.i, self.j = g.l, g.i, g.j
+            pos = (g.l, g.i, g.j)[3 - len(self.grid):]
             self.shard = lambda x: torch.from_numpy(np.ascontiguousarray(
-                np.asarray(x)[self.i:self.i + 1, self.j:self.j + 1]))
+                np.asarray(x)[tuple(slice(k, k + 1) for k in pos)]))
 
     def call(self, fn, *args, **static):
         """``fn(*args, **static)``; in JAX under one jit per (fn, static):

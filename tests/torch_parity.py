@@ -111,22 +111,43 @@ _JSPGEMM = {}
 
 def jax_spgemm_2d(a, b, sr, *, mesh, prod_cap, out_cap, variant="rotation",
                   merge="deferred", mask=None, schedule=None, overlap=True,
-                  compress=None):
+                  compress=None, ef_resid=None):
     """``repro.core.spgemm.spgemm_2d`` under one jit per configuration (the
     eager shard_map dispatch takes several times longer to compile)."""
     key = (sr, mesh, prod_cap, out_cap, variant, merge, schedule, overlap,
-           compress, mask is None,
+           compress, mask is None, ef_resid is None,
            None if mask is None else (mask.complement, mask.pred,
                                       mask.val_pred))
     if key not in _JSPGEMM:
-        def run(a, b, mat):
+        def run(a, b, mat, resid):
             m = None if mask is None else dataclasses.replace(mask, mat=mat)
             return _jspgemm.spgemm_2d(
                 a, b, sr, mesh=mesh, prod_cap=prod_cap, out_cap=out_cap,
                 variant=variant, merge=merge, mask=m, schedule=schedule,
-                overlap=overlap, compress=compress)
+                overlap=overlap, compress=compress, ef_resid=resid)
         _JSPGEMM[key] = jax.jit(run)
-    return _JSPGEMM[key](a, b, None if mask is None else mask.mat)
+    return _JSPGEMM[key](a, b, None if mask is None else mask.mat, ef_resid)
+
+
+def jax_spgemm_3d(a3, b3, sr, *, mesh, prod_cap, out_cap, merge="deferred",
+                  variant="rotation", mask=None, schedule=None,
+                  overlap=True):
+    """``repro.core.spgemm.spgemm_3d`` under one jit per configuration, its
+    mask's ``mat3`` passed as an argument."""
+    key = ("3d", sr, mesh, prod_cap, out_cap, merge, variant, schedule,
+           overlap, mask is None,
+           None if mask is None else (mask.mat3 is None, mask.complement,
+                                      mask.pred, mask.val_pred))
+    if key not in _JSPGEMM:
+        def run(a3, b3, mat3):
+            m = None if mask is None else dataclasses.replace(mask,
+                                                              mat3=mat3)
+            return _jspgemm.spgemm_3d(
+                a3, b3, sr, mesh=mesh, prod_cap=prod_cap, out_cap=out_cap,
+                merge=merge, variant=variant, mask=m, schedule=schedule,
+                overlap=overlap)
+        _JSPGEMM[key] = jax.jit(run)
+    return _JSPGEMM[key](a3, b3, None if mask is None else mask.mat3)
 
 
 @contextlib.contextmanager
