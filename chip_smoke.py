@@ -175,6 +175,35 @@ Phases (any failure exits non-zero and prints no result line):
    semiring_matmul's (0), the descent flag and its exchanges by axis (one
    layer's SUMMA on 'row', 'col' and 'plane'; the inter-layer all-to-all
    and the mask's gather on 'layer').
+21. the robustness layer (after 20): (a) phase 3's graph on 1x1: the
+   tricount walls with the audit ``off``, ``boundary`` and ``full``; each
+   fault kind (nan, corrupt_val, corrupt_idx, drop, dup) at
+   ``spgemm2d.comm_a`` under the boundary audit (at the caps the planner
+   grew to in a clean run) detected once and retried from the pristine
+   operand to 6,688,911 triangles (2 attempts, no rung);
+   ``drop`` with the audit off giving another count (printed: the
+   documented trade); ``plan.spgemm.ok:flip`` retried once; a persistent
+   ``merge.kv_ok:flip`` on the masked product (merge 'deferred') walking
+   the ladder to the sort merge with the right count; a persistent
+   ``dist.compressed_exchange`` fault on phase 16 (d)'s int8 P.P shedding
+   ``serial-schedule:overlap+compress=int8`` to the uncompressed C (phase
+   16's nnz, column sums n). (b) one BFS root of phase 10 with a quarter
+   of the frontier dropped at level 3 (``spmspv.comm_x:drop``; corrupt_val
+   leaves a bool frontier unchanged): levels bitwise scipy's, that level
+   retried once. (c) PageRank (phase 11) with a checkpoint directory,
+   crashed by ``loop.crash`` at its 8th iteration with the newest
+   checkpoint's leaf corrupted: the rerun falls back a step and returns r
+   bitwise equal to an uninterrupted run; HipMCL (phase 14's network)
+   crashed at its 10th iteration resumes to phase 14's labels; checkpoint
+   bytes and seconds a save beside the iteration. (d) four ranks on 2x2
+   with phase 16's masked product: ``spgemm2d.comm_b:drop`` under the
+   boundary audit (every rank 2 attempts, C bitwise phase 16's); a delay
+   at ``dist.exchange_deadline`` armed on rank 1 only (every rank backs
+   off and retries once); the same with ``count=99`` (every rank sheds the
+   schedule, then raises the same ``TopologyError``); C saved with
+   ``save_spmat`` on 2x2 and restored onto 1x1 here, bitwise. The faulted
+   runs' segreduce calls are recorded by shape and held against the plain
+   version (on the ranks, one rank at a time).
 
 In phases 12-15 every segreduce call of one run is recorded by shape
 (route, dtype, tag, N, D, S); each shape's first call is run again, held
@@ -186,8 +215,8 @@ Phases 2-5 and 10-15 fail if a sorted-route launch saw its ids descend (a
 caller's broken ``sorted_ids`` promise: ``segreduce.descents()``). The two
 lines before the last are a JSON object with one record per kernel
 (segreduce's adds the atomic route's time, the main-path calls' summed time
-and bound, phases 10-15's launches by route and each rank's launches on
-the 2x2 and the 2x2x2 grids) and the card's name and
+and bound, phases 10-15's launches by route, each rank's launches on
+the 2x2 and the 2x2x2 grids and phase 21's) and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. The script
 imports nothing of JAX.
 """
@@ -201,6 +230,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -266,6 +296,16 @@ GRID_TIMEOUT_S = 420           # a phase's limit on every rank
 GRID_NBATCH = 4                # phase 16's column batches
 # phase 20: the 2x2x2 grid (layers, q, q), eight ranks
 GRID3 = (2, 2, 2)
+# phase 21: the robustness layer on phases 3, 10, 11, 14 and 16's data.
+# The comm-site fault kinds; the BFS level whose frontier is corrupted; the
+# ``loop.crash`` activations (iterations, from 1) that crash PageRank and
+# HipMCL; on 2x2, rank 1's delay inside the timed exchange region and the
+# deadline it overruns
+ROBUST_KINDS = ("nan", "corrupt_val", "corrupt_idx", "drop", "dup")
+ROBUST_BFS_LEVEL = 3
+ROBUST_CRASH_AT = {"pagerank": 8, "hipmcl": 10}
+ROBUST_LAG_S, ROBUST_DEADLINE_S = 0.5, 0.25
+ROBUST_DIR = ROOT / "build" / "robust"
 ONE_BY_ONE: dict = {}
 
 
@@ -295,7 +335,11 @@ def kernel_device_ms(fn, match, iters: int = 20) -> float:
     host's enqueue, not the device, paces back-to-back calls. The trace
     may miss launches (the profiler has dropped every launch of a 1 µs
     kernel from one trace): the mean is over those it holds, and a trace
-    that holds none of a kernel is taken again, up to three times."""
+    that holds none of a kernel is taken again, up to three times. When
+    all three hold none (a four-rank run on one card once lost every
+    launch of a shape from a rank's three traces), the calls are timed by
+    CUDA events instead: launch gaps included, so no less than the device
+    time. The kernels' launches are counted by their wrappers, not here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     names = (match,) if isinstance(match, str) else match
@@ -314,7 +358,10 @@ def kernel_device_ms(fn, match, iters: int = 20) -> float:
             return sum(sum(e.self_device_time_total for e in h) / c / 1e3
                        for h, c in zip(hits, counts))
     missing = [n for n, c in zip(names, counts) if not c]
-    raise AssertionError(f"no {missing} kernel in three traces")
+    ms = cuda_time_ms(fn, iters)
+    log(f"  no {missing} kernel in three profiler traces: {ms:.4f} ms a "
+        "call by CUDA events instead (launch gaps included)")
+    return ms
 
 
 # --------------------------------------------------------------------------
@@ -1978,6 +2025,8 @@ def hipmcl_phase(mesh) -> dict:
         retries = rec.events("plan.overflow_retry")
         spans = rec.snapshot()["spans"]
     rec_routes = dict(segreduce.route_launches)
+    # phase 21 resumes a crashed run of this network to these labels
+    ONE_BY_ONE["hipmcl"] = (shape, r, c, v.astype(np.float32), cold)
     iters = spans["hipmcl.iter"]["count"]
     fsv_iters = spans["fastsv.iter"]["count"]
     for name, got in (("cold", cold), ("recorded", recorded)):
@@ -2582,6 +2631,7 @@ def _check_compressed_grid(recs) -> None:
     ex = _per_rank(recs, "exact")
     if not all(x["ok"] for x in ex):
         raise AssertionError("2x2 P.P: the uncompressed product overflowed")
+    ONE_BY_ONE["pp_nnz"] = ex[0]["nnz_c"]         # phase 21 (a)'s out cap
     log(f"  (d) int8 wire compression on MCL's first expansion P.P (phase "
         f"3's graph with unit self-loops, column-normalized, f32; nnz(P) "
         f"{r0['nnz_p']}, nnz(C) {ex[0]['nnz_c']}; caps (prod, out, scipy's "
@@ -3106,6 +3156,500 @@ def _runs(rec):
     for v in rec.values():
         if isinstance(v, dict):
             yield from _runs(v)
+
+
+# --------------------------------------------------------------------------
+# phase 21: the robustness layer — fault sites, tiered audits, exchange
+# deadlines, the degradation ladder and checkpointed resume
+# --------------------------------------------------------------------------
+
+def _hold_uncounted(seg, what: str) -> dict:
+    """``check_segreduce_calls``, its own launches (the recorded calls run
+    again against the plain version) taken back off segreduce's counts,
+    so that the counts hold the phase's runs alone. Call it after the
+    ``_segreduce_calls`` block that recorded ``seg``, or the holds' calls
+    are recorded too."""
+    from repro_torch.kernels import segreduce
+    launches, routes = segreduce.launches, dict(segreduce.route_launches)
+    held = check_segreduce_calls(seg, what)
+    segreduce.launches = launches
+    segreduce.route_launches.update(routes)
+    return held
+
+
+def _plan_record(rec, name):
+    """(attempts, degraded) of the last ``name`` event the recorder took
+    (``plan.spgemm.done`` / ``plan.spmspv.done``), (1, '') without one."""
+    evs = rec.events(name)
+    return (evs[-1]["attempts"], evs[-1]["degraded"]) if evs else (1, "")
+
+
+def _robust_tricount(mesh) -> dict:
+    """Phase 21 (a): phase 3's graph on 1x1. Each comm-site kind at
+    ``spgemm2d.comm_a`` under the boundary audit (detected, retried once
+    at the planner's grown caps, the right count), ``drop`` with the audit off (a wrong count: the
+    documented trade), a lying ok flag, a persistent ``merge.kv_ok`` fault
+    walking the ladder, a persistent fault on phase 16 (d)'s int8 P.P
+    shedding the compressed schedule; the walls at each audit level."""
+    from repro_torch.apps.tricount import triangle_count
+    from repro_torch.core.dist import DistSpMat
+    from repro_torch.core.mask import structural
+    from repro_torch.core.matops import (mat_apply_local, mat_select_lower,
+                                         mat_sum)
+    from repro_torch.core.plan import spgemm
+    from repro_torch.core.semiring import ARITHMETIC
+    from repro_torch.obs import recorder
+    from repro_torch.robust import audit, faults, recover
+
+    z = np.load(GRID_DIR / "rmat15.npz")
+    shape = tuple(int(x) for x in z["shape"])
+    a = DistSpMat.from_global_coo(shape, z["rows"], z["cols"], z["vals"],
+                                  (1, 1), mesh=mesh, random_permute=True)
+    walls = {}
+    for level in ("off", "boundary", "full"):
+        with audit.at_level(level):
+            triangle_count(a, mesh=mesh)                       # warm-up
+            walls[level] = [_wall(lambda: triangle_count(a, mesh=mesh))
+                            for _ in range(3)]
+        counts = {n for n, _ in walls[level]}
+        if counts != {EXPECTED_TRIANGLES}:
+            raise AssertionError(f"tricount at audit {level}: {counts}")
+    log("phase 21 (a), tricount (R-MAT scale 15) warm walls by audit level, "
+        "3 calls each: " + "; ".join(
+            f"{lv} {', '.join(f'{s * 1e3:.2f}' for _, s in ws)} ms"
+            for lv, ws in walls.items()))
+    # the planner's grown caps (phase 3: 2^25 product slots grow to
+    # 2^27), so that an attempt of the faulted runs is the fault's alone
+    with recorder.capture() as rec:
+        triangle_count(a, mesh=mesh)
+        ev = (rec.events("plan.spgemm.done") or rec.events("plan.spgemm"))
+    caps = dict(prod_cap=ev[-1]["prod_cap"], out_cap=ev[-1]["out_cap"])
+    log(f"  faulted tricounts at the caps the planner grew to {caps}")
+    tc = lambda: triangle_count(a, mesh=mesh, **caps)         # noqa: E731
+    with _segreduce_calls() as seg:
+        for kind in ROBUST_KINDS:
+            with audit.at_level("boundary"), recorder.capture() as rec, \
+                    faults.inject(f"spgemm2d.comm_a:{kind}"):
+                count, s = _wall(tc)
+                attempts, degraded = _plan_record(rec, "plan.spgemm.done")
+                fails = rec.events("audit.failure")
+            log(f"  spgemm2d.comm_a:{kind}, audit boundary: {count} "
+                f"triangles, attempts {attempts}, degraded {degraded!r}, "
+                f"{len(fails)} audit failure(s) "
+                f"({fails[0]['error'][:72] if fails else '-'}), "
+                f"{s * 1e3:.1f} ms (recorded)")
+            if (count, attempts, degraded, len(fails)) != \
+                    (EXPECTED_TRIANGLES, 2, "", 1):
+                raise AssertionError(f"comm_a:{kind}: not detected and "
+                                     f"retried once to the right count")
+        with faults.inject("spgemm2d.comm_a:drop"):
+            lost = tc()
+        log(f"  spgemm2d.comm_a:drop, audit off: {lost} triangles against "
+            f"{EXPECTED_TRIANGLES} (the documented trade: undetected)")
+        if lost == EXPECTED_TRIANGLES:
+            raise AssertionError("an undetected drop left the count whole")
+        with recorder.capture() as rec, \
+                faults.inject("plan.spgemm.ok:flip"):
+            count = tc()
+            attempts, degraded = _plan_record(rec, "plan.spgemm.done")
+        log(f"  plan.spgemm.ok:flip: {count} triangles, attempts {attempts}")
+        if (count, attempts) != (EXPECTED_TRIANGLES, 2):
+            raise AssertionError("the lying ok flag was not retried once")
+        # the merge engine's flag lies on every call: caps that hold the
+        # unmasked product (its products, from L's counts), no growth, so
+        # each failure takes a rung
+        ones = lambda t: t.apply(torch.ones_like)             # noqa: E731
+        low = mat_select_lower(mat_apply_local(a, ones, mesh=mesh),
+                               mesh=mesh)
+        lr, lc, _ = low.to_global_coo()
+        products = int(np.bincount(lc, minlength=shape[0])
+                       @ np.bincount(lr, minlength=shape[0]))
+        try:
+            with faults.inject("merge.kv_ok:flip"), \
+                    warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                (c, pl), s = _wall(lambda: spgemm(
+                    low, low, ARITHMETIC, mesh=mesh, mask=structural(low),
+                    merge="deferred", prod_cap=products, out_cap=products,
+                    max_attempts=1))
+        finally:
+            recover.reset_degradation()
+        count = int(mat_sum(c))
+        log(f"  merge.kv_ok:flip (persistent, merge='deferred', caps "
+            f"{pl.prod_cap}/{pl.out_cap} for L.L's {products} products): "
+            f"{count} triangles, attempts {pl.attempts}, degraded "
+            f"{pl.degraded}, {s * 1e3:.1f} ms")
+        if count != EXPECTED_TRIANGLES or "sort-merge" not in pl.degraded:
+            raise AssertionError("the kv_ok fault did not end on the "
+                                 "sort merge with the right count")
+        del c, low
+    # held after the recording block: the holds' own calls unrecorded
+    routes = _hold_uncounted(seg, "phase 21 (a), the faulted tricounts")
+    routes_pp = _robust_compressed(z, mesh)
+    return {k: routes[k] + routes_pp[k] for k in routes}
+
+
+def _robust_compressed(z, mesh) -> dict:
+    """Phase 21 (a), the compressed exchange: phase 16 (d)'s P.P on 1x1,
+    int8, a corrupted payload on every attempt; the ladder sheds
+    compression and overlap and the uncompressed product is C."""
+    from repro_torch.core.dist import DistSpMat
+    from repro_torch.core.plan import spgemm
+    from repro_torch.core.semiring import ARITHMETIC
+    from repro_torch.robust import audit, faults
+    n = int(z["shape"][0])
+    rows = np.concatenate([z["rows"], np.arange(n)])
+    cols = np.concatenate([z["cols"], np.arange(n)])
+    count = np.bincount(cols, minlength=n)
+    vals = (1.0 / count[cols]).astype(np.float32)
+    p = DistSpMat.from_global_coo((n, n), rows, cols, vals, (1, 1),
+                                  mesh=mesh)
+    # caps from the counts: one stage's products, phase 16's nnz(C)
+    products = int(count @ np.bincount(rows, minlength=n))
+    nnz_c = ONE_BY_ONE["pp_nnz"]
+    torch.cuda.reset_peak_memory_stats()
+    with _segreduce_calls() as seg:
+        with audit.at_level("boundary"), warnings.catch_warnings(), \
+                faults.inject("dist.compressed_exchange:corrupt_val:"
+                              "count=99"):
+            warnings.simplefilter("ignore", RuntimeWarning)
+            (c, pl), s = _wall(lambda: spgemm(
+                p, p, ARITHMETIC, mesh=mesh, compress="int8",
+                prod_cap=products, out_cap=nnz_c))
+        got = int(c.nnz.sum())
+        total = float(c.val.double().sum())
+        log(f"  dist.compressed_exchange:corrupt_val:count=99 on P.P "
+            f"(nnz(P) {len(rows)}, {products} products, int8, audit "
+            f"boundary): attempts {pl.attempts}, degraded {pl.degraded}, "
+            f"compress {pl.compress}, overlap {pl.overlap}; nnz(C) {got} "
+            f"(phase 16: {nnz_c}), sum {total:.4f} (n = {n}: P is column-"
+            f"stochastic); {s:.3f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if pl.degraded != ("serial-schedule:overlap+compress=int8",) \
+                or pl.compress is not None or got != nnz_c \
+                or abs(total - n) > 1e-3 * n:
+            raise AssertionError("the persistent int8 fault did not shed "
+                                 "to the uncompressed product")
+        del c, p
+    return _hold_uncounted(seg, "phase 21 (a), the shed P.P")
+
+
+def _level_attempts(rec) -> list:
+    """Each BFS level's SpMSpV attempts, from the recorder's plan events
+    (a level without a ``.done`` event took one)."""
+    out = []
+    for e in rec.events():
+        if e["name"] == "plan.spmspv":
+            out.append(1)
+        elif e["name"] == "plan.spmspv.done":
+            out[-1] = e["attempts"]
+    return out
+
+
+def _robust_bfs(graph, mesh) -> dict:
+    """Phase 21 (b): one BFS root of phase 10 (scale 20) with a quarter of
+    the frontier dropped at level ROBUST_BFS_LEVEL under the boundary
+    audit. (``corrupt_val`` leaves a bool frontier as it was in both
+    packages: ``True * 1000 + 7`` casts back to True.)"""
+    from repro_torch.apps import bfs_levels
+    from repro_torch.obs import recorder
+    from repro_torch.robust import audit, faults
+    root = ONE_BY_ONE["bfs"]["roots"][0]
+    ref = ONE_BY_ONE["bfs"]["refs"][0]
+    with recorder.capture() as rec:
+        bfs_levels(graph, root, mesh=mesh)
+        clean = _level_attempts(rec)
+    # the guard counts an activation per attempt: the level's first one
+    at = sum(clean[:ROBUST_BFS_LEVEL]) + 1
+    with _segreduce_calls() as seg:
+        with audit.at_level("boundary"), recorder.capture() as rec, \
+                faults.inject(f"spmspv.comm_x:drop:at={at}"):
+            levels, s = _wall(lambda: bfs_levels(graph, root, mesh=mesh))
+            got = _level_attempts(rec)
+            fails = rec.events("audit.failure")
+    routes = _hold_uncounted(seg, "phase 21 (b), the faulted BFS")
+    want = list(clean)
+    want[ROBUST_BFS_LEVEL] += 1
+    log(f"phase 21 (b), BFS root {root} on R-MAT scale 20 with "
+        f"spmspv.comm_x:drop at level {ROBUST_BFS_LEVEL} (audit "
+        f"boundary): levels bitwise scipy's {np.array_equal(levels, ref)}; "
+        f"attempts by level {got} (clean {clean}); {len(fails)} audit "
+        f"failure(s); {s * 1e3:.1f} ms (recorded) beside phase 10's "
+        f"{ONE_BY_ONE['bfs']['walls'][0] * 1e3:.1f} ms")
+    if not np.array_equal(levels, ref) or got != want or len(fails) != 1:
+        raise AssertionError("phase 21 (b): the corrupted frontier was not "
+                             "retried once at its level, or levels differ")
+    return routes
+
+
+def _ckpt_line(rec, loop) -> str:
+    snap = rec.snapshot()
+    save = snap["spans"].get("ckpt.save", {"count": 0, "total_us": 0.0})
+    it = snap["spans"][f"{loop}.iter"]
+    per = snap["counters"].get("ckpt.bytes_saved", 0) / max(save["count"], 1)
+    return (f"{save['count']} saves of {per / 1e6:.3f} MB, "
+            f"{save['total_us'] / max(save['count'], 1) / 1e3:.2f} ms a save "
+            f"beside the iteration's median {it['p50_us'] / 1e3:.2f} ms "
+            f"({it['count']} iterations)")
+
+
+def _robust_checkpoints(graph, mesh) -> dict:
+    """Phase 21 (c): PageRank (phase 11) crashed by ``loop.crash`` at its
+    ROBUST_CRASH_AT['pagerank']-th iteration with the newest checkpoint's
+    leaf corrupted, resumed past it; HipMCL (phase 14) crashed at its
+    ROBUST_CRASH_AT['hipmcl']-th and resumed. Both equal to the
+    uninterrupted run, bitwise."""
+    import shutil
+    from repro_torch.apps import hipmcl, pagerank
+    from repro_torch.core.dist import DistSpMat
+    from repro_torch.obs import recorder
+    from repro_torch.robust import faults
+    from repro_torch.robust.faults import InjectedCrash
+    from repro_torch.train.checkpoint import all_steps
+    kw = dict(mesh=mesh, alpha=PR_ALPHA, tol=PR_TOL, max_iters=PR_MAX_ITERS)
+    d = ROBUST_DIR / "pagerank"
+    shutil.rmtree(d, ignore_errors=True)
+    with _segreduce_calls() as seg:
+        bare, bare_s = _wall(lambda: pagerank(graph, **kw))
+        # iterations 0 .. at-2 complete and save, two leaves each
+        # ('__loop_done__', then 'r'): the newest save's 'r' is leaf
+        # 2 * (at - 1)
+        at = ROBUST_CRASH_AT["pagerank"]
+        with faults.inject(f"loop.crash:crash:at={at}",
+                           f"checkpoint.leaf:flip:at={2 * (at - 1)}"):
+            try:
+                pagerank(graph, checkpoint_dir=str(d), **kw)
+                raise AssertionError("pagerank: the injected crash did not "
+                                     "happen")
+            except InjectedCrash as err:
+                crash = str(err)
+        steps = sorted(all_steps(str(d)))
+        with recorder.capture() as rec, \
+                warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            resumed, res_s = _wall(lambda: pagerank(
+                graph, checkpoint_dir=str(d), **kw))
+            saves = _ckpt_line(rec, "pagerank")
+        fell_back = [str(w.message)[:90] for w in warned
+                     if "falling back" in str(w.message)]
+        log(f"phase 21 (c), PageRank on R-MAT scale 20 with checkpoints: "
+            f"{crash}; steps on disk {steps}; the newest's leaf 'r' "
+            f"corrupted, resume fell back: {fell_back}; resumed r bitwise "
+            f"equal to the uninterrupted run {np.array_equal(resumed, bare)}"
+            f" ({res_s * 1e3:.1f} ms resumed, recorded; {bare_s * 1e3:.1f} "
+            f"ms uninterrupted, no checkpoints); {saves}")
+        if not np.array_equal(resumed, bare) or len(fell_back) != 1 \
+                or steps != [at - 4, at - 3, at - 2]:
+            raise AssertionError("phase 21 (c): PageRank's resume differs, "
+                                 "or did not fall back past the corrupt "
+                                 "step")
+        shape, r, c, v, cold = ONE_BY_ONE["hipmcl"]
+        a = DistSpMat.from_global_coo(shape, r, c, v, (1, 1), mesh=mesh)
+        d = ROBUST_DIR / "hipmcl"
+        shutil.rmtree(d, ignore_errors=True)
+        at = ROBUST_CRASH_AT["hipmcl"]
+        with faults.inject(f"loop.crash:crash:at={at}"):
+            try:
+                hipmcl(a, mesh=mesh, checkpoint_dir=str(d))
+                raise AssertionError("hipmcl: the injected crash did not "
+                                     "happen")
+            except InjectedCrash as err:
+                crash = str(err)
+        with recorder.capture() as rec:
+            labels, s = _wall(lambda: hipmcl(a, mesh=mesh,
+                                             checkpoint_dir=str(d)))
+            saves = _ckpt_line(rec, "hipmcl")
+        log(f"  HipMCL ({shape[0]} proteins) with checkpoints: {crash}; "
+            f"resumed from step {at - 2} to "
+            f"{len(np.unique(labels))} clusters, labels bitwise phase 14's "
+            f"{np.array_equal(labels, cold)} ({s:.2f} s resumed, "
+            f"recorded); {saves}")
+        if not np.array_equal(labels, cold):
+            raise AssertionError("phase 21 (c): HipMCL's resume changed "
+                                 "the labels")
+        del a
+    return _hold_uncounted(seg, "phase 21 (c), the checkpointed runs")
+
+
+def _grid_robust(mesh, rank) -> dict:
+    """Phase 21 (d) on a rank: phase 16's operand (the masked tricount
+    product on 2x2). A dropped B tile under the boundary audit (one rank's
+    tile corrupted, every rank retries); a straggler on rank 1 only (every
+    rank backs off and retries); a persistent one (every rank sheds the
+    schedule, then raises TopologyError); C saved for the 1x1 restore."""
+    from repro_torch.core.dist import DistSpMat, save_spmat
+    from repro_torch.core.mask import structural
+    from repro_torch.core.matops import (mat_apply_local, mat_select_lower,
+                                         mat_sum)
+    from repro_torch.core.plan import spgemm
+    from repro_torch.core.semiring import ARITHMETIC
+    from repro_torch.obs import recorder
+    from repro_torch.robust import audit, deadline, faults, recover
+    warnings.simplefilter("ignore", RuntimeWarning)
+    z = np.load(GRID_DIR / "rmat15.npz")
+    shape = tuple(int(x) for x in z["shape"])
+    a = DistSpMat.from_global_coo(shape, z["rows"], z["cols"], z["vals"],
+                                  (GRID_Q, GRID_Q), mesh=mesh,
+                                  random_permute=True)
+    ones = lambda t: t.apply(torch.ones_like)                 # noqa: E731
+    low = mat_select_lower(mat_apply_local(a, ones, mesh=mesh), mesh=mesh)
+    kw = dict(mesh=mesh, mask=structural(low))
+    # warm-up; then the caps and merge the planner ended on, so that an
+    # attempt of the faulted runs is the fault's alone
+    with recorder.capture() as r:
+        spgemm(low, low, ARITHMETIC, **kw)
+        ev = (r.events("plan.spgemm.done") or r.events("plan.spgemm"))[-1]
+    kw.update(prod_cap=ev["prod_cap"], out_cap=ev["out_cap"],
+              merge=ev["merge"])
+    rec = {}
+    run = _RankRun(mesh)
+    with audit.at_level("boundary"), faults.inject("spgemm2d.comm_b:drop"):
+        c, p = spgemm(low, low, ARITHMETIC, **kw)
+    rec["drop"] = run.done(plan=(p.attempts, p.degraded),
+                           count=int(mat_sum(c)))
+    coo = c.to_global_coo()
+    if rank == 0:
+        rec["c_coo"] = coo
+    save_spmat(str(ROBUST_DIR / "grid_c"), 0, c)
+    del c
+    lag = [f"dist.exchange_deadline:delay:amount={ROBUST_LAG_S}"] \
+        if rank == 1 else []
+    run = _RankRun(mesh)
+    with deadline.configure(startup_deadline=ROBUST_DEADLINE_S,
+                            backoff_base=0.01), faults.inject(*lag):
+        c, p = spgemm(low, low, ARITHMETIC, **kw)
+    rec["lag"] = run.done(plan=(p.attempts, p.degraded),
+                          count=int(mat_sum(c)))
+    del c
+    lag = [f"dist.exchange_deadline:delay:amount={ROBUST_LAG_S},count=99"] \
+        if rank == 1 else []
+    run = _RankRun(mesh)
+    try:
+        with deadline.configure(startup_deadline=ROBUST_DEADLINE_S,
+                                backoff_base=0.01), faults.inject(*lag):
+            spgemm(low, low, ARITHMETIC, **kw)
+        topo = None
+    except deadline.TopologyError as err:
+        topo = (err.site, str(err))
+    finally:
+        recover.reset_degradation()
+    rec["topo"] = run.done(error=topo)
+    return rec
+
+
+def robust_rank(rank, port, backend, out) -> None:
+    """One rank of phase 21 (d): joins a world of four, makes the 2x2 grid
+    and puts its record on ``out``; a failure puts its traceback there."""
+    import traceback
+    from repro_torch.core import comm
+    from repro_torch.core.dist import make_grid
+    try:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        comm.init_world(rank, GRID_Q * GRID_Q, port, backend)
+        mesh = make_grid(GRID_Q, GRID_Q)
+        out.put((rank, 21, _grid_robust(mesh, rank)))
+        comm.close_world()
+    except BaseException:                                  # noqa: BLE001
+        out.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _check_robust_grid(recs) -> None:
+    from repro_torch.core.dist import make_grid, restore_spmat
+    drops = _per_rank(recs, "drop")
+    plans = {r["plan"] for r in drops}
+    log(f"phase 21 (d), 2x2 (phase 16's masked product at the caps and "
+        f"merge the planner ended on), spgemm2d.comm_b:drop under the "
+        f"boundary audit: (attempts, "
+        f"degraded) by rank {[r['plan'] for r in drops]}, counts "
+        f"{_per_rank(drops, 'count')}, walls "
+        f"{[round(r['wall'] * 1e3, 1) for r in drops]} ms")
+    _rank_lines("faulted product", drops)
+    want = ONE_BY_ONE["grid_c"]
+    got = recs[0]["c_coo"]
+    same = all(np.array_equal(x.view(np.uint8), y.view(np.uint8))
+               for x, y in zip(got, want))
+    if plans != {(2, ())} or set(_per_rank(drops, "count")) != \
+            {EXPECTED_TRIANGLES} or not same:
+        raise AssertionError("2x2 drop: the ranks did not all retry once to "
+                             "phase 16's C")
+    lags = _per_rank(recs, "lag")
+    log(f"  straggler on rank 1 only ({ROBUST_LAG_S} s inside the timed "
+        f"region, deadline {ROBUST_DEADLINE_S} s): (attempts, degraded) by "
+        f"rank {[r['plan'] for r in lags]}, walls "
+        f"{[round(r['wall'] * 1e3, 1) for r in lags]} ms")
+    _rank_lines("straggled product", lags)
+    if {r["plan"] for r in lags} != {(2, ())} or \
+            set(_per_rank(lags, "count")) != {EXPECTED_TRIANGLES}:
+        raise AssertionError("2x2 straggler: the ranks did not all back off "
+                             "and retry once")
+    topo = _per_rank(recs, "topo")
+    errs = {r["error"] for r in topo}
+    log(f"  persistent straggler on rank 1: every rank raised "
+        f"{sorted(errs)[0] if len(errs) == 1 else errs}; walls "
+        f"{[round(r['wall'] * 1e3, 1) for r in topo]} ms")
+    if len(errs) != 1 or None in errs or "serial-schedule" not in \
+            next(iter(errs))[1]:
+        raise AssertionError("2x2 persistent straggler: not the same "
+                             "TopologyError after the schedule shed on "
+                             "every rank")
+    mesh = make_grid(1, 1, device="cuda")
+    t0 = time.perf_counter()
+    c, step = restore_spmat(str(ROBUST_DIR / "grid_c"), (1, 1), mesh=mesh)
+    t_restore = time.perf_counter() - t0
+    r, cc, v = c.to_global_coo()
+    order = np.lexsort((cc, r))
+    worder = np.lexsort((want[1], want[0]))
+    same = (np.array_equal(r[order], want[0][worder])
+            and np.array_equal(cc[order], want[1][worder])
+            and np.array_equal(v[order].view(np.uint32),
+                               want[2][worder].view(np.uint32)))
+    log(f"  C saved on 2x2 (rank 0 wrote {len(r)} entries), restored onto "
+        f"1x1 in this process in {t_restore:.2f} s: bitwise phase 16's C "
+        f"{same}")
+    if not same or step != 0:
+        raise AssertionError("the 2x2 checkpoint did not restore bitwise "
+                             "onto 1x1")
+
+
+def robust_phase(graph, mesh) -> dict:
+    """Phase 21: (a)-(c) on 1x1 here, (d) on four ranks. Returns
+    segreduce's launches by route: this process's from its counters (0
+    before the phase), of them the faulted runs' (each recorded by shape
+    and held against the plain version), and each rank's measured runs'
+    (held on the rank)."""
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import segreduce
+    t0 = time.perf_counter()
+    ROBUST_DIR.mkdir(parents=True, exist_ok=True)
+    routes = _robust_tricount(mesh)
+    for part in (_robust_bfs(graph, mesh),
+                 _robust_checkpoints(graph, mesh)):
+        for k in routes:
+            routes[k] += part[k]
+    launched = dict(segreduce.route_launches)
+    if any(routes[k] > launched[k] for k in routes):
+        raise AssertionError(f"phase 21: held {routes} segreduce calls, "
+                             f"the counters read {launched}")
+    torch.cuda.empty_cache()
+    world = GRID_Q * GRID_Q
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=robust_rank, daemon=True,
+                         args=(rk, port, backend, out))
+             for rk in range(world)]
+    ranks, errs = _run_ranks(procs, out, {21: _check_robust_grid}, world,
+                             "phase 21 (d)")
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s; segreduce launches on "
+        f"1x1 {launched}, of them the faulted runs' {routes}, each held "
+        f"against the plain version; the ranks' measured runs {ranks} (max "
+        f"abs err {errs['segreduce']:.3g})")
+    if sum(launched.values()) < 1 or sum(sum(r.values()) for r in ranks) < 1:
+        raise AssertionError("phase 21 launched no segreduce")
+    return {"1x1": launched, "1x1_faulted_held": routes, "ranks_2x2": ranks,
+            "max_abs_err": errs["segreduce"]}
 
 
 # --------------------------------------------------------------------------
@@ -3968,7 +4512,7 @@ def main() -> int:
     _routes_zero()
     seg_record["spmm_launches_by_route"] = spmm_phase(graph, mesh, csr)
     ONE_BY_ONE["csr"] = csr
-    del graph, csr
+    del csr                           # phase 21 runs BFS and PageRank again
     torch.cuda.empty_cache()
     _routes_zero()
     seg_record["hipmcl_launches_by_route"] = hipmcl_phase(mesh)
@@ -3989,9 +4533,15 @@ def main() -> int:
     mamba_vs_plain_e2e()
     seg_record["grid_2x2_launches_by_route"], errs = grid_phases()
     seg_record["grid_2x2x2_launches_by_route"], errs3 = grid3_phase()
+    _routes_zero()
+    robust = robust_phase(graph, mesh)
+    seg_record["robust_launches_by_route"] = robust
+    del graph
     for rec in (seg_record, smm_record):
         rec["max_abs_err"] = max(rec["max_abs_err"], errs[rec["name"]],
                                  errs3[rec["name"]])
+    seg_record["max_abs_err"] = max(seg_record["max_abs_err"],
+                                    robust["max_abs_err"])
     log(json.dumps({"kernels": [seg_record, smm_record, fa_record,
                                 bsr_record, ssd_record]}))
     log(smi)

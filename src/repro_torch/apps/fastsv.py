@@ -38,15 +38,22 @@ def fastsv(a: DistSpMat, *, mesh: Grid, max_iters: int = 64,
            elastic: bool = False, watchdog=None) -> np.ndarray:
     """Connected-component labels (int64) of the *symmetric* graph ``a``.
 
-    ``checkpoint_dir``, ``elastic`` and ``watchdog`` are not ported yet
-    (ROADMAP.md queue 1, "checkpoints and elastic state") and raise.
+    ``checkpoint_dir`` checkpoints the parent vector every
+    ``checkpoint_every`` hooking iterations (robust/recover.CheckpointedLoop)
+    — a crashed run resumed with the same directory finishes
+    bitwise-identically. The checkpointed state is the GLOBAL (n,) parent
+    vector, the JAX app's state. The final pointer-jumping sweep is not
+    checkpointed. ``watchdog`` flags straggling iterations.
+    ``elastic=True`` (regridding in-process after a TopologyError) is not
+    ported yet and raises.
     """
     if elastic:
         raise NotImplementedError(
-            "fastsv(elastic=True): elastic recovery is not ported yet "
-            "(ROADMAP.md queue 1, 'checkpoints and elastic state')")
-    del checkpoint_every              # a checkpoint cadence: no checkpoints
-    loop = CheckpointedLoop(checkpoint_dir, watchdog=watchdog, name="fastsv")
+            "fastsv(elastic=True): in-process regrid is not ported yet "
+            "(ROADMAP.md queue 1, 'checkpoints and elastic state'); resume "
+            "from checkpoint_dir in a new world instead")
+    loop = CheckpointedLoop(checkpoint_dir, every=checkpoint_every,
+                            watchdog=watchdog, name="fastsv")
     n = a.shape[0]
     grid = a.grid
     pr, pc = grid

@@ -47,16 +47,24 @@ def hipmcl(a: DistSpMat, *, mesh: Grid, inflation: float = 2.0,
     Expansion capacities are re-planned each iteration from the current
     iterate's tile nnz and grown on overflow; the caps in the signature
     are optional overrides only. Callers should include self-loops in
-    ``a`` (MCL standard practice). ``checkpoint_dir``, ``elastic`` and
-    ``watchdog`` are not ported yet (ROADMAP.md queue 1, "checkpoints and
-    elastic state") and raise.
+    ``a`` (MCL standard practice).
+
+    ``checkpoint_dir`` checkpoints the iterate every ``checkpoint_every``
+    MCL iterations (robust/recover.CheckpointedLoop): the state is the
+    JAX app's — the GLOBAL int64 COO of the iterate, its ``order`` tag and
+    ``prev_sum`` — whose shapes change between iterations, so resume reads
+    it through ``restore_flat``; a crashed run resumed with the same
+    directory clusters bitwise-identically. ``watchdog`` flags straggling
+    iterations. ``elastic=True`` (regridding in-process after a
+    TopologyError) is not ported yet and raises.
     """
     if elastic:
         raise NotImplementedError(
-            "hipmcl(elastic=True): elastic recovery is not ported yet "
-            "(ROADMAP.md queue 1, 'checkpoints and elastic state')")
-    del checkpoint_every              # a checkpoint cadence: no checkpoints
-    loop = CheckpointedLoop(checkpoint_dir, watchdog=watchdog, name="hipmcl")
+            "hipmcl(elastic=True): in-process regrid is not ported yet "
+            "(ROADMAP.md queue 1, 'checkpoints and elastic state'); resume "
+            "from checkpoint_dir in a new world instead")
+    loop = CheckpointedLoop(checkpoint_dir, every=checkpoint_every,
+                            watchdog=watchdog, name="hipmcl")
     n = a.shape[0]
     c = _normalize_cols(a, mesh=mesh)
     # value-predicate mask (§4.7): entries of the expansion C·C already

@@ -29,17 +29,25 @@ def pagerank(a: DistSpMat, *, mesh: Grid, alpha: float = 0.85,
     """PageRank of the directed graph with edge u→v ⇔ entry (v, u) ≠ 0.
 
     (Build A from an edge list as A[dst, src] = 1, or pass mat_transpose of
-    the usual adjacency.) ``checkpoint_dir``, ``elastic`` and ``watchdog``
-    are not ported yet (ROADMAP.md queue 1, "checkpoints and elastic
-    state") and raise.
+    the usual adjacency.)
+
+    ``checkpoint_dir`` enables per-iteration checkpoint/resume
+    (robust/recover.CheckpointedLoop, every ``checkpoint_every``
+    iterations): re-running after a crash with the same directory resumes
+    from the last saved iteration and converges to the bitwise-identical
+    result of an uninterrupted run. The checkpointed state is the *global*
+    rank vector, the JAX app's state, so a run can resume on another grid
+    in a new world. ``watchdog`` (a ``launch.elastic.StepWatchdog``) flags
+    straggling iterations. ``elastic=True`` (regridding in-process after a
+    TopologyError) is not ported yet and raises.
     """
     if elastic:
         raise NotImplementedError(
-            "pagerank(elastic=True): elastic recovery is not ported yet "
-            "(ROADMAP.md queue 1, 'checkpoints and elastic state')")
-    del checkpoint_every              # a checkpoint cadence: no checkpoints
-    loop = CheckpointedLoop(checkpoint_dir, watchdog=watchdog,
-                            name="pagerank")
+            "pagerank(elastic=True): in-process regrid is not ported yet "
+            "(ROADMAP.md queue 1, 'checkpoints and elastic state'); resume "
+            "from checkpoint_dir in a new world instead")
+    loop = CheckpointedLoop(checkpoint_dir, every=checkpoint_every,
+                            watchdog=watchdog, name="pagerank")
     n = a.shape[0]
     grid = a.grid
     teleport = (1.0 - alpha) / n

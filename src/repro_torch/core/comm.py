@@ -183,6 +183,20 @@ def close_world() -> None:
         dist.destroy_process_group()
 
 
+def world() -> tuple[int, int]:
+    """``(rank, size)`` of this process in the world; ``(0, 1)`` without
+    a process group."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def barrier() -> None:
+    """Wait for every rank of the world (free without a process group)."""
+    if world()[1] > 1:
+        dist.barrier()
+
+
 def _key(grid) -> tuple[int, int, int]:
     """``(L, pr, pc)`` of a 2-D ``(pr, pc)`` or 3-D ``(L, pr, pc)`` grid."""
     if len(grid) == 2:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..obs import recorder as _obs
+from ..robust import audit as _audit, faults as _faults
 from . import comm
 from .coo import COO, SENTINEL, resolve_device
 
@@ -194,6 +195,7 @@ class DistSpMat:
                 if len(rows) else 8
         if counts.max() > cap:
             raise ValueError(f"tile overflow: max nnz {counts.max()} > cap {cap}")
+        all_counts = counts
         if pr * pc > 1:
             # this rank's entries only, before any sort
             mine = tid == g.rank
@@ -215,11 +217,16 @@ class DistSpMat:
         R[tid, within] = lr
         Cc[tid, within] = lc
         V[tid, within] = vals_s
-        return DistSpMat._local(
+        out = DistSpMat._local(
             R.reshape(1, 1, cap), Cc.reshape(1, 1, cap),
             V.reshape((1, 1, cap) + tuple(vdims)),
             counts.reshape(1, 1).astype(np.int32), (int(M), int(N)),
             (pr, pc), order, dev)
+        # every rank holds every tile's count: the fault's tile draw needs
+        # no gather
+        out = _faults.corrupt_spmat("dist.assemble", out, nnz=all_counts)
+        _audit.audit_obj(out, "dist.assemble", min_level=_audit.FULL)
+        return out
 
     @staticmethod
     def _local(row, col, val, nnz, shape, grid, order, dev):
@@ -605,3 +612,60 @@ class DistSpVec:
         out = np.full((self.n,), zero, val.dtype)
         out[idx] = val
         return out
+
+
+# --------------------------------------------------------------------------
+# grid-independent sparse checkpoints
+# --------------------------------------------------------------------------
+
+@_obs.timed("dist.ckpt_save")
+def save_spmat(ckpt_dir: str, step: int, m, *, keep: int = 3) -> str:
+    """Checkpoint a DistSpMat/DistSpMat3D through the CRC-manifest path
+    (``train/checkpoint.py``), as the JAX package does.
+
+    The matrix is saved as *global COO* plus metadata — not as grid-shaped
+    tiles — so :func:`restore_spmat` can re-assemble it onto any grid, in
+    this world or a new one (saved on 2x2, restored on 1x1). On a grid
+    every rank gathers the COO and rank 0 writes.
+    """
+    from ..train.checkpoint import save_checkpoint
+    rows, cols, vals = m.to_global_coo()
+    tree = {"rows": rows, "cols": cols, "vals": vals,
+            "shape": np.asarray(m.shape, np.int64),
+            "order": np.frombuffer(m.order.encode(), np.uint8),
+            "kind": np.frombuffer(type(m).__name__.encode(), np.uint8)}
+    if isinstance(m, DistSpMat3D):
+        tree["dist"] = np.frombuffer(m.dist.encode(), np.uint8)
+    return save_checkpoint(ckpt_dir, step, tree, keep=keep)
+
+
+@_obs.timed("dist.ckpt_restore")
+def restore_spmat(ckpt_dir: str, grid, *, mesh: Grid = None, device=None,
+                  step: int | None = None, cap: int | None = None,
+                  pad: float = 1.25, dist: str | None = None):
+    """Restore a sparse checkpoint onto ``grid`` (any shape); returns
+    ``(matrix, step)``.
+
+    A 2-tuple ``grid`` rebuilds a :class:`DistSpMat`, a 3-tuple a
+    :class:`DistSpMat3D` (``dist`` defaults to the saved distribution).
+    Capacity is re-planned for the target tiling and the saved ``order``
+    tag is kept. The tiles land on ``mesh.device`` (else ``device``).
+    """
+    from ..train.checkpoint import restore_flat
+    state, step = restore_flat(ckpt_dir, step)
+    shape = tuple(int(x) for x in np.asarray(state["shape"]))
+    saved_order = bytes(np.asarray(state["order"])).decode()
+    tag = saved_order if saved_order in ("row", "col") else "row"
+    grid = tuple(int(g) for g in grid)
+    if len(grid) == 3:
+        d = dist or bytes(np.asarray(state["dist"])).decode()
+        m = DistSpMat3D.from_global_coo(
+            shape, state["rows"], state["cols"], state["vals"], grid, d,
+            mesh=mesh, device=device, cap=cap, pad=pad)
+    else:
+        vals = np.asarray(state["vals"])
+        m = DistSpMat.from_global_coo(
+            shape, state["rows"], state["cols"], vals, grid, mesh=mesh,
+            device=device, cap=cap, pad=pad, vdims=vals.shape[1:],
+            order=tag)
+    return m, step

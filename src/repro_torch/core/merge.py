@@ -25,8 +25,24 @@ from __future__ import annotations
 import torch
 
 from ..obs import recorder as _obs
+from ..robust import faults as _faults
 from .coo import COO, SENTINEL, _vmask, resolve_device, sentinel_like
 from .semiring import Monoid, segment_reduce
+
+# Degradation switch (robust/recover.py 'legacy-dedup' rung): when set, the
+# packed-key engine's entry points route to the seed two-key implementations.
+_FORCE_LEGACY = False
+
+
+def force_legacy_dedup(on: bool):
+    """Route ``dedup``/``sort_packed`` to the seed two-key paths."""
+    global _FORCE_LEGACY
+    _FORCE_LEGACY = bool(on)
+
+
+def legacy_dedup_forced() -> bool:
+    return _FORCE_LEGACY
+
 
 # Cap on the per-stage compaction windows kv_from_products splits a product
 # buffer into (the JAX package bounds its program size with it; here it
@@ -190,7 +206,7 @@ def sort_packed(c: COO, order: str = "row") -> COO:
     """Packed-key argsort + one gather (COO.sort's engine implementation)."""
     if c.order == order:
         return c
-    keys = pack_keys(c.row, c.col, c.shape, order)
+    keys = None if _FORCE_LEGACY else pack_keys(c.row, c.col, c.shape, order)
     if keys is None:
         return sort_two_key(c, order)
     perm = torch.argsort(keys, stable=True)
@@ -204,7 +220,7 @@ def dedup(c: COO, add: Monoid, order: str = "row") -> COO:
     Tagged inputs skip the sort (``dedup_sorted``); untagged inputs pay one
     packed-key sort + one value gather.
     """
-    keys = pack_keys(c.row, c.col, c.shape, order)
+    keys = None if _FORCE_LEGACY else pack_keys(c.row, c.col, c.shape, order)
     if keys is None:
         return dedup_legacy(c, add, order)
     if c.order == order:
@@ -488,7 +504,13 @@ def kv_tree(items, add: Monoid, out_cap: int):
             nxt.append(items[-1])
         items = nxt
     k, v, n = items[0]
-    return k, v, n, ok & (n <= out_cap)
+    ok = ok & (n <= out_cap)
+    if _faults.trace_fault("merge.kv_ok") is not None:
+        # the kv engine's overflow flag lies (reads as failed) on every
+        # call while armed — drives the planner into the degradation
+        # ladder (the 'sort' merge path never enters kv_tree)
+        ok = torch.zeros_like(ok)
+    return k, v, n, ok
 
 
 def merge_stage_products(stages, shape, add: Monoid, stage_cap: int,

@@ -19,13 +19,16 @@ memory (too large). This module centralizes the guessing:
   5. **Pick variants** by the paper's rules of thumb (DESIGN.md §4.6).
 
 Apps call ``spgemm`` / ``spmspv`` below with NO capacity arguments; explicit
-caps remain available as overrides. The audits, deadlines and the
-degradation ladder of the JAX package wait for the port's robustness slice:
-where the JAX planner would take a ladder rung, this one raises.
+caps remain available as overrides. The retry loops are the JAX package's:
+a failed audit (``robust/audit.py``) or a tripped exchange deadline
+(``robust/deadline.py``) re-runs from the pristine inputs, and when plain
+retries keep failing the degradation ladder (``robust/recover.py``) swaps
+in more conservative pipeline pieces.
 
 On a grid of several ranks every host read that steers the planner or its
 retry loop is a collective value (the gathered tile nnz, the grid-wide
-``ok`` flags, the grid-wide frontier size), so every rank takes the same
+``ok`` flags, the grid-wide frontier size), and every audit, deadline and
+ok-flag fault is decided collectively, so every rank takes the same
 branch.
 """
 from __future__ import annotations
@@ -38,6 +41,8 @@ from typing import Optional
 import numpy as np
 
 from ..obs import recorder as _obs
+from ..robust import (audit as _audit, deadline as _deadline,
+                      faults as _faults, recover as _recover)
 from .coo import COO
 from .dist import DistSpMat, DistSpVec, Grid, grid_all, grid_sum
 from .local_spgemm import compression_ratio, local_algo, spgemm_flops
@@ -83,7 +88,7 @@ class SpGEMMPlan:
     est_flops: float       # estimated peak per-device per-stage products
     est_out: float         # estimated peak per-device nnz(C)
     attempts: int = 1      # how many numeric attempts the retry loop used
-    degraded: tuple = ()   # ladder rungs taken (none in this slice)
+    degraded: tuple = ()   # ladder rungs taken (robust/recover.py), in order
     # exchange schedule (§4.8): None derives from the variant
     schedule: object = None
     overlap: bool = True   # double-buffered stage loops (False = bulk-sync)
@@ -217,9 +222,16 @@ def spgemm(a: DistSpMat, b: DistSpMat | None = None,
     caps grown ×``growth`` toward the worst-case ceiling — never a silently
     truncated result. Pattern masks shrink the planned out/stage capacities
     to the mask-intersected estimate (§4.7), with the same retry loop as
-    the safety net. When retries run out (attempts exhausted or caps at the
-    ceiling), this raises: the JAX package's degradation ladder is not
-    ported yet.
+    the safety net.
+
+    Robustness (robust/): a failed audit (checksum mismatch across a comm
+    boundary, invariant violation) counts as a failed attempt and re-runs
+    from the pristine inputs; when plain retries keep failing — caps at
+    the worst-case ceiling with ok still false, attempts exhausted, or
+    persistent audit failures — the degradation ladder
+    (``recover.next_rung``) swaps in progressively more conservative
+    pipeline pieces, one loud warning each, recorded in ``plan.degraded``.
+    Only when the ladder is exhausted does this raise.
     """
     b = a if b is None else b
     p = plan if plan is not None else plan_spgemm(
@@ -227,13 +239,28 @@ def spgemm(a: DistSpMat, b: DistSpMat | None = None,
         variant=variant, merge=merge, mask=mask, schedule=schedule,
         overlap=overlap, compress=compress)
     _plan_event("plan.spgemm", p)
+    cur_mask = mask
+    post_mask = None       # set when the 'postfilter' rung strips the mask
+    audit_fails = 0
     while True:
-        c, ok = _spgemm_2d(a, b, sr, mesh=mesh, prod_cap=p.prod_cap,
-                           out_cap=p.out_cap, variant=p.variant,
-                           merge=p.merge, mask=mask, schedule=p.schedule,
-                           overlap=p.overlap, compress=p.compress)
+        try:
+            c, ok = _spgemm_2d(a, b, sr, mesh=mesh, prod_cap=p.prod_cap,
+                               out_cap=p.out_cap, variant=p.variant,
+                               merge=p.merge, mask=cur_mask,
+                               schedule=p.schedule, overlap=p.overlap,
+                               compress=p.compress)
+        except _audit.AuditError as err:
+            audit_fails += 1
+            p, cur_mask, post_mask = _after_audit_error(
+                "spgemm", err, audit_fails, p, cur_mask, post_mask,
+                lambda rung, p, m, pm: _spgemm_take_rung(
+                    rung, p, a, b, safety, m, pm))
+            continue
+        ok = _faults.flip_ok("plan.spgemm.ok", ok)
         if grid_all(ok, c.grid):
-            if p.attempts > 1:
+            if post_mask is not None:
+                c = _recover.postfilter_2d(c, post_mask, sr, mesh=mesh)
+            if p.attempts > 1 or p.degraded:
                 _plan_event("plan.spgemm.done", p)
             return c, p
         if p.attempts < max_attempts and not p.at_ceiling():
@@ -243,10 +270,85 @@ def spgemm(a: DistSpMat, b: DistSpMat | None = None,
             _obs.counter_add("plan.overflow_retries")
             p = p.grown(growth)
             continue
-        raise RuntimeError(
-            f"SpGEMM still overflowing after {p.attempts} attempts "
-            f"(prod_cap={p.prod_cap}, out_cap={p.out_cap}) — "
-            f"degradation ladder exhausted (degraded={p.degraded})")
+        rung = _recover.next_rung(p, cur_mask, kind="spgemm")
+        if rung is None:
+            raise RuntimeError(
+                f"SpGEMM still overflowing after {p.attempts} attempts "
+                f"(prod_cap={p.prod_cap}, out_cap={p.out_cap}) — "
+                f"degradation ladder exhausted (degraded={p.degraded})")
+        p = _recover.apply_rung(rung, p)
+        p, cur_mask, post_mask = _spgemm_take_rung(
+            rung, p, a, b, safety, cur_mask, post_mask)
+
+
+# Audit failures are retried from pristine inputs this many times before
+# the retry loop escalates to the degradation ladder (transient wire faults
+# vs. a persistently-implicated pipeline stage).
+MAX_AUDIT_RETRIES = 3
+
+_OP_NAME = {"spgemm": "SpGEMM", "spmspv": "SpMSpV"}
+
+
+def _after_audit_error(op, err, audit_fails, p, cur_mask, post_mask,
+                       take_rung):
+    """The retry loops' answer to a failed attempt's AuditError (every rank
+    raised it together): retry from the pristine inputs, after a seeded
+    backoff when a deadline tripped; past ``MAX_AUDIT_RETRIES``, the next
+    ladder rung; with the ladder exhausted, re-raise — a timeout as
+    :class:`~repro_torch.robust.deadline.TopologyError`. Returns the next
+    attempt's ``(plan, mask, post_mask)``."""
+    timeout = isinstance(err, _deadline.ExchangeTimeout)
+    _obs.event("plan.audit_retry", op=op, site=err.site,
+               attempt=p.attempts, fails=audit_fails, timeout=timeout)
+    _obs.counter_add("plan.audit_retries")
+    name = _OP_NAME[op]
+    if audit_fails <= MAX_AUDIT_RETRIES:
+        warnings.warn(
+            f"{name} attempt {p.attempts} failed audit at {err.site}: "
+            f"{err} — retrying from pristine inputs "
+            f"({audit_fails}/{MAX_AUDIT_RETRIES})",
+            RuntimeWarning, stacklevel=3)
+        if timeout:
+            # a deadline trip means a straggling peer, not a flipped bit —
+            # give the topology time to heal before hammering the same
+            # exchange (deterministic seeded backoff, the same on every
+            # rank)
+            _deadline.backoff_sleep(err.site, audit_fails)
+        return (dataclasses.replace(p, attempts=p.attempts + 1), cur_mask,
+                post_mask)
+    rung = _recover.next_rung(p, cur_mask, kind=op)
+    if rung is None:
+        if timeout:
+            raise _deadline.TopologyError(
+                f"{name} exchange at {err.site} still over deadline after "
+                f"{p.attempts} attempts with the degradation ladder "
+                f"exhausted (degraded={p.degraded}) — the topology, not the "
+                "data, is at fault", err.site) from err
+        raise err
+    p = _recover.apply_rung(rung, p)
+    if timeout:
+        # the shed schedule's exchanges have different timing: the old
+        # trailing-median budget would trip spuriously
+        _deadline.reset(err.site)
+    return take_rung(rung, p, cur_mask, post_mask)
+
+
+def _spgemm_take_rung(rung, p, a, b, safety, cur_mask, post_mask):
+    """Post-``apply_rung`` bookkeeping the planner owns: the 'postfilter'
+    rung strips the mask from the multiply (applied post-hoc on success),
+    which invalidates the mask-shrunk capacities — re-plan for the unmasked
+    output, keeping the grown caps as floors."""
+    p = dataclasses.replace(p, attempts=p.attempts + 1)
+    if rung != "postfilter":
+        return p, cur_mask, post_mask
+    fresh = plan_spgemm(a, b, safety=safety, variant=p.variant, merge=p.merge)
+    p = dataclasses.replace(
+        p,
+        prod_cap=max(p.prod_cap, fresh.prod_cap),
+        out_cap=max(p.out_cap, fresh.out_cap),
+        prod_ceiling=max(p.prod_ceiling, fresh.prod_ceiling),
+        out_ceiling=max(p.out_ceiling, fresh.out_ceiling))
+    return p, None, cur_mask
 
 
 def demote_stage(plan: SpGEMMPlan, stage: int, q: int) -> SpGEMMPlan:
@@ -306,7 +408,7 @@ class SpMSpVPlan:
     out_ceiling: int
     density: float
     attempts: int = 1
-    degraded: tuple = ()   # ladder rungs taken (none in this slice)
+    degraded: tuple = ()   # ladder rungs taken (robust/recover.py), in order
 
     def at_ceiling(self) -> bool:
         return (self.prod_cap >= self.prod_ceiling
@@ -401,8 +503,8 @@ def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring, *, mesh: Grid,
     callers (BFS) get caps that track the frontier; a vector mask also caps
     the output at the admissible-row count (a second host scalar). An
     overflowing attempt retries with caps grown ×``growth`` toward the
-    ceiling. When the retries run out this raises: the JAX package's audit
-    retries and degradation ladder are not ported yet.
+    ceiling; failed audits and deadline trips retry from the pristine
+    frontier and then walk the ladder, as in :func:`spgemm`.
     """
     if plan is None:
         allowed = None
@@ -416,12 +518,26 @@ def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring, *, mesh: Grid,
             add_tag=sr.add.tag, mask_allowed=allowed)
     p = plan
     _plan_event("plan.spmspv", p)
+    cur_mask = mask
+    post_mask = None
+    audit_fails = 0
     while True:
-        y, ok = _spmspv_2d(a, x, sr, mesh=mesh, variant=p.variant,
-                           merge=p.merge, prod_cap=p.prod_cap,
-                           out_cap=p.out_cap, mask=mask)
+        try:
+            y, ok = _spmspv_2d(a, x, sr, mesh=mesh, variant=p.variant,
+                               merge=p.merge, prod_cap=p.prod_cap,
+                               out_cap=p.out_cap, mask=cur_mask)
+        except _audit.AuditError as err:
+            audit_fails += 1
+            p, cur_mask, post_mask = _after_audit_error(
+                "spmspv", err, audit_fails, p, cur_mask, post_mask,
+                lambda rung, p, m, pm: _spmspv_take_rung(
+                    rung, p, a, x, safety, sr, m, pm))
+            continue
+        ok = _faults.flip_ok("plan.spmspv.ok", ok)
         if grid_all(ok, y.grid):
-            if p.attempts > 1:
+            if post_mask is not None:
+                y = _recover.postfilter_spvec(y, post_mask)
+            if p.attempts > 1 or p.degraded:
                 _plan_event("plan.spmspv.done", p)
             return y, p
         if p.attempts < max_attempts and not p.at_ceiling():
@@ -431,10 +547,32 @@ def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring, *, mesh: Grid,
             _obs.counter_add("plan.overflow_retries")
             p = p.grown(growth)
             continue
-        raise RuntimeError(
-            f"SpMSpV still overflowing after {p.attempts} attempts "
-            f"(prod_cap={p.prod_cap}, out_cap={p.out_cap}) — "
-            f"degradation ladder not ported (degraded={p.degraded})")
+        rung = _recover.next_rung(p, cur_mask, kind="spmspv")
+        if rung is None:
+            raise RuntimeError(
+                f"SpMSpV still overflowing after {p.attempts} attempts "
+                f"(prod_cap={p.prod_cap}, out_cap={p.out_cap}) — "
+                f"degradation ladder exhausted (degraded={p.degraded})")
+        p = _recover.apply_rung(rung, p)
+        p, cur_mask, post_mask = _spmspv_take_rung(
+            rung, p, a, x, safety, sr, cur_mask, post_mask)
+
+
+def _spmspv_take_rung(rung, p, a, x, safety, sr, cur_mask, post_mask):
+    """SpMSpV counterpart of ``_spgemm_take_rung``: dropping the mask
+    invalidates the mask-capped output sizing — re-plan unmasked."""
+    p = dataclasses.replace(p, attempts=p.attempts + 1)
+    if rung != "postfilter":
+        return p, cur_mask, post_mask
+    fresh = plan_spmspv(a, int(grid_sum(x.nnz, x.grid)), safety=safety,
+                        variant=p.variant, merge=p.merge, add_tag=sr.add.tag)
+    p = dataclasses.replace(
+        p,
+        prod_cap=max(p.prod_cap, fresh.prod_cap),
+        out_cap=max(p.out_cap, fresh.out_cap),
+        prod_ceiling=max(p.prod_ceiling, fresh.prod_ceiling),
+        out_ceiling=max(p.out_ceiling, fresh.out_ceiling))
+    return p, None, cur_mask
 
 
 def spmv_variant(a: DistSpMat) -> str:

@@ -69,6 +69,7 @@ import dataclasses
 
 from ..dist.compression import dequantize_payload, quantize_payload
 from ..obs import recorder as _obs
+from ..robust import audit as _audit
 from . import comm
 from .coo import COO, SENTINEL
 from .dist import DistSpMat, DistSpMat3D, Grid
@@ -342,8 +343,9 @@ def _local_spgemm_2d(a_tile: COO, b_tile: COO, sr, q, prod_cap, out_cap,
 def _compress_operand(mat: DistSpMat, resid=None):
     """Quantize a DistSpMat's value payload to int8 at the wire boundary.
 
-    Returns the matrix with int8 values (the wire payload), this rank's
-    per-tile scale (shape (1, 1), the value dtype) and ``new_resid``, the
+    Returns the matrix with int8 values (the wire payload, guarded by the
+    ``dist.compressed_exchange`` audit/fault site), this rank's per-tile
+    scale (shape (1, 1), the value dtype) and ``new_resid``, the
     quantization error for error feedback (exactly val+resid −
     dequantized). While recording, counters ``dist.compress.bytes_in`` and
     ``dist.compress.bytes_out`` add this rank's value-payload bytes before
@@ -357,7 +359,9 @@ def _compress_operand(mat: DistSpMat, resid=None):
         _obs.counter_add("dist.compress.bytes_out",
                          live * q8.element_size()
                          + scale.numel() * scale.element_size())
-    return dataclasses.replace(mat, val=q8), scale, new_resid
+    mat = dataclasses.replace(mat, val=q8)
+    mat = _audit.guard_exchange("dist.compressed_exchange", mat)
+    return mat, scale, new_resid
 
 
 @_obs.timed("spgemm2d")
@@ -389,6 +393,11 @@ def spgemm_2d(a: DistSpMat, b: DistSpMat, sr: Semiring = ARITHMETIC, *,
         raise ValueError(f"inner dimensions differ: {a.shape} @ {b.shape}")
     q = a.pr
     sched = _schedule_from(variant, schedule, q)
+    # operands are about to enter the exchange collectives: this is the
+    # wire boundary the audit checksums bracket (and the fault sites
+    # corrupt) — see robust/audit.guard_exchange
+    a = _audit.guard_exchange("spgemm2d.comm_a", a)
+    b = _audit.guard_exchange("spgemm2d.comm_b", b)
     a_scale = b_scale = new_resid = None
     if ef_resid is not None and compress is None:
         raise ValueError("ef_resid is only meaningful with compress='int8'")
@@ -424,6 +433,7 @@ def spgemm_2d(a: DistSpMat, b: DistSpMat, sr: Semiring = ARITHMETIC, *,
         _obs.sync(c.row.device)
     # every merge path ends in dedup(order='row'), so C keeps the invariant
     cmat = DistSpMat.from_tile(c, (a.shape[0], b.shape[1]), a.grid)
+    _audit.audit_obj(cmat, "spgemm2d.out", min_level=_audit.FULL)
     if ef_resid is not None:
         return cmat, ok.reshape(1, 1), new_resid
     return cmat, ok.reshape(1, 1)
@@ -524,6 +534,9 @@ def spgemm_3d(a3: DistSpMat3D, b3: DistSpMat3D, sr: Semiring = ARITHMETIC, *,
     if a3.grid != b3.grid:
         raise ValueError(f"A and B lie on different grids: {a3.grid} and "
                          f"{b3.grid}")
+    # no planner retry wraps this multiply: a fault caught here raises
+    a3 = _audit.guard_exchange("spgemm3d.comm_a", a3)
+    b3 = _audit.guard_exchange("spgemm3d.comm_b", b3)
     L, q = a3.L, a3.q
     sched = _schedule_from(variant, schedule, q)
     tr_a, tc_a = a3.block_sizes()
@@ -584,6 +597,7 @@ def spgemm_3d(a3: DistSpMat3D, b3: DistSpMat3D, sr: Semiring = ARITHMETIC, *,
         _obs.sync(merged.row.device)
     # the final inter-layer merge is a row dedup
     c3 = DistSpMat3D.from_tile(merged, c_shape, a3.grid, "csub")
+    _audit.audit_obj(c3, "spgemm3d.out", min_level=_audit.FULL)
     return c3, ok.reshape(1, 1, 1)
 
 

@@ -15,15 +15,16 @@ along 'row', the local SpMSpV variant produces a sparse partial, and
 partials merge along 'col' densely or sparsely (bucketed all-to-all).
 
 The collectives are ``core/comm.py``'s; over axes of size 1 (the 1x1
-grid) each is the identity. The exchange audits of the JAX package
-(``robust.audit.guard_exchange`` / ``audit_obj``) wait for the port's
-robustness slice.
+grid) each is the identity. SpMSpV's frontier is guarded where it enters
+its all-gather (``robust.audit.guard_exchange`` at ``spmspv.comm_x``) and
+its result audited at ``spmspv.out`` (level ``full``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..obs import recorder as _obs
+from ..robust import audit as _audit
 from . import comm
 from . import spmv_local as L
 from .coo import COO, SENTINEL, sentinel_like
@@ -79,8 +80,9 @@ def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring = ARITHMETIC, *,
     inside the local expansion, before the variant merges (§4.7).
     """
     assert x.layout == "col"
-    # the JAX package checksums the frontier here, before its all-gather
-    # (robust/audit.guard_exchange): not ported yet
+    # the frontier is about to enter the 'row' all-gather: the wire
+    # boundary the audit checksums bracket (robust/audit.guard_exchange)
+    x = _audit.guard_exchange("spmspv.comm_x", x)
     pr, pc = a.grid
     local_fn = L.SPMSPV_VARIANTS[variant]
     vb_out = -(-a.shape[0] // (pr * pc))
@@ -136,6 +138,7 @@ def spmspv(a: DistSpMat, x: DistSpVec, sr: Semiring = ARITHMETIC, *,
         _obs.sync(ri.device)
     y = DistSpVec(ri[None, None], rv[None, None], rn.reshape(1, 1),
                   a.shape[0], a.grid, "row")
+    _audit.audit_obj(y, "spmspv.out", min_level=_audit.FULL)
     return y, ok.reshape(1, 1)
 
 

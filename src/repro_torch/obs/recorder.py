@@ -39,12 +39,23 @@ _spans: list[tuple] = []
 _events: list[tuple] = []
 # counters: monotonic totals
 _counters: dict[str, float] = {}
+# gauges: last value by name, and every setting as (name, t, value)
+_gauges: dict[str, float] = {}
+_counter_series: list[tuple] = []
 
 _MAX_RECORDS = 1_000_000         # backstop against unbounded growth
 
 
 def enabled() -> bool:
     """The raw switch — cheapest possible read."""
+    return _enabled
+
+
+def recording() -> bool:
+    """True when hooks should record. Guard any host transfer made only
+    for observability with it (summing ``nnz`` for the payload-byte
+    counters). The port runs eagerly, so this is :func:`enabled`: there is
+    no trace to skip."""
     return _enabled
 
 
@@ -144,6 +155,18 @@ def counter_add(name: str, value: float = 1):
         _counters[name] = _counters.get(name, 0) + value
 
 
+def gauge_set(name: str, value: float):
+    """Set a gauge (a level, not a total); every setting is kept in
+    order."""
+    if not _enabled:
+        return
+    t = time.perf_counter() - _epoch_perf
+    with _lock:
+        _gauges[name] = value
+        if len(_counter_series) < _MAX_RECORDS:
+            _counter_series.append((name, t, value))
+
+
 def event(name: str, **attrs):
     """Record an instant structured event (planner decision, retry)."""
     if not _enabled:
@@ -152,6 +175,12 @@ def event(name: str, **attrs):
     with _lock:
         if len(_events) < _MAX_RECORDS:
             _events.append((name, threading.get_ident(), t, attrs))
+
+
+def counters() -> dict[str, float]:
+    """The counters' totals, a copy."""
+    with _lock:
+        return dict(_counters)
 
 
 def events(name: str | None = None) -> list[dict]:
@@ -175,6 +204,17 @@ def enable():
     _enabled = True
 
 
+def reset():
+    """Clear every recorded span, event, counter and gauge (keeps the
+    enabled state)."""
+    with _lock:
+        _spans.clear()
+        _events.clear()
+        _counters.clear()
+        _counter_series.clear()
+        _gauges.clear()
+
+
 @contextlib.contextmanager
 def capture():
     """Scoped recording into fresh buffers; prior state restored on exit.
@@ -185,10 +225,13 @@ def capture():
     """
     global _enabled
     with _lock:
-        saved = (_enabled, list(_spans), list(_events), dict(_counters))
+        saved = (_enabled, list(_spans), list(_events), dict(_counters),
+                 list(_counter_series), dict(_gauges))
         _spans.clear()
         _events.clear()
         _counters.clear()
+        _counter_series.clear()
+        _gauges.clear()
     _enabled = False
     enable()
     try:
@@ -200,6 +243,9 @@ def capture():
             _events[:] = saved[2]
             _counters.clear()
             _counters.update(saved[3])
+            _counter_series[:] = saved[4]
+            _gauges.clear()
+            _gauges.update(saved[5])
 
 
 # --------------------------------------------------------------------------

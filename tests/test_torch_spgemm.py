@@ -122,13 +122,20 @@ def test_planned_retry(meshes, masked):
 
 
 def test_planner_raises_when_retries_run_out(meshes):
+    """Caps that can never grow: each failed attempt takes a ladder rung
+    (loudly), and the planner raises once the ladder is exhausted."""
+    from repro_torch.robust import recover
     _, tmesh = meshes
     _, ta = graph_pair(seed=4)
     honest = TP.plan_spgemm(ta, ta)
     low = dataclasses.replace(honest, prod_cap=64, out_cap=64)
-    with pytest.raises(RuntimeError, match="still overflowing"):
-        TP.spgemm(ta, ta, tsr.ARITHMETIC, mesh=tmesh, plan=low,
-                  max_attempts=1)
+    try:
+        with pytest.raises(RuntimeError, match="still overflowing"), \
+                pytest.warns(RuntimeWarning, match="degrading pipeline"):
+            TP.spgemm(ta, ta, tsr.ARITHMETIC, mesh=tmesh, plan=low,
+                      max_attempts=1)
+    finally:
+        recover.reset_degradation()     # the 'legacy-dedup' rung's switch
 
 
 @pytest.mark.parametrize("kw", [
