@@ -204,6 +204,27 @@ Phases (any failure exits non-zero and prints no result line):
    ``save_spmat`` on 2x2 and restored onto 1x1 here, bitwise. The faulted
    runs' segreduce calls are recorded by shape and held against the plain
    version (on the ranks, one rank at a time).
+22. the in-process elastic regrid (after 21): (a) four ranks on 2x2 with
+   phase 10's graph and phase 19's network; ``loop.device_loss`` at the
+   4th iteration of ``pagerank``, ``fastsv`` and ``hipmcl`` with
+   ``elastic=True``: each regrids (PageRank its normalized matrix, FastSV
+   ``a``; HipMCL moves its mesh) onto 1x1, ranks 1-3 retire and every rank
+   returns rank 0's answer. PageRank's r bitwise equal to the same loss
+   without ``elastic`` (it checkpoints every iteration and raises on 2x2)
+   resumed on 1x1 here from that checkpoint, and within phase 11's L1 to
+   the float64 reference; FastSV's labels phase 12's; HipMCL phase 19's
+   float64 partition. Per rank: each ``regrid``'s seconds and the bytes
+   it sent, the iterations before and after the shrink, the wall and
+   peak. (b) eight ranks on 2x2x2: phase 20's L ('acol', 'brow') and mask
+   ('csub') regridded to 1x2x2 (ranks 4-7 retire), each global COO
+   bitwise before and after; the masked tricount product through
+   ``spgemm_3d`` on 1x2x2 (cold), 6,688,911. (c) (a)'s ranks run under
+   ``REPRO_TRACE``: each rank's ``chiprun_out/phase22_trace.rank<r>.json``
+   loads as JSON with ``traceEvents``, holds ``pagerank.iter``,
+   ``dist.regrid`` and ``loop.topology``, and names only spans and events
+   the JAX package emits (read from its source text); each rank's
+   ``coverage('pagerank.iter')`` printed. Every segreduce call of (a) and
+   (b) is recorded on its rank and held against the plain version there.
 
 In phases 12-15 every segreduce call of one run is recorded by shape
 (route, dtype, tag, N, D, S); each shape's first call is run again, held
@@ -216,9 +237,9 @@ caller's broken ``sorted_ids`` promise: ``segreduce.descents()``). The two
 lines before the last are a JSON object with one record per kernel
 (segreduce's adds the atomic route's time, the main-path calls' summed time
 and bound, phases 10-15's launches by route, each rank's launches on
-the 2x2 and the 2x2x2 grids and phase 21's) and the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``. The script
-imports nothing of JAX.
+the 2x2 and the 2x2x2 grids, phase 21's and phase 22's) and the card's
+name and power limit; the last line is ``{"ok": true, "device": {...}}``.
+The script imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -306,6 +327,10 @@ ROBUST_BFS_LEVEL = 3
 ROBUST_CRASH_AT = {"pagerank": 8, "hipmcl": 10}
 ROBUST_LAG_S, ROBUST_DEADLINE_S = 0.5, 0.25
 ROBUST_DIR = ROOT / "build" / "robust"
+ELASTIC_AT = 4                 # phase 22's device loss: the 4th iteration
+ELASTIC_LOSS = f"loop.device_loss:crash:at={ELASTIC_AT}"
+ELASTIC_DIR = ROOT / "build" / "elastic"
+ELASTIC_TRACE = ROOT / "chiprun_out" / "phase22_trace.json"
 ONE_BY_ONE: dict = {}
 
 
@@ -2797,6 +2822,7 @@ def grid_phases() -> tuple[list, dict]:
                                   mesh=mesh)
     hipmcl(a, mesh=mesh)                                       # cold
     one = _wall(lambda: hipmcl(a, mesh=mesh))
+    ONE_BY_ONE["hipmcl_grid"] = (path, ref, family_of, one[0])
     del a
     log(f"device memory before phases 16-19: "
         f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, "
@@ -2823,14 +2849,16 @@ def grid_phases() -> tuple[list, dict]:
     return _run_ranks(procs, out, checks, world, "phases 16-19")
 
 
-def _run_ranks(procs, out, checks, world, what) -> tuple[list, dict]:
-    """Start the ranks, take each phase's records from ``out`` (every rank
-    within GRID_TIMEOUT_S), check them in phase order and stop the ranks.
-    Returns each rank's segreduce launches by route over the measured runs
-    and the max abs err of each kernel's held calls."""
+def _run_ranks(procs, out, checks, world, what,
+               started=False) -> tuple[list, dict]:
+    """Start the ranks (unless ``started``), take each phase's records
+    from ``out`` (every rank within GRID_TIMEOUT_S), check them in phase
+    order and stop the ranks. Returns each rank's segreduce launches by
+    route over the measured runs and the max abs err of each kernel's held
+    calls."""
     import queue
     t0 = time.perf_counter()
-    for p in procs:
+    for p in procs if not started else ():
         p.start()
     got: dict = {ph: {} for ph in checks}
     launches = [{"sorted": 0, "atomic": 0} for _ in range(world)]
@@ -3650,6 +3678,408 @@ def robust_phase(graph, mesh) -> dict:
         raise AssertionError("phase 21 launched no segreduce")
     return {"1x1": launched, "1x1_faulted_held": routes, "ranks_2x2": ranks,
             "max_abs_err": errs["segreduce"]}
+
+
+# --------------------------------------------------------------------------
+# phase 22: in-process elastic regrid — a device lost on 2x2, the apps
+# finishing on 1x1 in the same world; 2x2x2 -> 1x2x2; the Chrome traces
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _regrid_clock():
+    """Record each ``DistSpMat.regrid`` / ``DistSpMat3D.regrid`` while the
+    block runs: its seconds (synchronized) and the bytes this rank put on
+    the wire in it (``core/comm.py``'s accounting). Yields the list."""
+    from repro_torch.core import comm
+    from repro_torch.core.dist import DistSpMat, DistSpMat3D
+    got = []
+    inner = {cls: cls.regrid for cls in (DistSpMat, DistSpMat3D)}
+
+    def wrap(fn):
+        def regrid(self, *a, **kw):
+            torch.cuda.synchronize()
+            b0, t0 = comm.stats["bytes"], time.perf_counter()
+            res = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            got.append({"s": time.perf_counter() - t0,
+                        "bytes": comm.stats["bytes"] - b0,
+                        "kept": res is not None})
+            return res
+        return regrid
+
+    for cls, fn in inner.items():
+        cls.regrid = wrap(fn)
+    try:
+        yield got
+    finally:
+        for cls, fn in inner.items():
+            cls.regrid = fn
+
+
+def _profiler_warmup() -> None:
+    """Start torch.profiler's CUDA tracing once in this rank, beside the
+    other ranks: its first start costs seconds, which the ranks would
+    otherwise pay one after another in their turns to hold their calls."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+
+def _elastic_kw(app) -> dict:
+    return dict(alpha=PR_ALPHA, tol=PR_TOL, max_iters=PR_MAX_ITERS) \
+        if app == "pagerank" else {}
+
+
+def _pagerank_crash(a, mesh) -> dict:
+    """Phase 22 (a)'s PageRank reference on a rank: the same device loss
+    without ``elastic``, checkpointing every iteration: it raises
+    TopologyError after saving the last iteration done on 2x2."""
+    from repro_torch.apps import pagerank
+    from repro_torch.robust import faults
+    from repro_torch.robust.deadline import TopologyError
+    run = _RankRun(mesh)
+    err = None
+    with faults.inject(ELASTIC_LOSS):
+        try:
+            pagerank(a, mesh=mesh, checkpoint_dir=str(ELASTIC_DIR / "pr"),
+                     **_elastic_kw("pagerank"))
+        except TopologyError as e:
+            err = str(e)
+    return run.done(error=err)
+
+
+def _elastic_app(app, a, mesh, rank) -> dict:
+    """One app of phase 22 (a) on a rank: ``elastic=True`` with the device
+    loss at its ELASTIC_AT-th iteration on 2x2; its kernel calls held
+    (``_RankRun``), its regrids timed, its iterations on each grid read
+    from the recorder (spans ``<app>.iter``, event ``loop.topology``)."""
+    from repro_torch import apps
+    from repro_torch.obs import recorder
+    from repro_torch.robust import faults
+    count = lambda: recorder.snapshot()["spans"].get(          # noqa: E731
+        f"{app}.iter", {}).get("count", 0)
+    n0 = count()
+    run = _RankRun(mesh)
+    with _regrid_clock() as regrids, faults.inject(ELASTIC_LOSS):
+        res = getattr(apps, app)(a, mesh=mesh, elastic=True,
+                                 **_elastic_kw(app))
+    topo = [e for e in recorder.events("loop.topology") if e["loop"] == app]
+    it = topo[-1]["it"] if topo else None
+    rec = run.done(digest=_digest(res), regrids=regrids,
+                   iters=(it, count() - n0 - (it or 0)),
+                   finite=bool(np.isfinite(res).all()))
+    if rank == 0:
+        rec["res"] = res
+    return rec
+
+
+def elastic_rank(rank, port, backend, mcl_path, out) -> None:
+    """One rank of phase 22 (a): joins a world of four, makes the 2x2 grid,
+    runs PageRank's crash reference, then each app with ``elastic=True``
+    (``REPRO_TRACE`` records the rank and dumps its trace at exit) and
+    puts the record on ``out``; a failure puts its traceback there."""
+    import traceback
+    from repro_torch.core import comm
+    from repro_torch.core.dist import DistSpMat, make_grid
+    from repro_torch.io import read_generalized_tuples
+    from repro_torch.obs import recorder
+    warnings.simplefilter("ignore", RuntimeWarning)
+    try:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        comm.init_world(rank, GRID_Q * GRID_Q, port, backend)
+        if not recorder.enabled():
+            raise AssertionError("REPRO_TRACE did not start the recorder")
+        _profiler_warmup()
+        mesh = make_grid(GRID_Q, GRID_Q)
+        a, t_asm = _grid_graph500(mesh)
+        rec = {"t_asm": t_asm, "crash": _pagerank_crash(a, mesh)}
+        for app in ("pagerank", "fastsv"):
+            rec[app] = _elastic_app(app, a, mesh, rank)
+        del a
+        torch.cuda.empty_cache()
+        shape, r, c, v, _ = read_generalized_tuples(str(mcl_path), 4)
+        m = DistSpMat.from_global_coo(shape, r, c, v.astype(np.float32),
+                                      (GRID_Q, GRID_Q), mesh=mesh)
+        rec["hipmcl"] = _elastic_app("hipmcl", m, mesh, rank)
+        rec["coverage"] = recorder.coverage("pagerank.iter")
+        out.put((rank, "22a", rec))
+        comm.close_world()
+    except BaseException:                                  # noqa: BLE001
+        out.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _regrid_line(regrids) -> str:
+    if not regrids:
+        return "no regrid (its state is global COO: only the mesh moves)"
+    return "; ".join(f"regrid {g['s']:.3f} s, {g['bytes'] / 1e6:.3f} MB sent"
+                     f"{'' if g['kept'] else ', retired'}" for g in regrids)
+
+
+def _elastic_lines(app, recs) -> None:
+    _same_digests(f"elastic {app}", recs)
+    if not all(r["finite"] for r in recs):
+        raise AssertionError(f"elastic {app}: a rank's answer is not finite")
+    for rk, r in enumerate(recs):
+        before, after = r["iters"]
+        log(f"  {app}, rank {rk}: {before} iterations on 2x2, {after} on "
+            f"1x1 after the shrink; {_regrid_line(r['regrids'])}; wall "
+            f"{r['wall']:.2f} s, peak {r['peak'] / 2**30:.3f} GiB")
+        if before != ELASTIC_AT - 1 or (after > 0) != (rk == 0):
+            raise AssertionError(f"elastic {app}, rank {rk}: {before} "
+                                 f"iterations before the loss and {after} "
+                                 f"after; rank 0 alone goes on")
+        want_regrids = 0 if app == "hipmcl" else 1
+        if len(r["regrids"]) != want_regrids or \
+                any(g["kept"] != (rk == 0) for g in r["regrids"]):
+            raise AssertionError(f"elastic {app}, rank {rk}: regrids "
+                                 f"{r['regrids']}")
+    _rank_lines(f"elastic {app}", recs)
+
+
+def jax_obs_names() -> set:
+    """The span and event names the JAX package emits, read from its
+    source text (nothing of it is imported): the literal names of
+    ``span``/``timed``/``event`` and the planner's events, ``<name>.iter``
+    of each ``CheckpointedLoop``, and the guarded sites (``KNOWN_SITES``),
+    whose guard spans are named by the site."""
+    import re
+    names = set()
+    for path in (ROOT / "src" / "repro").rglob("*.py"):
+        text = path.read_text()
+        names |= set(re.findall(
+            r'_obs\.(?:span|timed|event)\(\s*"([^"]+)"', text))
+        names |= set(re.findall(r'_plan_event\(\s*"([^"]+)"', text))
+        names |= {m + ".iter" for m in re.findall(
+            r'CheckpointedLoop\([^)]*?name="(\w+)"', text, re.S)}
+        for block in re.findall(r"KNOWN_SITES = \{(.*?)\n\}", text, re.S):
+            names |= set(re.findall(r'^\s*"([^"]+)":', block, re.M))
+    return names
+
+
+def _check_elastic_traces(coverage) -> None:
+    """Phase 22 (c): each rank's REPRO_TRACE file (written as the rank
+    exits), beside the rank's ``coverage('pagerank.iter')``."""
+    jax = jax_obs_names()
+    for rk, cov in enumerate(coverage):
+        path = ELASTIC_TRACE.with_name(
+            f"{ELASTIC_TRACE.stem}.rank{rk}{ELASTIC_TRACE.suffix}")
+        doc = json.loads(path.read_text())
+        evs = doc["traceEvents"]
+        named = {e["name"] for e in evs if e["ph"] in ("X", "i")}
+        missing = {"pagerank.iter", "dist.regrid", "loop.topology"} - named
+        foreign = named - jax
+        log(f"  phase 22 (c), rank {rk}: {path.parent.name}/{path.name} "
+            f"({path.stat().st_size / 1e6:.2f} MB, {len(evs)} trace "
+            f"events, {len(named)} span and event names, all the JAX "
+            f"package's: {not foreign}); coverage('pagerank.iter') "
+            f"{cov:.4f}")
+        if missing or foreign or "epoch_unix_s" not in doc["otherData"]:
+            raise AssertionError(f"rank {rk}'s trace: missing {missing}, "
+                                 f"names the JAX package never emits "
+                                 f"{foreign}")
+
+
+def _check_elastic_grid(recs, mesh, graph) -> None:
+    """Phase 22 (a) and (c): the answers against the references, each
+    rank's lines, the traces."""
+    from repro_torch.apps import pagerank
+    crash = _per_rank(recs, "crash")
+    if None in _per_rank(crash, "error"):
+        raise AssertionError("phase 22: a crash reference did not raise "
+                             "TopologyError")
+    _rank_lines("pagerank crashed on 2x2 (the reference)", crash)
+    log(f"phase 22 (a), four ranks on 2x2, a device lost at the "
+        f"{ELASTIC_AT}th iteration of each app (elastic=True): every rank "
+        f"goes on to the same answer; assembly "
+        f"{max(_per_rank(recs, 't_asm')):.2f} s")
+    prs = _per_rank(recs, "pagerank")
+    with _segreduce_calls() as seg:
+        resumed, res_s = _wall(lambda: pagerank(
+            graph, mesh=mesh, checkpoint_dir=str(ELASTIC_DIR / "pr"),
+            **_elastic_kw("pagerank")))
+    held = _hold_uncounted(seg, "phase 22 (a), PageRank resumed on 1x1")
+    ref = ONE_BY_ONE["pagerank"][0]
+    r = prs[0]["res"]
+    err = float(np.abs(r.astype(np.float64) - ref).sum())
+    same = np.array_equal(r.view(np.uint32), resumed.view(np.uint32))
+    log(f"  pagerank: r bitwise equal to the crashed 2x2 run resumed on 1x1 "
+        f"from its checkpoint here ({res_s * 1e3:.1f} ms, segreduce {held}, "
+        f"held): {same}; L1 to phase 11's float64 reference {err:.3g} "
+        f"(limit {PR_L1_TOL})")
+    if not same or err > PR_L1_TOL:
+        raise AssertionError("elastic pagerank: r differs from the resumed "
+                             "run, or from the float64 reference")
+    _elastic_lines("pagerank", prs)
+    fs = _per_rank(recs, "fastsv")
+    ok = np.array_equal(fs[0]["res"], ONE_BY_ONE["fastsv"][0])
+    log(f"  fastsv: labels bitwise phase 12's and scipy's: {ok}")
+    if not ok:
+        raise AssertionError("elastic fastsv: labels differ from phase 12's")
+    _elastic_lines("fastsv", fs)
+    ms = _per_rank(recs, "hipmcl")
+    _, mref, family_of, one = ONE_BY_ONE["hipmcl_grid"]
+    got = ms[0]["res"]
+    ok = same_partition(got, mref) and same_partition(got, one)
+    log(f"  hipmcl ({GRID_HIPMCL_PROTEINS} proteins): {len(np.unique(got))} "
+        f"clusters, phase 19's float64 MCL partition: {ok}, purity "
+        f"{purity(got, family_of):.4f}")
+    if not ok:
+        raise AssertionError("elastic hipmcl: not the float64 MCL's "
+                             "partition")
+    _elastic_lines("hipmcl", ms)
+    ONE_BY_ONE["elastic_coverage"] = _per_rank(recs, "coverage")
+
+
+def _regrid3d_operands(mesh, n, rows, cols, caps) -> dict:
+    """Phase 22 (b) on a rank: phase 20's operands (L as 'acol' and
+    'brow', the mask as 'csub') on 2x2x2, each regridded to 1x2x2 (global
+    COO before and after); then, on the four ranks that hold 1x2x2, the
+    masked tricount product through ``spgemm_3d`` there (cold)."""
+    from repro_torch.core import comm
+    from repro_torch.core.dist import (DistSpMat3D, grid_all, grid_sum,
+                                       make_grid)
+    from repro_torch.core.mask import structural
+    from repro_torch.core.semiring import ARITHMETIC
+    from repro_torch.core.spgemm import spgemm_3d
+    ones = np.ones(len(rows), np.float32)
+    grid = (1, GRID_Q, GRID_Q)
+    small = make_grid(GRID_Q, GRID_Q, 1)          # every rank: its groups
+    rec, moved = {}, {}
+    comm.reset_stats()
+    with _regrid_clock() as regrids:
+        for d in ("acol", "brow", "csub"):
+            m = DistSpMat3D.from_global_coo((n, n), rows, cols, ones, GRID3,
+                                            d, mesh=mesh)
+            before = _sorted_coo(m.to_global_coo())
+            m1 = m.regrid(grid, mesh=small)
+            del m
+            if m1 is not None:
+                moved[d] = m1
+                rec[d] = all(
+                    x.dtype == y.dtype and np.array_equal(x.view(np.uint8),
+                                                          y.view(np.uint8))
+                    for x, y in zip(before, _sorted_coo(m1.to_global_coo())))
+    rec["regrids"] = regrids
+    if not moved:
+        rec["retired"] = True
+        return rec
+    run = _RankRun(small)
+    c3, ok = spgemm_3d(moved["acol"], moved["brow"], ARITHMETIC, mesh=small,
+                       prod_cap=caps[0], out_cap=caps[1],
+                       mask=structural(moved["csub"]), merge="deferred")
+    live = c3.val.reshape(-1)[:int(c3.nnz.reshape(()))]
+    total = grid_sum(live.double().sum().reshape(1), grid)
+    rec["product"] = run.done(ok=grid_all(ok, grid), count=int(total))
+    return rec
+
+
+def _sorted_coo(coo):
+    r, c, v = coo
+    order = np.lexsort((c, r))
+    return r[order], c[order], v[order]
+
+
+def regrid3d_rank(rank, port, backend, caps, out) -> None:
+    """One rank of phase 22 (b): joins a world of eight, makes the 2x2x2
+    grid and puts its record on ``out``."""
+    import traceback
+    from repro_torch.core import comm
+    from repro_torch.core.dist import make_grid
+    try:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        L, q, _ = GRID3
+        comm.init_world(rank, L * q * q, port, backend)
+        _profiler_warmup()
+        mesh = make_grid(q, q, L)
+        n, r, c = _grid3_lower()
+        out.put((rank, "22b", _regrid3d_operands(mesh, n, r, c, caps)))
+        comm.close_world()
+    except BaseException:                                  # noqa: BLE001
+        out.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _check_regrid3d(recs) -> None:
+    log(f"phase 22 (b), eight ranks on 2x2x2: phase 20's L as 'acol' and "
+        f"'brow' and structural(L) as 'csub', each regridded to 1x2x2 in "
+        f"the same world (ranks 4-7 retire)")
+    for rk, r in enumerate(recs):
+        kept = not r.get("retired")
+        log(f"  rank {rk}: {_regrid_line(r['regrids'])}"
+            + (f"; global COO bitwise before and after: "
+               f"{[r[d] for d in ('acol', 'brow', 'csub')]}" if kept else ""))
+        if kept != (rk < GRID_Q * GRID_Q) or \
+                (kept and not all(r[d] for d in ("acol", "brow", "csub"))):
+            raise AssertionError(f"2x2x2 -> 1x2x2, rank {rk}: kept {kept}, "
+                                 f"records {r}")
+    prods = [r["product"] for r in recs[:GRID_Q * GRID_Q]]
+    counts = set(_per_rank(prods, "count"))
+    log(f"  masked tricount product on 1x2x2 (spgemm_3d, caps "
+        f"{ONE_BY_ONE['caps_122'][:2]}): {sorted(counts)} triangles on "
+        f"ranks 0-3, every ok flag up: {all(_per_rank(prods, 'ok'))}; wall "
+        f"{max(_per_rank(prods, 'wall')) * 1e3:.1f} ms")
+    if counts != {EXPECTED_TRIANGLES} or not all(_per_rank(prods, "ok")):
+        raise AssertionError(f"1x2x2 tricount: {counts}")
+    _rank_lines("1x2x2 tricount product", prods)
+
+
+def elastic_phase(graph, mesh) -> dict:
+    """Phase 22: (a) and (c) on four ranks (2x2 -> 1x1), (b) on eight
+    (2x2x2 -> 1x2x2). Returns segreduce's launches by route on each
+    rank's measured runs (each held on its rank) and the max abs err."""
+    import os
+    import shutil
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
+    ELASTIC_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    for old in ELASTIC_TRACE.parent.glob(f"{ELASTIC_TRACE.stem}.rank*"):
+        old.unlink()
+    torch.cuda.empty_cache()
+    world = GRID_Q * GRID_Q
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=elastic_rank, daemon=True,
+                         args=(rk, port, backend,
+                               ONE_BY_ONE["hipmcl_grid"][0], out))
+             for rk in range(world)]
+    # the ranks' environment names the trace; this process records nothing
+    os.environ["REPRO_TRACE"] = str(ELASTIC_TRACE)
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        del os.environ["REPRO_TRACE"]
+    ranks, errs = _run_ranks(
+        procs, out, {"22a": lambda recs: _check_elastic_grid(recs, mesh,
+                                                              graph)},
+        world, "phase 22 (a)", started=True)
+    _check_elastic_traces(ONE_BY_ONE.pop("elastic_coverage"))
+    n, r, c = _grid3_lower()
+    small = (1, GRID_Q, GRID_Q)
+    ONE_BY_ONE["caps_122"] = caps_3d(r, c, n, small, True)
+    world3 = math.prod(GRID3)
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=regrid3d_rank, daemon=True,
+                         args=(rk, port, backend, ONE_BY_ONE["caps_122"],
+                               out))
+             for rk in range(world3)]
+    ranks3, errs3 = _run_ranks(procs, out, {"22b": _check_regrid3d}, world3,
+                               "phase 22 (b)")
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s; segreduce launches by "
+        f"rank of (a) {ranks} and (b) {ranks3}, each held against the plain "
+        f"version on its rank (max abs err "
+        f"{max(errs['segreduce'], errs3['segreduce']):.3g})")
+    if sum(sum(x.values()) for x in ranks + ranks3) < 1:
+        raise AssertionError("phase 22 launched no segreduce")
+    return {"2x2->1x1": ranks, "2x2x2->1x2x2": ranks3,
+            "max_abs_err": max(errs["segreduce"], errs3["segreduce"])}
 
 
 # --------------------------------------------------------------------------
@@ -4536,12 +4966,15 @@ def main() -> int:
     _routes_zero()
     robust = robust_phase(graph, mesh)
     seg_record["robust_launches_by_route"] = robust
+    elastic = elastic_phase(graph, mesh)
+    seg_record["elastic_launches_by_route"] = elastic
     del graph
     for rec in (seg_record, smm_record):
         rec["max_abs_err"] = max(rec["max_abs_err"], errs[rec["name"]],
                                  errs3[rec["name"]])
     seg_record["max_abs_err"] = max(seg_record["max_abs_err"],
-                                    robust["max_abs_err"])
+                                    robust["max_abs_err"],
+                                    elastic["max_abs_err"])
     log(json.dumps({"kernels": [seg_record, smm_record, fa_record,
                                 bsr_record, ssd_record]}))
     log(smi)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..core.coo import ewise_union
-from ..core.dist import DistSpMat, Grid
+from ..core.dist import DistSpMat, Grid, make_grid
 from ..core.mask import value_mask
 from ..core.matops import (mat_apply_local, mat_ewise_local, mat_reduce,
                            mat_scale_cols, mat_sum, mat_transpose, vec_apply)
@@ -55,17 +55,18 @@ def hipmcl(a: DistSpMat, *, mesh: Grid, inflation: float = 2.0,
     ``prev_sum`` — whose shapes change between iterations, so resume reads
     it through ``restore_flat``; a crashed run resumed with the same
     directory clusters bitwise-identically. ``watchdog`` flags straggling
-    iterations. ``elastic=True`` (regridding in-process after a
-    TopologyError) is not ported yet and raises.
+    iterations.
+
+    ``elastic=True`` survives an in-process TopologyError by moving the
+    loop onto the next smaller square grid of the same world (q →
+    max(q // 2, 1)): the state is global COO, so only the mesh moves and
+    the interrupted iteration re-assembles its iterate there. The ranks
+    the smaller grid leaves out retire; every rank of ``a``'s grid returns
+    the same labels (``CheckpointedLoop.finish``).
     """
-    if elastic:
-        raise NotImplementedError(
-            "hipmcl(elastic=True): in-process regrid is not ported yet "
-            "(ROADMAP.md queue 1, 'checkpoints and elastic state'); resume "
-            "from checkpoint_dir in a new world instead")
-    loop = CheckpointedLoop(checkpoint_dir, every=checkpoint_every,
-                            watchdog=watchdog, name="hipmcl")
     n = a.shape[0]
+    # grid-dependent context, rebuildable so the elastic path can shrink it
+    ctx = {"mesh": mesh, "grid": a.grid}
     c = _normalize_cols(a, mesh=mesh)
     # value-predicate mask (§4.7): entries of the expansion C·C already
     # below the prune threshold are dropped inside the multiply's final
@@ -83,29 +84,47 @@ def hipmcl(a: DistSpMat, *, mesh: Grid, inflation: float = 2.0,
     def unpack_state(state: dict):
         tag = bytes(np.asarray(state["order"])).decode()
         c = DistSpMat.from_global_coo(
-            (n, n), state["rows"], state["cols"], state["vals"], a.grid,
-            mesh=mesh, order=tag if tag in ("row", "col") else "row")
+            (n, n), state["rows"], state["cols"], state["vals"],
+            ctx["grid"], mesh=ctx["mesh"],
+            order=tag if tag in ("row", "col") else "row")
         return c, float(state["prev_sum"])
 
     def body(it, state):
+        mesh2 = ctx["mesh"]
         c, prev_sum = unpack_state(state)
-        c2, _plan = spgemm_planned(c, c, ARITHMETIC, mesh=mesh,
+        c2, _plan = spgemm_planned(c, c, ARITHMETIC, mesh=mesh2,
                                    mask=expansion_mask,
                                    prod_cap=prod_cap, out_cap=out_cap)
         # inflation
         c2 = mat_apply_local(c2, lambda t: t.apply(lambda v: v ** inflation),
-                             mesh=mesh)
-        c2 = _normalize_cols(c2, mesh=mesh)
+                             mesh=mesh2)
+        c2 = _normalize_cols(c2, mesh=mesh2)
         # pruning
         c2 = mat_apply_local(
-            c2, lambda t: t.prune(lambda v: v > prune_threshold), mesh=mesh)
-        c2 = _normalize_cols(c2, mesh=mesh)
+            c2, lambda t: t.prune(lambda v: v > prune_threshold), mesh=mesh2)
+        c2 = _normalize_cols(c2, mesh=mesh2)
         chaos = float(mat_sum(mat_ewise_local(
-            c2, c2, lambda t1, t2: t1.apply(lambda v: v * v), mesh=mesh)))
+            c2, c2, lambda t1, t2: t1.apply(lambda v: v * v), mesh=mesh2)))
         done = (not np.isnan(prev_sum)) and abs(chaos - prev_sum) < tol
         return pack_state(c2, chaos), done
 
+    on_topology = None
+    if elastic:
+        def on_topology(state, err):
+            q = max(ctx["grid"][0] // 2, 1)
+            # global COO: unpack lands it on the new grid
+            ctx.update(mesh=make_grid(q, q, device=mesh.device),
+                       grid=(q, q))
+            return state
+
+    loop = CheckpointedLoop(checkpoint_dir, every=checkpoint_every,
+                            watchdog=watchdog, on_topology=on_topology,
+                            grid=lambda: ctx["grid"], name="hipmcl")
     state = loop.run(pack_state(c, np.nan), body, max_iters)
+    del c
+    if state is None:                            # retired by a shrink
+        return loop.finish(None)
+    mesh = ctx["mesh"]
     c, _ = unpack_state(state)
     # clusters = connected components of the attractor pattern (symmetrized).
     # The union holds up to nnz(C) + nnz(C^T) entries: its capacity is the
@@ -117,4 +136,4 @@ def hipmcl(a: DistSpMat, *, mesh: Grid, inflation: float = 2.0,
     sym = mat_ewise_local(
         c, ct, lambda t1, t2: ewise_union(t1, t2, ARITHMETIC.add),
         mesh=mesh)
-    return fastsv(sym, mesh=mesh)
+    return loop.finish(fastsv(sym, mesh=mesh))

@@ -20,7 +20,19 @@ rank creates the sub-groups in the same order (``GridComm.create``).
 
 The 1x1 grid needs no process group: over an axis of size 1 every
 collective is the identity and is computed as such, so the 1x1 results
-are those of a single process.
+are those of a single process. Every process may use it as its own grid;
+where grid positions are counted (``holds``: a regrid's or a loop's
+retired ranks) its one position is rank 0's.
+
+A grid of ``n`` positions in a world of ``N >= n`` ranks lives on world
+ranks ``0 .. n-1``, as the JAX package's ``make_grid`` takes the first
+``n`` devices; its ``WORLD`` axis is then a group over those ranks. Every
+world rank creates every group of a grid, member or not
+(``torch.distributed.new_group`` is collective over the world); a rank
+past the grid's positions gets a ``GridComm`` with ``member`` False and no
+groups, so it never reaches one of the grid's collectives. That is what
+lets a grid shrink in one world (``DistSpMat.regrid``): the ranks it
+leaves out retire.
 
 Transport follows the process group's backend. NCCL moves CUDA tensors
 directly. Gloo moves host tensors only, so on a gloo group a CUDA payload
@@ -48,6 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..obs import recorder as _obs
 from .coo import COO
 
 PLANE = ("row", "col")
@@ -65,6 +78,7 @@ class GridComm:
     backend: str | None         # None on the 1x1 grid (no process group)
     groups: dict                # axis -> ProcessGroup
     layers: int = 1
+    member: bool = True         # False on a world rank past the grid
 
     @property
     def plane(self) -> int:
@@ -133,15 +147,16 @@ class GridComm:
                 f"init_method='tcp://localhost:<port>', world_size={n}, "
                 "rank=...); none is initialized")
         world = dist.get_world_size()
-        if world != n:
+        if world < n:
             raise RuntimeError(
-                f"a {name} grid needs a world of {n} ranks; "
+                f"a {name} grid needs a world of at least {n} ranks; "
                 f"torch.distributed has {world}")
         rank = dist.get_rank()
         plane = pr * pc
         # every rank creates every group, in this one order: each layer's
         # process rows, then its process columns; then, with several
-        # layers, the layers' planes and the layer axes
+        # layers, the layers' planes and the layer axes; last, in a world
+        # larger than the grid, the grid's ranks
         rows, cols = [], []
         for l in range(layers):
             b = l * plane
@@ -149,17 +164,22 @@ class GridComm:
                          for i in range(pr)])
             cols.append([dist.new_group([b + i * pc + j for i in range(pr)])
                          for j in range(pc)])
-        planes, layer_axes = [dist.group.WORLD], []
+        planes, layer_axes = [], []
         if layers > 1:
             planes = [dist.new_group(range(l * plane, (l + 1) * plane))
                       for l in range(layers)]
             layer_axes = [dist.new_group([l * plane + p
                                           for l in range(layers)])
                           for p in range(plane)]
+        whole = dist.group.WORLD if world == n else dist.new_group(range(n))
+        planes = planes or [whole]
+        if rank >= n:
+            return GridComm(pr, pc, rank, dist.get_backend(), {}, layers,
+                            member=False)
         l, p = divmod(rank, plane)
         i, j = divmod(p, pc)
         groups = {"col": rows[l][i], "row": cols[l][j], PLANE: planes[l],
-                  WORLD: dist.group.WORLD}
+                  WORLD: whole}
         if layer_axes:
             groups["layer"] = layer_axes[p]
         return GridComm(pr, pc, rank, dist.get_backend(), groups, layers)
@@ -171,9 +191,11 @@ _GRIDS: dict = {}
 def init_world(rank: int, world: int, port: int, backend: str) -> None:
     """Join this process to a world of ``world`` ranks on this host
     (``tcp://localhost:<port>``), as rank ``rank``, over ``backend``
-    ('nccl' with a card a rank, 'gloo' otherwise)."""
+    ('nccl' with a card a rank, 'gloo' otherwise). The flight recorder
+    learns the rank, to name this process's trace file."""
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
+    _obs.set_rank(rank, world)
 
 
 def close_world() -> None:
@@ -191,10 +213,30 @@ def world() -> tuple[int, int]:
     return 0, 1
 
 
-def barrier() -> None:
-    """Wait for every rank of the world (free without a process group)."""
-    if world()[1] > 1:
-        dist.barrier()
+def barrier(grid=None) -> None:
+    """Wait for every rank of ``grid`` (a ``(pr, pc)`` or ``(L, pr, pc)``
+    grid; the whole world by default). Free without a process group and on
+    a grid of one position."""
+    if grid is None:
+        if world()[1] > 1:
+            dist.barrier()
+        return
+    g = of(grid)
+    if g.size(WORLD) > 1:
+        dist.barrier(group=g.groups[WORLD])
+
+
+def positions(grid) -> int:
+    """The number of positions of a ``(pr, pc)`` or ``(L, pr, pc)``
+    grid."""
+    L, pr, pc = _key(grid)
+    return L * pr * pc
+
+
+def holds(grid) -> bool:
+    """Whether this process holds a position of ``grid``: its world rank
+    is below the grid's positions (the 1x1 grid's is rank 0's)."""
+    return world()[0] < positions(grid)
 
 
 def _key(grid) -> tuple[int, int, int]:
@@ -206,12 +248,15 @@ def _key(grid) -> tuple[int, int, int]:
 
 def of(grid) -> GridComm:
     """The ``GridComm`` of a ``(pr, pc)`` or ``(L, pr, pc)`` grid on this
-    process, created on first use (a collective: every rank reaches it in
-    the same order). Raises ``RuntimeError`` unless the grid has one
-    position or the world has a rank for each."""
-    key = _key(grid)
+    process, created on first use (a collective: every rank of the world
+    reaches it in the same order). Cached by the grid and the world's size,
+    so a grid of one world is never another's; ``close_world`` forgets
+    them all. Raises ``RuntimeError`` unless the grid has one position or
+    the world has a rank for each; on a rank past the grid's positions the
+    result has ``member`` False."""
+    key = _key(grid) + (world()[1],)
     if key not in _GRIDS:
-        L, pr, pc = key
+        L, pr, pc, _ = key
         _GRIDS[key] = GridComm.create(pr, pc, L)
     return _GRIDS[key]
 
@@ -569,6 +614,26 @@ def tile_all_gather(tile: COO, g: GridComm, axis, *, scale=None):
 # --------------------------------------------------------------------------
 # host views of every rank's data (the same on every rank)
 # --------------------------------------------------------------------------
+
+def broadcast_object(obj, grid, owner: int = 0):
+    """Position ``owner``'s picklable ``obj`` on every rank of ``grid``:
+    its pickled size, then its bytes, in two broadcasts over ``WORLD``
+    (host tensors on gloo, the current card's on NCCL)."""
+    g = of(grid)
+    if g.size(WORLD) == 1:
+        return obj
+    import pickle
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if g.backend == "nccl" else torch.device("cpu")
+    mine = g.index(WORLD) == owner
+    data = pickle.dumps(obj) if mine else b""
+    n = broadcast(torch.tensor([len(data)], dtype=torch.int64, device=dev),
+                  g, WORLD, owner)
+    buf = torch.frombuffer(bytearray(data), dtype=torch.uint8) if mine \
+        else torch.empty(int(n[0]), dtype=torch.uint8)
+    buf = broadcast(buf.to(dev), g, WORLD, owner)
+    return obj if mine else pickle.loads(buf.cpu().numpy().tobytes())
+
 
 def gather_grid(x: torch.Tensor, grid):
     """Every rank's ``x`` as one host array shaped ``grid + x.shape`` (the

@@ -25,7 +25,10 @@ Load balance (paper §2.3/§6): ``random_permute=True`` at assembly applies a
 seeded random row+column permutation — CombBLAS's standard trick.
 
 A grid of several positions needs ``torch.distributed`` initialized with
-one rank a position (``make_grid``); the 1x1 grid needs no process group.
+a rank a position (``make_grid``); the 1x1 grid needs no process group. A
+grid may be smaller than the world: it lives on world ranks ``0 .. n-1``
+(``core/comm.py``), and ``regrid`` moves a matrix onto such a grid in the
+same world (an elastic shrink) or back onto a larger one (a grow).
 """
 from __future__ import annotations
 
@@ -45,10 +48,18 @@ def _ceil(a, b):
     return -(-a // b)
 
 
-def _check_grid(pr: int, pc: int) -> comm.GridComm:
-    """This process's place in the grid; a grid of several positions
-    raises ``RuntimeError`` unless the world has one rank a position."""
-    return comm.of((pr, pc))
+def _check_grid(*grid) -> comm.GridComm:
+    """This process's place in a ``(pr, pc)`` or ``(L, pr, pc)`` grid; a
+    grid of several positions raises ``RuntimeError`` unless the world has
+    a rank for each and this rank holds one (no tile lives off the
+    grid)."""
+    g = comm.of(grid)
+    if not g.member:
+        raise RuntimeError(
+            f"rank {g.rank} holds no position of the "
+            f"{'x'.join(map(str, grid))} grid (its ranks are 0 .. "
+            f"{comm.positions(grid) - 1}): no tile lives here")
+    return g
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,11 +78,14 @@ def make_grid(pr: int, pc: int, layers: int = 1, *, device=None) -> Grid:
     ('row', 'col'), or ('layer', 'row', 'col') with ``layers`` > 1.
 
     A grid of several positions needs ``torch.distributed`` initialized
-    with ``layers * pr * pc`` ranks; each rank calls ``make_grid`` (it
-    creates the row, column and layer groups, a collective) and is grid
-    position ``(l, i, j)``, row-major (``divmod(rank, pc)`` on one layer).
-    The device is ``cuda:(rank % device_count)`` unless the caller asks
-    for another (``device='cpu'``).
+    with at least ``layers * pr * pc`` ranks; every rank of the world calls
+    ``make_grid`` (it creates the row, column and layer groups, a
+    collective), and rank r below the grid's positions is grid position
+    ``(l, i, j)``, row-major (``divmod(rank, pc)`` on one layer), as the
+    JAX package's mesh takes the first devices. A rank past them gets the
+    grid's handle but holds no tile (``comm.holds``). The device is
+    ``cuda:(rank % device_count)`` unless the caller asks for another
+    (``device='cpu'``).
     """
     g = comm.of((layers, pr, pc))
     if device is None and layers * pr * pc > 1 and torch.cuda.is_available():
@@ -204,8 +218,13 @@ class DistSpMat:
             counts = counts[g.rank:g.rank + 1]
         lr = (rows % mb).astype(np.int32)
         lc = (cols % nb).astype(np.int32)
-        within_keys = (lc, lr) if order == "row" else (lr, lc)
-        perm = np.lexsort(within_keys + (tid,))
+        # this rank keeps one tile (tid is 0 throughout): its entries by
+        # (row, col), or (col, row), stably, as np.lexsort orders them, but
+        # in one sort of one int64 key (local indices are below 2^31)
+        major, minor, width = (lr, lc, nb) if order == "row" else \
+            (lc, lr, mb)
+        perm = np.argsort(major.astype(np.int64) * width + minor,
+                          kind="stable")
         tid, lr, lc, vals_s = tid[perm], lr[perm], lc[perm], vals[perm]
         ntile = len(counts)
         starts = np.zeros(ntile, np.int64)
@@ -267,6 +286,42 @@ class DistSpMat:
         return (np.concatenate(rows), np.concatenate(cols),
                 np.concatenate(vals))
 
+    @_obs.timed("dist.regrid")
+    def regrid(self, grid, *, mesh: Grid = None, cap: int | None = None,
+               pad: float = 1.25) -> "DistSpMat | None":
+        """Re-distribute onto a new process grid (elastic shrink/grow).
+
+        Round-trips through global COO and the normal assembly path, as
+        the JAX package does, so entry values are bit-identical, the
+        ``order`` tag is preserved ('none' tightens to 'row' — assembly
+        sorts anyway), and the tile capacity is re-planned for the new
+        tiling unless ``cap`` is given. The tiles land on ``mesh.device``.
+
+        A grid position is a process, so the new grid is world ranks ``0
+        .. n-1`` (``core/comm.py``). The call is collective over every rank
+        of the larger of the two grids: every rank of the world first
+        creates the new grid's groups (``comm.of``, collective over the
+        world, so a rank outside both grids calls ``comm.of(grid)``
+        alone), then the old grid's ranks gather the global COO.
+
+        - Shrink: a rank the new grid leaves out gets ``None`` (it
+          retires); the others get their tile.
+        - Grow: a rank that holds no position of the old grid calls
+          :meth:`join` instead (a rank holding a 1x1 copy of its own may
+          call ``regrid``: only rank 0's is read); rank 0 broadcasts the
+          global COO over the new grid, and every rank of it gets its tile.
+        """
+        return _regrid(self, grid, mesh=mesh, cap=cap, pad=pad)
+
+    @staticmethod
+    @_obs.timed("dist.regrid")
+    def join(grid, *, mesh: Grid = None, cap: int | None = None,
+             pad: float = 1.25) -> "DistSpMat":
+        """:meth:`regrid`'s partner on a rank that holds no position of the
+        old grid, in a grow: its tile of the new grid, assembled from the
+        global COO rank 0 broadcasts."""
+        return _regrid(None, grid, mesh=mesh, cap=cap, pad=pad)
+
     def to_dense(self, zero=0.0) -> np.ndarray:
         r, c, v = self.to_global_coo()
         out = np.full(self.shape + tuple(self.val.shape[3:]), zero, v.dtype)
@@ -305,7 +360,7 @@ class DistSpMat3D:
     order: str = "none"
 
     def __post_init__(self):
-        comm.of(self.grid)
+        _check_grid(*self.grid)
 
     @property
     def L(self):
@@ -369,7 +424,7 @@ class DistSpMat3D:
         the fullest tile of the grid, rounded up to 8."""
         L, q, _ = grid
         M, N = shape
-        g = comm.of(grid)
+        g = _check_grid(*grid)
         rows = np.asarray(rows, np.int64)
         cols = np.asarray(cols, np.int64)
         vals = np.asarray(vals)
@@ -404,7 +459,8 @@ class DistSpMat3D:
         lr = lr[mine].astype(np.int32)
         lc = lc[mine].astype(np.int32)
         vals = vals[mine]
-        order = np.lexsort((lc, lr))
+        order = np.argsort(lr.astype(np.int64) * tc + lc,   # lexsort's
+                           kind="stable")                      # order
         n = len(order)
         R = np.full((1, 1, 1, cap), SENTINEL, np.int32)
         Cc = np.full((1, 1, 1, cap), SENTINEL, np.int32)
@@ -439,13 +495,57 @@ class DistSpMat3D:
         return (np.concatenate(rows), np.concatenate(cols),
                 np.concatenate(vals))
 
-    def regrid(self, grid, **kw):
-        """Not in the port: a grid position is a process, so a lost layer
-        means a new world — the design of ROADMAP.md's "checkpoints and
-        elastic state" item."""
-        raise NotImplementedError(
-            "DistSpMat3D.regrid waits for ROADMAP.md's 'checkpoints and "
-            "elastic state' item (in the port a lost layer is a new world)")
+    @_obs.timed("dist.regrid3d")
+    def regrid(self, grid, *, mesh: Grid = None, cap: int | None = None,
+               pad: float = 1.25, dist: str | None = None
+               ) -> "DistSpMat3D | None":
+        """Re-distribute onto a new (L, q, q) grid (elastic shrink/grow).
+
+        The 3D analogue of :meth:`DistSpMat.regrid`, with its collectives
+        and its ``None`` on a rank the new grid leaves out — a
+        replication-layer loss regrids (2, q, q) → (1, q, q) through global
+        COO and the normal assembly path. ``dist`` defaults to the current
+        distribution style; capacity is re-planned unless ``cap`` is
+        given. In a grow, a rank new to the grid calls :meth:`join`.
+        """
+        return _regrid(self, grid, mesh=mesh, cap=cap, pad=pad, dist=dist)
+
+    @staticmethod
+    @_obs.timed("dist.regrid3d")
+    def join(grid, *, mesh: Grid = None, cap: int | None = None,
+             pad: float = 1.25, dist: str | None = None) -> "DistSpMat3D":
+        """:meth:`regrid`'s partner on a rank new to the grid (a grow)."""
+        return _regrid(None, grid, mesh=mesh, cap=cap, pad=pad, dist=dist)
+
+
+def _regrid(m, grid, *, mesh, cap, pad, dist=None):
+    """``m`` (this rank's matrix; None on a rank that joins) re-assembled
+    on ``grid`` through its global COO: this rank's matrix of the new grid,
+    or None on a rank the new grid leaves out (``DistSpMat.regrid``)."""
+    grid = tuple(int(x) for x in grid)
+    comm.of(grid)                   # the new grid's groups, on every rank
+    in_old = m is not None and comm.holds(m.grid)
+    in_new = comm.holds(grid)
+    src = None
+    if in_old:
+        rows, cols, vals = m.to_global_coo()    # over the old grid
+        three = isinstance(m, DistSpMat3D)
+        head = (m.shape, m.dist if three else m.order,
+                tuple(m.val.shape[m.row.ndim:]))            # vdims
+        src = (three, head, rows, cols, vals)
+    if in_new and (not in_old or
+                   comm.positions(grid) > comm.positions(m.grid)):
+        src = comm.broadcast_object(src, grid)  # a grow: rank 0's COO
+    if not in_new:
+        return None
+    three, (shape, tag, vdims), rows, cols, vals = src
+    if three:
+        return DistSpMat3D.from_global_coo(
+            shape, rows, cols, vals, grid, dist or tag, mesh=mesh, cap=cap,
+            pad=pad)
+    return DistSpMat.from_global_coo(
+        shape, rows, cols, vals, grid, mesh=mesh, cap=cap, pad=pad,
+        vdims=vdims, order=tag if tag in ("row", "col") else "row")
 
 
 def _block_sizes(shape, L, q, dist):
@@ -626,7 +726,8 @@ def save_spmat(ckpt_dir: str, step: int, m, *, keep: int = 3) -> str:
     The matrix is saved as *global COO* plus metadata — not as grid-shaped
     tiles — so :func:`restore_spmat` can re-assemble it onto any grid, in
     this world or a new one (saved on 2x2, restored on 1x1). On a grid
-    every rank gathers the COO and rank 0 writes.
+    every rank gathers the COO, rank 0 writes and the grid's ranks wait
+    for it.
     """
     from ..train.checkpoint import save_checkpoint
     rows, cols, vals = m.to_global_coo()
@@ -636,7 +737,7 @@ def save_spmat(ckpt_dir: str, step: int, m, *, keep: int = 3) -> str:
             "kind": np.frombuffer(type(m).__name__.encode(), np.uint8)}
     if isinstance(m, DistSpMat3D):
         tree["dist"] = np.frombuffer(m.dist.encode(), np.uint8)
-    return save_checkpoint(ckpt_dir, step, tree, keep=keep)
+    return save_checkpoint(ckpt_dir, step, tree, keep=keep, grid=m.grid)
 
 
 @_obs.timed("dist.ckpt_restore")

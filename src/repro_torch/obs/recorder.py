@@ -16,12 +16,22 @@ names, so traces of the two packages read alike. Design rules:
    data sizes and control-flow decisions (caps, retry counts), so two
    identically-seeded runs produce identical totals.
 
-Enable with :func:`enable` or the scoped :func:`capture`.
+Enablement, as in the JAX package: ``REPRO_TRACE=<path>`` (Chrome-trace
+dump at exit, ``export.py``) or ``REPRO_OBS=1`` (record and
+``snapshot()`` only) at import, or :func:`enable` / the scoped
+:func:`capture` at runtime. The port's ranks are processes that share one
+environment, so ``REPRO_TRACE`` names one path for all of them: a process
+that joined a world of several ranks (``core/comm.py::init_world`` calls
+:func:`set_rank`) writes ``<stem>.rank<r><suffix>`` beside it, one file a
+rank (``trace.json`` -> ``trace.rank0.json``, ``trace.rank1.json``, ...).
+
+This module imports nothing of the port (robust and core import it).
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import os
 import sys
 import threading
 import time
@@ -32,18 +42,27 @@ _tls = threading.local()
 
 _enabled = False                 # THE fast-path check — one module global
 _epoch_perf = 0.0                # perf_counter() at enable-time (t=0)
+_epoch_wall = 0.0                # matching wall-clock epoch (seconds)
+_rank = None                     # (rank, world) once this process joined one
 
 # finished spans: (name, tid, t0, dur, depth, attrs)   [t0 rel. epoch_perf]
 _spans: list[tuple] = []
 # instant events: (name, tid, t, attrs)
 _events: list[tuple] = []
-# counters: monotonic totals
+# counters: monotonic totals + a (name, t, total) series for counter
+# tracks; gauges: last value by name, every setting in the same series
 _counters: dict[str, float] = {}
-# gauges: last value by name, and every setting as (name, t, value)
-_gauges: dict[str, float] = {}
 _counter_series: list[tuple] = []
+_gauges: dict[str, float] = {}
 
 _MAX_RECORDS = 1_000_000         # backstop against unbounded growth
+
+
+def tracing() -> bool:
+    """False: the JAX package's guard against hooks reached from inside
+    jax tracing (jit, shard_map, scan). The port runs eagerly, so a hook is
+    never called from inside a trace."""
+    return False
 
 
 def enabled() -> bool:
@@ -52,11 +71,10 @@ def enabled() -> bool:
 
 
 def recording() -> bool:
-    """True when hooks should record. Guard any host transfer made only
-    for observability with it (summing ``nnz`` for the payload-byte
-    counters). The port runs eagerly, so this is :func:`enabled`: there is
-    no trace to skip."""
-    return _enabled
+    """True when hooks should record: enabled and not tracing (never, in
+    the port). Guard any host transfer made only for observability with it
+    (summing ``nnz`` for the payload-byte counters)."""
+    return _enabled and not tracing()
 
 
 # --------------------------------------------------------------------------
@@ -148,11 +166,15 @@ def sync(device) -> None:
 # --------------------------------------------------------------------------
 
 def counter_add(name: str, value: float = 1):
-    """Add to a monotonic counter."""
+    """Add to a monotonic counter (also sampled for the trace track)."""
     if not _enabled:
         return
+    t = time.perf_counter() - _epoch_perf
     with _lock:
-        _counters[name] = _counters.get(name, 0) + value
+        total = _counters.get(name, 0) + value
+        _counters[name] = total
+        if len(_counter_series) < _MAX_RECORDS:
+            _counter_series.append((name, t, total))
 
 
 def gauge_set(name: str, value: float):
@@ -196,12 +218,37 @@ def events(name: str | None = None) -> list[dict]:
 # --------------------------------------------------------------------------
 
 def enable():
-    """Start recording (idempotent). The epoch anchors timestamps."""
-    global _enabled, _epoch_perf
+    """Start recording (idempotent). The epoch anchors trace timestamps."""
+    global _enabled, _epoch_perf, _epoch_wall
     if _enabled:
         return
     _epoch_perf = time.perf_counter()
+    _epoch_wall = time.time()
     _enabled = True
+
+
+def disable():
+    """Stop recording; what was recorded stays."""
+    global _enabled
+    _enabled = False
+
+
+def set_rank(rank: int, world: int):
+    """Note this process's rank in a world of ``world`` ranks: its trace
+    file takes the rank in its name (kept after the world is left, for the
+    dump at exit)."""
+    global _rank
+    _rank = (int(rank), int(world))
+
+
+def trace_path(path: str) -> str:
+    """Where this process writes the trace that ``REPRO_TRACE=path``
+    names: ``path`` itself, or ``<stem>.rank<r><suffix>`` in a world of
+    several ranks."""
+    if _rank is None or _rank[1] <= 1:
+        return path
+    stem, suffix = os.path.splitext(path)
+    return f"{stem}.rank{_rank[0]}{suffix}"
 
 
 def reset():
@@ -219,9 +266,10 @@ def reset():
 def capture():
     """Scoped recording into fresh buffers; prior state restored on exit.
 
-    ``with recorder.capture() as rec: ... rec.snapshot()`` never leaks
-    spans into (or inherits spans from) the surrounding run. Yields this
-    module.
+    ``with obs.capture() as rec: ... rec.snapshot()`` never leaks spans
+    into (or inherits spans from) the surrounding run. Yields the
+    ``repro_torch.obs`` package, so callers can ``rec.snapshot()``,
+    ``rec.coverage(...)``, ``rec.trace_events()``, ``rec.write_trace(path)``.
     """
     global _enabled
     with _lock:
@@ -235,7 +283,7 @@ def capture():
     _enabled = False
     enable()
     try:
-        yield sys.modules[__name__]
+        yield sys.modules[__package__]
     finally:
         with _lock:
             _enabled = saved[0]
@@ -260,15 +308,21 @@ def _percentile(sorted_vals: list[float], q: float) -> float:
 
 
 def snapshot() -> dict[str, Any]:
-    """Plain-dict summary: per-site span stats + counter totals.
+    """Plain-dict summary: per-site span stats + counter/gauge totals.
 
     ``{"spans": {site: {count, total_us, p50_us, p99_us}},
-       "counters": {...}, "events": {name: count}}``
+       "counters": {...}, "gauges": {...}, "events": {name: count},
+       "deadline": {site: {n, median_s, budget_s, trips}}}``
+
+    The deadline section is pulled live from ``robust/deadline``'s active
+    guard (a lazy import: obs stays free of the port's other modules), and
+    is left out when no guard has a site.
     """
     with _lock:
         spans = list(_spans)
         evs = list(_events)
         cts = dict(_counters)
+        gs = dict(_gauges)
     per_site: dict[str, list[float]] = {}
     for name, _tid, _t0, dur, _depth, _attrs in spans:
         per_site.setdefault(name, []).append(dur * 1e6)
@@ -284,4 +338,74 @@ def snapshot() -> dict[str, Any]:
     ev_counts: dict[str, int] = {}
     for name, _tid, _t, _attrs in evs:
         ev_counts[name] = ev_counts.get(name, 0) + 1
-    return {"spans": span_stats, "counters": cts, "events": ev_counts}
+    out = {"spans": span_stats, "counters": cts, "gauges": gs,
+           "events": ev_counts}
+    dl = _deadline_stats()
+    if dl:
+        out["deadline"] = dl
+    return out
+
+
+def _deadline_stats() -> dict:
+    from ..robust import deadline
+    g = deadline.active_guard()
+    if g is None:
+        return {}
+    return {site: g.stats(site) for site in g.sites()}
+
+
+def coverage(parent: str) -> float:
+    """Fraction of ``parent`` span time covered by directly-nested spans.
+
+    For every finished span named ``parent``, sums the durations of spans
+    one level deeper on the same thread whose window falls inside the
+    parent's, and divides by the summed parent durations (the JAX
+    package's definition).
+    """
+    with _lock:
+        spans = list(_spans)
+    parents = [(tid, t0, dur, depth) for name, tid, t0, dur, depth, _ in spans
+               if name == parent]
+    if not parents:
+        return 0.0
+    total = sum(p[2] for p in parents)
+    covered = 0.0
+    for name, tid, t0, dur, depth, _ in spans:
+        if name == parent:
+            continue
+        for ptid, pt0, pdur, pdepth in parents:
+            if tid == ptid and depth == pdepth + 1 \
+                    and pt0 <= t0 and t0 + dur <= pt0 + pdur + 1e-9:
+                covered += dur
+                break
+    return covered / max(total, 1e-12)
+
+
+def _raw_records():
+    """(spans, events, counter_series, epoch_wall) for the trace export."""
+    with _lock:
+        return (list(_spans), list(_events), list(_counter_series),
+                _epoch_wall)
+
+
+# --------------------------------------------------------------------------
+# environment init (REPRO_TRACE=<path> | REPRO_OBS=1)
+# --------------------------------------------------------------------------
+
+def _env_init():
+    path = os.environ.get("REPRO_TRACE", "").strip()
+    if path:
+        enable()
+        import atexit
+
+        def _dump(path=path):
+            # lazy: export imports this module
+            from . import export
+            export.write_trace(trace_path(path))
+
+        atexit.register(_dump)
+    elif os.environ.get("REPRO_OBS", "").strip() not in ("", "0"):
+        enable()
+
+
+_env_init()

@@ -189,6 +189,14 @@ def postfilter_spvec(y, mask):
 _DONE_KEY = "__loop_done__"
 
 
+def _release_cache():
+    """Hand the card's cached blocks back (a retired rank computes no
+    more; its peers may share the card)."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 class CheckpointedLoop:
     """Per-iteration checkpoint/resume for iterative graph apps.
 
@@ -219,6 +227,17 @@ class CheckpointedLoop:
         process (on another grid if it must: the state dicts are global
         arrays) and ``resume()`` picks up from the checkpoint.
 
+    **On a grid** (``grid``: a callable returning the grid the body runs
+    on now, as the app's context holds it) a grid position is a process.
+    Every decision above is taken alike on every rank, so the hook runs on
+    every rank of the old grid; when it moves the loop onto a smaller grid
+    of the same world (world ranks ``0 .. n-1``, ``DistSpMat.regrid``), a
+    rank the new grid leaves out retires: ``run`` returns None there (and
+    the card's cached memory is released). Checkpoints are written and
+    waited for over the current grid. The app ends in :meth:`finish`:
+    after a topology event every rank of the loop's first grid returns
+    rank 0's answer, by one broadcast over that grid.
+
     Persistent stragglers get the same treatment one tier down: after
     ``straggler_patience`` consecutive over-budget iterations, the optional
     ``on_straggler(it, elapsed)`` hook fires and the watchdog is reset to
@@ -228,9 +247,13 @@ class CheckpointedLoop:
     def __init__(self, ckpt_dir: str | None = None, *, every: int = 1,
                  keep: int = 3, watchdog=None, on_topology=None,
                  max_topology_events: int = 2, on_straggler=None,
-                 straggler_patience: int = 3, name: str = "loop"):
+                 straggler_patience: int = 3, grid=None,
+                 name: str = "loop"):
         # ``name`` labels this loop's span site (``<name>.iter``)
         self.name = name
+        self.grid = grid
+        self._first = None              # the grid the last run started on
+        self._topo = 0                  # its topology events
         self.ckpt_dir = ckpt_dir
         self.every = max(int(every), 1)
         self.keep = keep
@@ -252,13 +275,36 @@ class CheckpointedLoop:
         done = bool(np.asarray(restored.pop(_DONE_KEY, False)))
         return (-1 if done else step + 1), restored
 
+    def _current(self):
+        return None if self.grid is None else tuple(self.grid())
+
     def _save(self, it: int, state: dict, done: bool):
         from ..train.checkpoint import save_checkpoint
         tree = dict(state)
         tree[_DONE_KEY] = np.asarray(done)
-        save_checkpoint(self.ckpt_dir, it, tree, keep=self.keep)
+        save_checkpoint(self.ckpt_dir, it, tree, keep=self.keep,
+                        grid=self._current())
 
-    def run(self, state: dict, body, max_iters: int) -> dict:
+    def _retired(self) -> bool:
+        """Whether the hook moved the loop onto a grid that leaves this
+        rank out (the 1x1 grid a loop starts on is its own process's)."""
+        from ..core import comm
+        first = self._first
+        return first is not None and comm.positions(first) > 1 \
+            and not comm.holds(self._current())
+
+    def finish(self, result):
+        """``result`` as rank 0 has it, on every rank of the grid the last
+        ``run`` started on: after a topology event, by one broadcast over
+        that grid (a retired rank passes None); else ``result`` itself."""
+        from ..core import comm
+        if not self._topo or self._first is None \
+                or comm.positions(self._first) == 1:
+            return result
+        return comm.broadcast_object(result, self._first)
+
+    def run(self, state: dict, body, max_iters: int) -> dict | None:
+        self._first, self._topo = self._current(), 0
         start, state = self.resume(state)
         if start < 0:                       # checkpointed run already done
             return state
@@ -293,7 +339,11 @@ class CheckpointedLoop:
                 _obs.event("loop.topology", loop=self.name, it=it,
                            error=str(err), n=topo_events)
                 _obs.counter_add("loop.topology_events")
+                self._topo = topo_events
                 state = self.on_topology(state, err)
+                if self._retired():
+                    _release_cache()
+                    return None
                 if wd is not None:
                     wd.reset()              # old-grid step times are stale
                 continue                    # re-run the SAME iteration

@@ -23,10 +23,13 @@ fault site exercises this).
 
 On a grid of several ranks the state is global arrays, the same on every
 rank: rank 0 writes (the others count each leaf's ``checkpoint.leaf``
-activation, so armed faults stay in step), a barrier follows, and every
-rank reads. ``restore_checkpoint`` takes a ``like`` tree only: placing the
-leaves on a mesh (the JAX package's ``mesh``/``specs``) waits for the
-port's sharding layer.
+activation, so armed faults stay in step), a barrier over the grid's
+ranks follows, and every rank reads. The barrier spans the grid the
+caller names (``grid``), not the torch world: after an elastic shrink to
+1x1 in a world of four, rank 0 writes and waits for no retired rank.
+``restore_checkpoint`` takes a ``like`` tree only: placing the leaves on
+a mesh (the JAX package's ``mesh``/``specs``) waits for the port's
+sharding layer.
 """
 from __future__ import annotations
 
@@ -97,9 +100,12 @@ def _leaf_crc(arr: np.ndarray) -> int:
 
 
 @_obs.timed("ckpt.save")
-def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3):
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
+                    grid=None):
     """Write ``tree`` as step ``step`` of ``ckpt_dir``; returns the step's
-    directory. On a grid rank 0 writes and every rank waits for it."""
+    directory. Rank 0 writes and the ranks of ``grid`` (a ``(pr, pc)`` or
+    ``(L, pr, pc)`` grid; the whole world by default) wait for it; on a
+    grid of one position no rank waits."""
     rank, _ = comm.world()
     name = f"step_{step:08d}"
     final = os.path.join(ckpt_dir, name)
@@ -107,7 +113,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3):
     if rank != 0:
         for _ in leaves:
             _faults.fire(LEAF_SITE)
-        comm.barrier()
+        comm.barrier(grid)
         return final
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, name + ".tmp")
@@ -138,7 +144,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3):
     for s in steps[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"),
                       ignore_errors=True)
-    comm.barrier()
+    comm.barrier(grid)
     return final
 
 

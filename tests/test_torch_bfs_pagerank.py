@@ -158,12 +158,24 @@ def test_pagerank(pagerank_run):
 
 
 def test_pagerank_refuses_what_is_not_ported(pagerank_run):
-    """In-process regrid (``elastic=True``) is all that is left to port;
-    checkpoints and the watchdog run (``tests/test_torch_checkpoint.py``)."""
+    """``elastic=True`` on 1x1: two device losses are survived in-process
+    (the interrupted iteration re-runs, r bitwise the uninterrupted run's);
+    a third, past ``max_topology_events``, is refused as in the JAX
+    package: the TopologyError propagates."""
+    import warnings
+    from repro_torch.robust import faults
+    from repro_torch.robust.deadline import TopologyError
     _, ta, _, _ = pagerank_run
     tmesh = t_make_grid(1, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_pagerank(ta, mesh=tmesh, elastic=True)
+    want = t_pagerank(ta, mesh=tmesh)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with faults.inject("loop.device_loss:crash:at=3,count=2"):
+            got = t_pagerank(ta, mesh=tmesh, elastic=True)
+        np.testing.assert_array_equal(got, want)
+        with faults.inject("loop.device_loss:crash:at=3,count=3"), \
+                pytest.raises(TopologyError, match="injected device loss"):
+            t_pagerank(ta, mesh=tmesh, elastic=True)
 
 
 def test_checkpointed_loop_bare_run():

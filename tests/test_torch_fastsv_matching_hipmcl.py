@@ -148,12 +148,23 @@ def test_fastsv_skew_aware(fastsv_runs, tmesh):
 
 @pytest.mark.parametrize("app", ["fastsv", "hipmcl"])
 def test_refuses_what_is_not_ported(fastsv_runs, tmesh, app):
-    """In-process regrid (``elastic=True``) is all that is left to port;
-    checkpoints and the watchdog run (``tests/test_torch_checkpoint.py``)."""
+    """``elastic=True`` on 1x1: two device losses are survived in-process
+    (the labels the uninterrupted run's); a third, past
+    ``max_topology_events``, is refused: the TopologyError propagates."""
+    import warnings
+    from repro_torch.robust import faults
+    from repro_torch.robust.deadline import TopologyError
     ta = fastsv_runs["two_components"][0]
     fn = {"fastsv": fastsv, "hipmcl": hipmcl}[app]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        fn(ta, mesh=tmesh, elastic=True)
+    want = fn(ta, mesh=tmesh)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with faults.inject("loop.device_loss:crash:at=2,count=2"):
+            got = fn(ta, mesh=tmesh, elastic=True)
+        np.testing.assert_array_equal(got, want)
+        with faults.inject("loop.device_loss:crash:at=2,count=3"), \
+                pytest.raises(TopologyError, match="injected device loss"):
+            fn(ta, mesh=tmesh, elastic=True)
 
 
 # --------------------------------------------------------------------------

@@ -168,9 +168,9 @@ def _port_errors(F, a3, b3, m3):
             F.spgemm.spgemm_3d(a3, b8, **kw)
         except ValueError as e:
             errs["grids"] = str(e)
-    try:
-        m3.regrid((1, q, q))
-    except NotImplementedError as e:
+    try:                                # a grid larger than the world
+        m3.regrid((2 * L, q, q), mesh=F.mesh)
+    except RuntimeError as e:
         errs["regrid"] = str(e)
     return errs
 
@@ -272,5 +272,5 @@ def test_refusals(results):
     assert "MaskSpec.mat3" in errs["mask2d"]
     assert "different grids" in errs["grids"]
     for grid in GRIDS:
-        assert "checkpoints and elastic state" in \
+        assert "needs a world of at least" in \
             port[grid][0]["port:errors"]["regrid"]
