@@ -42,8 +42,10 @@ Phases (any failure exits non-zero and prints no result line):
    held against scipy, with their segreduce launches by route;
 6. flash_attention vs plain: the attention kernel against its plain version
    over causal and not, f32 and bf16, ragged S (130 and 2080 leave a ragged
-   128-row tile), head dims 16-128, GQA and Skv beside S, with times at
-   (4, 2048, 16, 128) bf16 causal beside the bound and
+   128-row tile), head dims 16-128, GQA and Skv beside S, MLA's d = 192
+   with dv = 128 (causal) and hubert's d = 80 (not), with times at phase
+   7's (4, 2048, 16, 128) bf16 causal and at phases 23-25's shapes
+   (``FLASH_PATHS``) beside the bound and
    ``F.scaled_dot_product_attention``;
 7. serve: qwen2-moe-a2.7b at full width and depth (24 layers, bf16
    parameters from ``init_params(seed=0)``) through ``greedy_generate``:
@@ -52,17 +54,43 @@ Phases (any failure exits non-zero and prints no result line):
    profile of one prefill and one decode step, and a teacher-forced forward
    against the decode-step logits, with the config's capacity and with one
    that drops no token;
-6b. bsr_spmm vs plain (after phase 7, whose operands it takes): the
-   blocked-ELL kernel against its plain version on layer 0's ``we_g`` and
-   ``we_2`` products of phase 7's prefill and ``we_g`` of its first decode
-   step, and on random blocked-ELL operands (K up to 4, ids past the last
-   block, rows of padding alone, bk = 48), with times at the three shapes
-   beside the bound and ``torch.bmm``;
+6b. bsr_spmm vs plain (after phases 7 and 23, whose operands it takes):
+   the blocked-ELL kernel against its plain version on layer 0's ``we_g``
+   and ``we_2`` products of each one's prefill (C = 640 and 960 rows an
+   expert) and ``we_g`` of its first decode step, and on random
+   blocked-ELL operands (K up to 4, ids past the last block, rows of
+   padding alone, bk = 48, C = 960), with times at the six shapes beside
+   the bound and ``torch.bmm``;
 7b. kernels against plain versions end to end: qwen2-moe-a2.7b cut to 2
    layers (every width kept) in f32, ``greedy_generate`` on the CPU (plain
-   versions) and on the card (kernels) from the same parameters; then, on
-   the card with a capacity that drops no token, the decode-step logits
-   against a teacher-forced forward;
+   versions) and on the card (kernels) from the same parameters (made on
+   the card, copied to the host); then, on the card with a capacity that
+   drops no token, the decode-step logits against a teacher-forced
+   forward;
+23. serve: deepseek-v2-lite-16b (MLA) at full width and depth (27 layers,
+   16.2 B bf16 parameters) through ``greedy_generate`` with phase 7's
+   traffic: cold and warm prefill, decode per token, peak memory, launches
+   per forward by kernel (flash_attention at d = 192, dv = 128; bsr_spmm
+   at C = 960), the cold run's first attention call held against the
+   plain version, the MLA cache's bytes beside a cache of the same heads'
+   k and v, a teacher-forced forward against the decode-step logits, a
+   profile of one prefill and one decode step; 23b: the 2-layer f32 cut,
+   as 7b;
+24. serve: qwen2-vl-7b at full width and depth (28 layers) with an image:
+   batch 4, a 2,048-token prompt whose first 512 positions are a 16 x 32
+   grid of patches (``vision_embeds`` from ``default_rng(0)``), pos3 with
+   t = 0 and (h, w) on the grid for the image and t = h = w = the position
+   for the text; the prefill through ``Model.forward(batch, caches=...)``,
+   then 32 text decode steps through ``make_serve_step``; the figures of
+   phase 23. 24b: the 2-layer f32 cut with a 64-token prompt after the
+   512 patches, card against CPU, then the decode logits against a
+   teacher-forced forward;
+25. encode: hubert-xlarge at full width and depth (48 layers) over 8 clips
+   of 1,500 frames (30 s at 50 frames/s) through ``Model.forward``: cold
+   and warm wall, peak, flash_attention launches (d = 80, non-causal),
+   the first attention call held, logits finite over the padded 512
+   units, a profile; 25b: the 2-layer f32 cut over 2 clips, card against
+   CPU. Each model is freed before the next;
 8. ssd_chunk vs plain: the SSD intra-chunk kernels against their plain
    version at phase 9's prefill shape (G, q, H, P, N) = (64, 128, 80, 64,
    128) in bf16 (the tensor-core route) and f32 (the FMA route), the smoke
@@ -232,6 +260,10 @@ against the plain version on the same inputs (phase 2's tolerance) and
 timed like phase 3's calls, and the calls by route must equal the launches
 the phase counted.
 
+Phases run in the order 1, 2, 2b, 3-5, 10-13, 15, 14, 6, 7, 23, 6b, 7b,
+23b, 24, 24b, 25, 25b, 8, 9, 9b, 16-22; the script prints its wall last
+before the records.
+
 Phases 2-5 and 10-15 fail if a sorted-route launch saw its ids descend (a
 caller's broken ``sorted_ids`` promise: ``segreduce.descents()``). The two
 lines before the last are a JSON object with one record per kernel
@@ -279,6 +311,17 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
 E2E_LAYERS, E2E_BATCH, E2E_PROMPT, E2E_TOKENS = 2, 2, 64, 4
 E2E_LOGIT_TOL = 1e-3      # logits of order 1; two summation orders in f32
 
+# phases 23-25: the other three families at full width and depth, each
+# freed before the next. 23: MLA with phase 7's traffic; 24: qwen2-vl with a
+# 16 x 32 grid of image patches at the first 512 of 2,048 prompt positions,
+# then text decode steps; 25: hubert over 8 clips of 1,500 frames (30 s at
+# 50 frames/s). 23b-25b: each cut to E2E_LAYERS layers in f32, the card
+# against the CPU
+MLA_ARCH, VL_ARCH, AUDIO_ARCH = \
+    "deepseek-v2-lite-16b", "qwen2-vl-7b", "hubert-xlarge"
+VL_GRID = (16, 32)
+AUDIO_BATCH, AUDIO_FRAMES = 8, 1500
+AUDIO_E2E_BATCH = 2
 # phase 8: (G, q, H, P, N) of phase 9's prefill (batch 4 x 2048 / 128 chunks)
 SSD_MAIN = (64, 128, 80, 64, 128)
 # phase 9: the mamba2 serving cell (phase 7's traffic)
@@ -4087,6 +4130,14 @@ def elastic_phase(graph, mesh) -> dict:
 # --------------------------------------------------------------------------
 
 FLASH_MAIN = (4, 2048, 16, 128)      # (B, S, H, d) of phase 7's prefill
+# (B, S, H, KVH, d, dv, causal) of phases 23-25's attention: MLA's first
+# fill (d = qk_nope + qk_rope, dv = v_head_dim), qwen2-vl's prefill (GQA,
+# 28 query heads over 4 KV heads) and hubert's encoder (non-causal)
+FLASH_PATHS = {
+    "deepseek-v2-lite-16b": (4, 2048, 16, 16, 192, 128, True),
+    "qwen2-vl-7b": (4, 2048, 28, 4, 128, 128, True),
+    "hubert-xlarge": (8, 1500, 16, 16, 80, 80, False),
+}
 
 
 def _close(got, want, rtol, atol, what):
@@ -4098,36 +4149,98 @@ def _close(got, want, rtol, atol, what):
     return float(err.max()) if err.numel() else 0.0
 
 
+def _flash_bound(q, k, v, causal):
+    """Least time of attention on these inputs: q, k, v read once and o
+    written once at 3.35 TB/s, or 2 (d + dv) FLOP a (query, visible key)
+    pair at the bf16 tensor-core peak (the f32 FMA peak for f32 inputs)."""
+    B, S, H, d = q.shape
+    skv, dv = k.shape[1], v.shape[3]
+    # visible pairs: bottom-right causal alignment, query i sees i + skv - S
+    pairs = sum(min(skv, max(0, i + skv - S + 1)) for i in range(S)) \
+        if causal else S * skv
+    flops = 2 * B * H * (d + dv) * pairs
+    nbytes = (q.numel() + k.numel() + v.numel() + B * S * H * dv) \
+        * q.element_size()
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops, nbytes
+
+
+def _sdpa(q, k, v, causal):
+    """``F.scaled_dot_product_attention`` on (B, H, S, d) copies of q, k, v:
+    GQA through ``enable_gqa`` (KV heads read in place), dv != d as it
+    is."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    gqa = k.shape[2] != q.shape[2]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  enable_gqa=gqa)
+
+
+def _time_flash(fa, q, k, v, causal, what, tol) -> dict:
+    """Hold one attention shape against the plain version and time it:
+    kernel, plain version and the library call, beside the bound."""
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    err = _close(got, want, *tol, f"flash {what}")
+    del got, want
+    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                      iters=20)
+    plain_ms = cuda_time_ms(
+        lambda: fa.flash_attention_plain(q, k, v, causal=causal), iters=5,
+        warmup=1)
+    library_ms = cuda_time_ms(_sdpa(q, k, v, causal), iters=20)
+    bound, by, flops, nbytes = _flash_bound(q, k, v, causal)
+    log(f"flash_attention {what} {str(q.dtype)[6:]} "
+        f"{'causal' if causal else 'non-causal'}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} "
+        f"ms; bound {bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB), {100 * bound / ms:.1f}% of it; max abs err "
+        f"{err:.3g}")
+    return {"shape": what, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms, "max_abs_err": err}
+
+
 def check_flash_attention() -> dict:
     """Phase 6. Tolerance: f32 within 2e-5 (+ 2e-5 relative): another order
     of the same float32 sums; bf16 within 2^-7 (+ 2^-7 relative): the kernel
     rounds p to bf16 before P V (as the Pallas kernel) and both round the
     output once, so they part by about one bf16 ulp."""
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     f32, bf16 = torch.float32, torch.bfloat16
     tol = {f32: (2e-5, 2e-5), bf16: (2.0 ** -7, 2.0 ** -7)}
     H = 16
-    # S = 130 and 2080 leave a ragged last 128-row query tile; the bf16 cases
-    # at d = 64 and 128 run the wgmma kernel
-    cases = [(2 if S < 2048 else 1, S, S, kvh, d, dtype, causal)
+    # (B, S, Skv, KVH, d, dv, dtype, causal). S = 130 and 2080 leave a ragged
+    # last 128-row query tile; the bf16 cases at d = 64 and 128 run the
+    # wgmma kernel
+    cases = [(2 if S < 2048 else 1, S, S, kvh, d, d, dtype, causal)
              for S in (1, 77, 130, 2048, 2080) for d in (16, 64, 128)
              for kvh in (16, 4) for dtype in (f32, bf16)
              for causal in (True, False)]
-    cases += [(1, 5, 300, 4, 128, f32, True), (2, 33, 40, 2, 64, bf16, True)]
+    cases += [(1, 5, 300, 4, 128, 128, f32, True),
+              (2, 33, 40, 2, 64, 64, bf16, True)]
     # Skv > S under the causal mask (a cache's alignment), Skv < S (rows that
     # see no key), GQA, on the wgmma kernel
-    cases += [(2, 130, 300, 4, 64, bf16, True), (1, 130, 2080, 4, 128, bf16,
-                                                   True),
-              (1, 300, 2080, 2, 128, bf16, False), (2, 300, 40, 4, 64, bf16,
-                                                      True)]
+    cases += [(2, 130, 300, 4, 64, 64, bf16, True),
+              (1, 130, 2080, 4, 128, 128, bf16, True),
+              (1, 300, 2080, 2, 128, 128, bf16, False),
+              (2, 300, 40, 4, 64, 64, bf16, True)]
+    # MLA's d = 192 with dv = 128 (the FMA kernel's DM = 256), causal, and
+    # hubert's d = 80 without a mask (DM = 128), over ragged S
+    cases += [(2 if S < 2048 else 1, S, S, 16, 192, 128, dtype, True)
+              for S in (1, 77, 130, 2080) for dtype in (f32, bf16)]
+    cases += [(1, 130, 300, 16, 192, 128, bf16, True)]
+    cases += [(2 if S < 1500 else 1, S, S, 16, 80, 80, dtype, False)
+              for S in (1, 77, 130, 1500) for dtype in (f32, bf16)]
     max_err = 0.0
-    for i, (B, S, skv, kvh, d, dtype, causal) in enumerate(cases):
+    for i, (B, S, skv, kvh, d, dv, dtype, causal) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(200 + i)
         q = torch.randn(B, S, H, d, generator=g, device="cuda").to(dtype)
         k = torch.randn(B, skv, kvh, d, generator=g, device="cuda").to(dtype)
-        v = torch.randn(B, skv, kvh, d, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, skv, kvh, dv, generator=g, device="cuda").to(dtype)
         got = fa.flash_attention(q, k, v, causal=causal)
         want = fa.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -4137,48 +4250,38 @@ def check_flash_attention() -> dict:
                                  f"{want.dtype}")
         err = _close(got, want, *tol[dtype],
                      f"flash_attention B={B} S={S} Skv={skv} KVH={kvh} "
-                     f"d={d} {dtype} causal={causal}")
+                     f"d={d} dv={dv} {dtype} causal={causal}")
         max_err = max(max_err, err)
     log(f"flash_attention: {len(cases)} cases match the plain version (max "
         f"abs err {max_err:.3g}; causal and not, f32 and bf16, S in 1, 77, "
-        f"130, 2048, 2080, d in 16, 64, 128, KVH 16 and 4 at H = 16; Skv of "
-        f"40 to 2080 beside S of 5 to 300)")
+        f"130, 1500, 2048, 2080, d in 16, 64, 80, 128 and 192 (MLA: dv = "
+        f"128), KVH 16 and 4 at H = 16; Skv of 40 to 2080 beside S of 5 to "
+        f"300)")
 
     B, S, H, d = FLASH_MAIN
     g = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = (torch.randn(B, S, H, d, generator=g, device="cuda")
                .to(bf16) for _ in range(3))
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = fa.flash_attention_plain(q, k, v, causal=True)
-    max_err = max(max_err, _close(got, want, *tol[bf16], "flash main"))
-    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                      iters=20)
-    plain_ms = cuda_time_ms(
-        lambda: fa.flash_attention_plain(q, k, v, causal=True), iters=5,
-        warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters=20)
-    # the causal pairs: S(S+1)/2 per (b, h), 2 d FLOP each for QK and for PV
-    flops = 4 * B * H * d * S * (S + 1) / 2
-    nbytes = 4 * B * S * H * d * q.element_size()
-    t_ops = flops / BF16_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound = max(t_ops, t_bytes)
-    log(f"flash_attention {FLASH_MAIN} bf16 causal: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
-        f"{library_ms:.4f} ms; bound {bound:.4f} ms by "
-        f"{'operations' if t_ops >= t_bytes else 'bytes'} ({flops / 1e9:.2f} "
-        f"GFLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s: {t_ops:.4f} ms; "
-        f"{nbytes / 1e6:.1f} MB: {t_bytes:.4f} ms), {100 * bound / ms:.1f}% "
-        f"of it")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:62",
-            "launches": None, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+    main = _time_flash(fa, q, k, v, True, str(FLASH_MAIN), tol[bf16])
+    record = {"name": "flash_attention", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:62",
+              "launches": None,
+              "max_abs_err": max(max_err, main.pop("max_abs_err")), **main}
+    del record["shape"]
+    record["paths"] = {}
+    for arch, (B, S, H, kvh, d, dv, causal) in FLASH_PATHS.items():
+        g = torch.Generator(device="cuda").manual_seed(8)
+        q = torch.randn(B, S, H, d, generator=g, device="cuda").to(bf16)
+        k = torch.randn(B, S, kvh, d, generator=g, device="cuda").to(bf16)
+        v = torch.randn(B, S, kvh, dv, generator=g, device="cuda").to(bf16)
+        rec = _time_flash(fa, q, k, v, causal, f"{arch} (B, S, H, KVH, d, "
+                          f"dv) = {(B, S, H, kvh, d, dv)}", tol[bf16])
+        record["max_abs_err"] = max(record["max_abs_err"],
+                                    rec.pop("max_abs_err"))
+        record["paths"][arch] = rec
+        del q, k, v
+    return record
 
 
 # --------------------------------------------------------------------------
@@ -4226,20 +4329,22 @@ def _bsr_bound(cols, vals, x):
                                  else "bytes"), flops, nbytes, nblocks
 
 
-def check_bsr_spmm(main_ops, we2_ops, decode_ops) -> dict:
-    """Phase 6b: ``main_ops``, ``we2_ops`` and ``decode_ops`` are
-    (block_cols, block_vals, x) of layer 0's ``we_g`` and ``we_2`` products
-    in phase 7's prefill and of its ``we_g`` product in the first decode
-    step."""
+def check_bsr_spmm(paths: dict) -> dict:
+    """Phase 6b: ``paths`` maps a served architecture (phase 7's first, then
+    phase 23's) to the (block_cols, block_vals, x) of layer 0's ``we_g`` and
+    ``we_2`` products in its prefill and of its ``we_g`` product in the first
+    decode step. Each is held against the plain version and timed; the
+    record's top-level times are phase 7's prefill ``we_g``."""
     from repro_torch.kernels import bsr_spmm as bs
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [("phase 7 layer 0 we_g", *main_ops),
-             ("phase 7 layer 0 we_2", *we2_ops),
-             ("phase 7 decode layer 0 we_g", *decode_ops)]
-    E, _, C, D = main_ops[1].shape
-    cases.append(("phase 7 layer 0 we_g, f32",
-                  main_ops[0], main_ops[1].float(), main_ops[2].float()))
+    cases = []
+    for arch, (main_ops, we2_ops, decode_ops) in paths.items():
+        cases += [(f"{arch} layer 0 we_g", *main_ops),
+                  (f"{arch} layer 0 we_2", *we2_ops),
+                  (f"{arch} decode layer 0 we_g", *decode_ops),
+                  (f"{arch} layer 0 we_g, f32", main_ops[0],
+                   main_ops[1].float(), main_ops[2].float())]
     # random blocked-ELL at three densities with -1 padding, ragged shapes;
     # then, on the wgmma kernels (bf16, bk and n multiples of 8), K = 4
     # stored blocks a row with ids past x's last block and rows of padding
@@ -4256,7 +4361,8 @@ def check_bsr_spmm(main_ops, we2_ops, decode_ops) -> dict:
              (16, 4, 256, 128, 512, 6, 0.8, bf16, 2, (3, 7)),
              (16, 4, 8, 256, 512, 6, 0.8, bf16, 2, (0, 5)),
              (8, 3, 130, 48, 136, 4, 0.9, bf16, 1, (2,)),
-             (8, 3, 8, 48, 136, 4, 0.9, bf16, 1, (6,))]):
+             (8, 3, 8, 48, 136, 4, 0.9, bf16, 1, (6,)),
+             (6, 2, 960, 64, 136, 4, 0.9, bf16, 1, (4,))]):   # C = 960
         g = torch.Generator(device="cuda").manual_seed(300 + i)
         cols = torch.randint(0, nblk + oor, (R, K), generator=g,
                              device="cuda", dtype=torch.int32)
@@ -4280,48 +4386,60 @@ def check_bsr_spmm(main_ops, we2_ops, decode_ops) -> dict:
             raise AssertionError(f"bsr_spmm {name}: {e}") from e
     log(f"bsr_spmm: {len(cases)} cases match the plain version (max abs err "
         f"{max_err:.3g}, within 2 bk u |A||x| + one bf16 rounding)")
+    del cases
 
-    cols, vals, x = main_ops
-    ms = cuda_time_ms(lambda: bs.bsr_spmm(cols, vals, x), iters=10)
-    plain_ms = cuda_time_ms(lambda: bs.bsr_spmm_plain(cols, vals, x),
-                            iters=3, warmup=1)
-    xe, w = vals[:, 0], x.reshape(E, D, -1)
-    library_ms = cuda_time_ms(lambda: torch.bmm(xe, w), iters=10)
-    bound, by, flops, nbytes, nblocks = _bsr_bound(cols, vals, x)
-    log(f"bsr_spmm prefill we_g (R={E} K=1 bm=C={C} bk={D} n={x.shape[1]} "
-        f"bf16, {nblocks} experts with tokens): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms; bound "
-        f"{bound:.4f} ms by {by} ({flops / 1e9:.1f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB), {100 * bound / ms:.1f}% of it")
-    wc, wv, wx = we2_ops
-    w_ms = cuda_time_ms(lambda: bs.bsr_spmm(wc, wv, wx), iters=10)
-    w_lib = cuda_time_ms(lambda: torch.bmm(wv[:, 0], wx.reshape(
-        E, wv.shape[3], -1)), iters=10)
-    w_bound, w_by, w_flops, w_bytes, _ = _bsr_bound(wc, wv, wx)
-    log(f"bsr_spmm prefill we_2 (bk={wv.shape[3]} n={wx.shape[1]}): kernel "
-        f"{w_ms:.4f} ms, torch.bmm {w_lib:.4f} ms; bound {w_bound:.4f} ms by "
-        f"{w_by} ({w_flops / 1e9:.1f} GFLOP, {w_bytes / 1e6:.1f} MB), "
-        f"{100 * w_bound / w_ms:.1f}% of it")
-    dc, dv, dx = decode_ops
-    d_ms = cuda_time_ms(lambda: bs.bsr_spmm(dc, dv, dx), iters=20)
-    d_dev = kernel_device_ms(lambda: bs.bsr_spmm(dc, dv, dx),
-                             "bsr_spmm_wgmma_kernel")
-    d_lib = cuda_time_ms(lambda: torch.bmm(dv[:, 0], dx.reshape(E, D, -1)),
-                         iters=20)
-    d_bound, d_by, _, d_bytes, d_blocks = _bsr_bound(dc, dv, dx)
-    log(f"bsr_spmm decode we_g (bm=C={dv.shape[2]}, {d_blocks} experts with "
-        f"tokens): kernel {d_ms:.4f} ms a call back to back (CUDA events; "
-        f"the host's enqueue paces it), {d_dev:.4f} ms of device time a "
-        f"launch (profiler); torch.bmm (all {E} experts) {d_lib:.4f} ms; "
-        f"bound {d_bound:.4f} ms by {d_by} ({d_bytes / 1e6:.1f} MB), "
-        f"{100 * d_bound / d_ms:.1f}% of it by events, "
-        f"{100 * d_bound / d_dev:.1f}% by device time")
+    timed = {arch: _time_bsr_path(bs, arch, *ops)
+             for arch, ops in paths.items()}
+    first = next(iter(timed.values()))["prefill we_g"]
     return {"name": "bsr_spmm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bsr_spmm.cu",
             "replaces": "src/repro/kernels/bsr_spmm.py:41",
             "launches": None, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": library_ms}
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+            "paths": timed}
+
+
+def _time_bsr_path(bs, arch, main_ops, we2_ops, decode_ops) -> dict:
+    """Times of one architecture's three expert products: the kernel, the
+    plain version (prefill ``we_g``) and ``torch.bmm`` over every expert,
+    beside the bound of what this data needs."""
+    out = {}
+    for what, (cols, vals, x) in (("prefill we_g", main_ops),
+                                  ("prefill we_2", we2_ops),
+                                  ("decode we_g", decode_ops)):
+        E, _, C, bk = vals.shape
+        xe, w = vals[:, 0], x.reshape(E, bk, -1)
+        decode = what.startswith("decode")
+        ms = cuda_time_ms(lambda: bs.bsr_spmm(cols, vals, x),
+                          iters=20 if decode else 10)
+        lib = cuda_time_ms(lambda: torch.bmm(xe, w),
+                           iters=20 if decode else 10)
+        rec = {"ms": ms, "library_ms": lib}
+        if what == "prefill we_g":
+            rec["plain_ms"] = cuda_time_ms(
+                lambda: bs.bsr_spmm_plain(cols, vals, x), iters=3, warmup=1)
+        bound, by, flops, nbytes, nblocks = _bsr_bound(cols, vals, x)
+        rec.update(bound_ms=bound, bound_by=by)
+        line = (f"bsr_spmm {arch} {what} (R={E} K=1 bm=C={C} bk={bk} "
+                f"n={x.shape[1]} bf16, {nblocks} experts with tokens): kernel "
+                f"{ms:.4f} ms")
+        if decode:
+            rec["device_ms"] = kernel_device_ms(
+                lambda: bs.bsr_spmm(cols, vals, x), "bsr_spmm_wgmma_kernel")
+            line += (f" a call back to back (CUDA events; the host's enqueue "
+                     f"paces it), {rec['device_ms']:.4f} ms of device time a "
+                     f"launch (profiler)")
+        if "plain_ms" in rec:
+            line += f", plain {rec['plain_ms']:.4f} ms"
+        line += (f", torch.bmm (all {E} experts) {lib:.4f} ms; bound "
+                 f"{bound:.4f} ms by {by} ({flops / 1e9:.1f} GFLOP, "
+                 f"{nbytes / 1e6:.1f} MB), {100 * bound / ms:.1f}% of it")
+        if decode:
+            line += f", {100 * bound / rec['device_ms']:.1f}% by device time"
+        log(line)
+        out[what] = rec
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4355,6 +4473,159 @@ class _Clock:
             self.logits.append(logits.float().cpu())
 
 
+def _zero_launches():
+    """Every kernel module's launch count set to 0."""
+    from repro_torch.kernels import (bsr_spmm, flash_attention, segreduce,
+                                     semiring_matmul, ssd_chunk)
+    for m in (segreduce, semiring_matmul, flash_attention, bsr_spmm,
+              ssd_chunk):
+        m.launches = 0
+
+
+def _other_launches(mods) -> int:
+    """Launches since the last ``_zero_launches`` of the kernels not in
+    ``mods``."""
+    from repro_torch.kernels import (bsr_spmm, flash_attention, segreduce,
+                                     semiring_matmul, ssd_chunk)
+    return sum(m.launches for m in (segreduce, semiring_matmul,
+                                    flash_attention, bsr_spmm, ssd_chunk)
+               if m not in mods)
+
+
+@contextlib.contextmanager
+def _bsr_capture(keep):
+    """While open, the operands of the ``bsr_spmm`` calls whose index (from
+    0) is in ``keep`` are copied to the host into the yielded list: they stay
+    out of the peak memory of the runs that follow."""
+    from repro_torch.kernels import bsr_spmm as bs
+    ops, calls, wrapped = [], [0], bs.bsr_spmm
+
+    def capture(cols, vals, x):
+        if calls[0] in keep:
+            ops.append(tuple(t.cpu() for t in (cols, vals, x)))
+        calls[0] += 1
+        return wrapped(cols, vals, x)
+
+    bs.bsr_spmm = capture
+    try:
+        yield ops
+    finally:
+        bs.bsr_spmm = wrapped
+
+
+@contextlib.contextmanager
+def _flash_hold(tol=(2.0 ** -7, 2.0 ** -7)):
+    """While open, the first ``flash_attention`` call is held against the
+    plain version on the same operands (bf16 tolerance of phase 6); the
+    yielded dict gets its shape and max abs error."""
+    from repro_torch.kernels import flash_attention as fa
+    held, wrapped = {}, fa.flash_attention
+
+    def hold(q, k, v, *, causal=True):
+        out = wrapped(q, k, v, causal=causal)
+        if not held:
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            held["shape"] = (tuple(q.shape), tuple(v.shape), causal)
+            held["max_abs_err"] = _close(out, want, *tol,
+                                         f"flash_attention {held['shape']}")
+        return out
+
+    fa.flash_attention = hold
+    try:
+        yield held
+    finally:
+        fa.flash_attention = wrapped
+
+
+def _first_run_held(run, keep=()):
+    """``run`` whose first call keeps the operands of the ``bsr_spmm`` calls
+    numbered in ``keep`` (``_bsr_capture``) and holds its first
+    ``flash_attention`` call against the plain version (``_flash_hold``).
+    Returns (the wrapped run, the kept operands, the held call's record)."""
+    ops, held, calls = [], {}, [0]
+
+    def wrapped(hook):
+        calls[0] += 1
+        if calls[0] > 1:
+            return run(hook)
+        with _bsr_capture(keep) as got, _flash_hold() as h:
+            out = run(hook)
+        ops.extend(got)
+        held.update(h)
+        return out
+
+    return wrapped, ops, held
+
+
+def _log_held(held):
+    if not held:
+        raise AssertionError("the cold run made no flash_attention call")
+    log(f"the cold run's first flash_attention call (q, v, causal) "
+        f"{held['shape']} matches the plain version on the card (max abs err "
+        f"{held['max_abs_err']:.3g})")
+
+
+def _serve_runs(run, mods, B, S, T):
+    """A cold run of ``run(on_logits) -> tokens`` (the kernels' first
+    launches), then the measured warm run, every launch count set to 0 just
+    before it. Prints prefill walls, decode per token, the whole run and
+    the peak memory. Returns (the warm run's _Clock, its tokens, the
+    launches of the kernels outside ``mods``)."""
+    cold = _Clock(mods, keep_logits=False)
+    cold.start()
+    run(cold)
+    torch.cuda.reset_peak_memory_stats()
+    clock = _Clock(mods)
+    _zero_launches()
+    clock.start()
+    t0 = time.perf_counter()
+    tokens = run(clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    other = _other_launches(mods)
+    peak = torch.cuda.max_memory_allocated()
+    decode = sorted(clock.walls[1:])
+    med = decode[len(decode) // 2]
+    log(f"serve {B}x{S} prompt + {T} tokens: prefill cold "
+        f"{cold.walls[0] * 1e3:.1f} ms, warm {clock.walls[0] * 1e3:.1f} ms; "
+        f"decode per token (median of {len(decode)} steps) {med * 1e3:.2f} ms "
+        f"(min {decode[0] * 1e3:.2f}, max {decode[-1] * 1e3:.2f}), "
+        f"{B / med:.1f} tokens/s; whole run {wall:.3f} s, "
+        f"{B * T / wall:.1f} tokens/s; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    return clock, tokens, other
+
+
+def _check_serve(clock, tokens, other, names, prefill, decode, vp):
+    """The warm run's launches per forward (``prefill``, then ``decode`` for
+    every step) and nothing of the other kernels; finite logits; tokens in
+    [0, vp)."""
+    log(f"launches per forward ({', '.join(names)}): prefill "
+        f"{clock.launches[0]}, decode steps {sorted(set(clock.launches[1:]))}"
+        f"; other kernels {other}")
+    tok = tokens.cpu().numpy()
+    log(f"tokens (first sequence): {tok[0].tolist()}")
+    if clock.launches[0] != prefill:
+        raise AssertionError(f"prefill launched {clock.launches[0]}, not "
+                             f"{prefill}")
+    if any(c != decode for c in clock.launches[1:]) or other:
+        raise AssertionError(f"decode steps launched "
+                             f"{set(clock.launches[1:])}, not {decode}; "
+                             f"{other} launches of other kernels")
+    if not all(bool(torch.isfinite(lg).all()) for lg in clock.logits):
+        raise AssertionError("non-finite logits")
+    if tok.min() < 0 or tok.max() >= vp:
+        raise AssertionError(f"tokens out of [0, {vp})")
+
+
+def _profile_serve(prefill, step):
+    with torch.inference_mode():
+        log("profile of one warm prefill:")
+        profile_breakdown(prefill)
+        log("profile of one decode step:")
+        profile_breakdown(step, top=12)
+
+
 def serve_path():
     """Phase 7. Returns (flash_attention launches, bsr_spmm launches) of the
     warm run, and the operands of layer 0's ``we_g`` and ``we_2`` products in
@@ -4363,12 +4634,9 @@ def serve_path():
     from repro_torch.configs import get_config
     from repro_torch.kernels import bsr_spmm as bs
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import segreduce
-    from repro_torch.kernels import semiring_matmul as smm
     from repro_torch.models import Model, init_params
     from repro_torch.models.model import vocab_padded
-    from repro_torch.serve import greedy_generate, make_prefill, \
-        make_serve_step
+    from repro_torch.serve import greedy_generate
 
     cfg = get_config(SERVE_ARCH).scaled(param_dtype="bfloat16")
     model = Model(cfg)
@@ -4388,71 +4656,21 @@ def serve_path():
         f"{time.perf_counter() - t0:.2f} s")
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
 
-    # cold run; phase 6b takes the operands of layer 0's we_g and we_2
-    # products (the first and third bsr_spmm calls) of its prefill and of
-    # we_g in its first decode step, kept on the host so that they stay out
-    # of the peak memory below
+    # the cold run keeps, for phase 6b, the operands of layer 0's we_g and
+    # we_2 products (the first and third bsr_spmm calls) of its prefill and
+    # of we_g in its first decode step
     moe_layers = sum(cfg.layer_moe())
-    ops, calls = [], [0]
-    wrapped = bs.bsr_spmm
-
-    def capture(cols, vals, x):
-        if calls[0] in (0, 2, 3 * moe_layers):
-            ops.append(tuple(t.cpu() for t in (cols, vals, x)))
-        calls[0] += 1
-        return wrapped(cols, vals, x)
-
-    cold = _Clock((fa, bs), keep_logits=False)
-    bs.bsr_spmm = capture
-    try:
-        cold.start()
-        greedy_generate(model, params, prompt, max_len, T, device="cuda",
-                        on_logits=cold)
-    finally:
-        bs.bsr_spmm = wrapped
-
-    # the main path: one warm run, every launch count set to 0 just before
-    # and read just after
-    torch.cuda.reset_peak_memory_stats()
-    clock = _Clock((fa, bs))
-    segreduce.launches = smm.launches = fa.launches = bs.launches = 0
-    clock.start()
-    t0 = time.perf_counter()
-    tokens = greedy_generate(model, params, prompt, max_len, T,
-                             device="cuda", on_logits=clock)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    run, ops, held = _first_run_held(
+        lambda hook: greedy_generate(model, params, prompt, max_len, T,
+                                     device="cuda", on_logits=hook),
+        keep=(0, 2, 3 * moe_layers))
+    clock, tokens, other = _serve_runs(run, (fa, bs), B, S, T)
+    _log_held(held)
     launched = (fa.launches, bs.launches)
-    other = segreduce.launches + smm.launches
-    peak = torch.cuda.max_memory_allocated()
-    decode = sorted(clock.walls[1:])
-    med = decode[len(decode) // 2]
-    log(f"serve {B}x{S} prompt + {T} tokens: prefill cold "
-        f"{cold.walls[0] * 1e3:.1f} ms, warm {clock.walls[0] * 1e3:.1f} ms; "
-        f"decode per token (median of {len(decode)} steps) {med * 1e3:.2f} ms "
-        f"(min {decode[0] * 1e3:.2f}, max {decode[-1] * 1e3:.2f}), "
-        f"{B / med:.1f} tokens/s; whole run {wall:.3f} s, "
-        f"{B * T / wall:.1f} tokens/s; peak device memory "
-        f"{peak / 2**30:.3f} GiB")
-    log(f"launches per forward (flash_attention, bsr_spmm): prefill "
-        f"{clock.launches[0]}, decode steps {sorted(set(clock.launches[1:]))}"
-        f"; whole run {launched}; segreduce + semiring_matmul {other}")
-    tok = tokens.cpu().numpy()
-    log(f"tokens (first sequence): {tok[0].tolist()}")
-    if clock.launches[0] != (cfg.n_layers, 3 * moe_layers):
-        raise AssertionError(f"prefill launched {clock.launches[0]}, not "
-                             f"({cfg.n_layers}, {3 * moe_layers})")
-    if any(c != (0, 3 * moe_layers) for c in clock.launches[1:]):
-        raise AssertionError(f"a decode step launched "
-                             f"{set(clock.launches[1:])}")
-    if other or launched != (cfg.n_layers, 3 * moe_layers * T):
-        raise AssertionError(f"the run launched {launched} and {other} "
-                             f"sparse-core kernels")
-    if not all(bool(torch.isfinite(lg).all()) for lg in clock.logits):
-        raise AssertionError("non-finite logits")
-    if tok.shape != (B, T) or tok.min() < 0 or tok.max() >= vp:
-        raise AssertionError(f"tokens out of [0, {vp}) or of shape "
-                             f"{tok.shape}")
+    _check_serve(clock, tokens, other, ("flash_attention", "bsr_spmm"),
+                 (cfg.n_layers, 3 * moe_layers), (0, 3 * moe_layers), vp)
+    if launched != (cfg.n_layers, 3 * moe_layers * T):
+        raise AssertionError(f"the run launched {launched}")
 
     # a teacher-forced forward over prompt + generated tokens, against the
     # decode-step logits: printed, not gated (bf16 routing flips near ties,
@@ -4470,40 +4688,55 @@ def serve_path():
     _teacher_forced(nodrop, params, prompt, nd_tokens, nd.logits,
                     f"capacity_factor {E / cfg.top_k:g}, no drops")
     del nd
-
-    prefill, step = make_prefill(model), make_serve_step(model)
-    prompt_t = torch.as_tensor(prompt, device="cuda").to(torch.int32)
-    with torch.inference_mode():
-        log("profile of one warm prefill:")
-        profile_breakdown(lambda: prefill(
-            params, model.init_cache(B, max_len, device="cuda"), prompt_t))
-        _, caches = prefill(params, model.init_cache(B, max_len,
-                                                     device="cuda"), prompt_t)
-        offset = torch.full((B,), S, dtype=torch.int32, device="cuda")
-        log("profile of one decode step:")
-        profile_breakdown(lambda: step(params, caches, tokens[:, :1], offset))
-    del params, caches
+    _profile_cached(model, params, prompt, tokens, max_len)
+    del params
     torch.cuda.empty_cache()
     return launched, tuple(ops)
+
+
+def _profile_cached(model, params, prompt, tokens, max_len):
+    """Profiles of one warm prefill and one decode step through
+    ``make_prefill`` and ``make_serve_step``."""
+    from repro_torch.serve import make_prefill, make_serve_step
+    prefill, step = make_prefill(model), make_serve_step(model)
+    B, S = prompt.shape
+    prompt_t = torch.as_tensor(prompt, device="cuda").to(torch.int32)
+    with torch.inference_mode():
+        _, caches = prefill(params, model.init_cache(B, max_len,
+                                                     device="cuda"), prompt_t)
+    offset = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    _profile_serve(
+        lambda: prefill(params, model.init_cache(B, max_len, device="cuda"),
+                        prompt_t),
+        lambda: step(params, caches, tokens[:, :1], offset))
 
 
 def _teacher_forced(model, params, prompt, tokens, step_logits, what):
     """One forward without a cache over prompt + generated tokens, held
     against the logits of the greedy run's forwards (prefill, then each
     decode step) at the same positions."""
-    S, T = prompt.shape[1], tokens.shape[1]
     full = torch.cat([torch.as_tensor(prompt, device="cuda")
                       .to(torch.int32), tokens], dim=1)
+    return _teacher_forced_batch(model, params, dict(tokens=full),
+                                 prompt.shape[1], step_logits, what)
+
+
+def _teacher_forced_batch(model, params, batch, S, step_logits, what):
+    """One forward without a cache over ``batch`` (a prompt of S positions
+    and the tokens fed to the decode steps), its logits at positions S - 1
+    on held against ``step_logits`` (the prefill's, then each step's)."""
+    T = len(step_logits)
     with torch.inference_mode():
-        tf, _, _ = model(params, dict(tokens=full))
+        tf, _, _ = model(params, batch)
+        n = tf.shape[1]
         tf = tf[:, S - 1:S - 1 + T].float().cpu()
     steps = torch.stack(step_logits, dim=1)                  # (B, T, V)
     same = (tf.argmax(-1) == steps.argmax(-1)).float().mean()
     diff = (tf - steps).abs()
-    log(f"teacher-forced forward over {S + T} tokens vs the {T} decode-step "
-        f"logits ({what}): max |dlogit| {float(diff.max()):.4g}, mean "
-        f"{float(diff.mean()):.4g} (logits up to "
-        f"{float(steps.abs().max()):.2f}), argmax agrees at "
+    log(f"teacher-forced forward over {n} positions vs the {T} "
+        f"logits of the prefill and decode steps ({what}): max |dlogit| "
+        f"{float(diff.max()):.4g}, mean {float(diff.mean()):.4g} (logits up "
+        f"to {float(steps.abs().max()):.2f}), argmax agrees at "
         f"{100 * float(same):.1f}% of positions")
     return float(diff.max())
 
@@ -4520,29 +4753,24 @@ def _leaves(tree):
 # phase 7b: kernels against plain versions, end to end at full width
 # --------------------------------------------------------------------------
 
-def kernels_vs_plain_e2e() -> None:
-    """qwen2-moe-a2.7b cut to E2E_LAYERS layers (every width kept) in f32:
-    ``greedy_generate`` on the CPU, where every kernel takes its plain
-    version, and on the card, where the kernels run; the device alone picks
-    the path. Logits within E2E_LOGIT_TOL, tokens equal."""
+def kernels_vs_plain_e2e(arch=SERVE_ARCH) -> None:
+    """Phases 7b and 23b: ``arch`` cut to E2E_LAYERS layers (every width
+    kept) in f32: ``greedy_generate`` on the CPU, where every kernel takes
+    its plain version, and on the card, where the kernels run; the device
+    alone picks the path. Logits within E2E_LOGIT_TOL, tokens equal. Then,
+    on the card with a capacity that drops no token, the decode-step
+    logits against a teacher-forced forward, within E2E_LOGIT_TOL."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import bsr_spmm as bs
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import Model, init_params
+    from repro_torch.models import Model
     from repro_torch.serve import greedy_generate
 
-    cfg = get_config(SERVE_ARCH).scaled(n_layers=E2E_LAYERS, dtype="float32",
-                                        param_dtype="float32")
+    cfg = get_config(arch).scaled(n_layers=E2E_LAYERS, dtype="float32",
+                                  param_dtype="float32")
     model = Model(cfg)
     B, S, T = E2E_BATCH, E2E_PROMPT, E2E_TOKENS
-    t0 = time.perf_counter()
-    cpu_params = init_params(cfg, seed=0, device="cpu")
-    gpu_params = _to(cpu_params, "cuda")
-    log(f"e2e: {cfg.name} with {cfg.n_layers} layers in f32, "
-        f"{sum(v.numel() for v in _leaves(cpu_params)) / 1e9:.3f} B "
-        f"parameters made on the CPU and copied to the card "
-        f"({time.perf_counter() - t0:.1f} s); "
-        f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    gpu_params, cpu_params = _e2e_params(cfg)
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, (B, S))
     out = {}
     for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
@@ -4553,20 +4781,12 @@ def kernels_vs_plain_e2e() -> None:
                               on_logits=lambda lg: logits.append(
                                   lg.float().cpu()))
         out[dev] = (tok.cpu(), torch.stack(logits))
+        n = (fa.launches - before[0], bs.launches - before[1])
         log(f"e2e {dev}: {time.perf_counter() - t0:.2f} s, launches "
-            f"(flash_attention, bsr_spmm) "
-            f"{(fa.launches - before[0], bs.launches - before[1])}")
-        if dev == "cpu" and (fa.launches, bs.launches) != before:
-            raise AssertionError("the CPU run launched a kernel")
-    (tc, lc), (tg, lg) = out["cpu"], out["cuda"]
-    err = float((lc - lg).abs().max())
-    log(f"e2e: tokens {tg.tolist()} (card) vs {tc.tolist()} (cpu); max "
-        f"|dlogit| {err:.3g} (tolerance {E2E_LOGIT_TOL}, logits up to "
-        f"{float(lc.abs().max()):.2f})")
-    if not torch.equal(tc, tg):
-        raise AssertionError("card and CPU tokens differ")
-    if not err <= E2E_LOGIT_TOL:
-        raise AssertionError(f"card and CPU logits differ by {err}")
+            f"(flash_attention, bsr_spmm) {n}")
+        if (dev == "cpu") != (n == (0, 0)) or (dev == "cuda" and 0 in n):
+            raise AssertionError(f"the {dev} run launched {n}")
+    _same_e2e(out)
     # the cached path against a forward without a cache, on the card, with
     # a capacity that drops no token (as phase 7's last comparison, in f32)
     E = gpu_params["blocks"]["pos0"]["router"].shape[-1]
@@ -4582,9 +4802,353 @@ def kernels_vs_plain_e2e() -> None:
                              f"{err}")
 
 
+def _e2e_params(cfg):
+    """``init_params(seed=0)`` made on the card and copied to the host (the
+    card's generator: the same parameters on both sides, in seconds)."""
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    gpu = init_params(cfg, seed=0, device="cuda")
+    cpu = _to(gpu, "cpu")
+    log(f"e2e: {cfg.name} with {cfg.n_layers} layers in f32, "
+        f"{sum(v.numel() for v in _leaves(cpu)) / 1e9:.3f} B parameters "
+        f"made on the card and copied to the host "
+        f"({time.perf_counter() - t0:.1f} s); "
+        f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    return gpu, cpu
+
+
+def _same_e2e(out):
+    """The CPU's and the card's (tokens, logits) of one e2e run: tokens
+    equal, logits within E2E_LOGIT_TOL."""
+    (tc, lc), (tg, lg) = out["cpu"], out["cuda"]
+    err = float((lc - lg).abs().max())
+    log(f"e2e: tokens {tg.tolist()} (card) vs {tc.tolist()} (cpu); max "
+        f"|dlogit| {err:.3g} (tolerance {E2E_LOGIT_TOL}, logits up to "
+        f"{float(lc.abs().max()):.2f})")
+    if not torch.equal(tc, tg):
+        raise AssertionError("card and CPU tokens differ")
+    if not err <= E2E_LOGIT_TOL:
+        raise AssertionError(f"card and CPU logits differ by {err}")
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------
+# phases 23-25: MLA, qwen2-vl with image patches and hubert at full width
+# --------------------------------------------------------------------------
+
+def _full_model(arch):
+    """``arch`` at full width and depth with bf16 parameters from
+    ``init_params(seed=0)`` on the card: (cfg, Model, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, init_params
+    cfg = get_config(arch).scaled(param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    nparam = sum(v.numel() for v in _leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}; "
+        f"{nparam / 1e9:.3f} B stored parameters in bf16 "
+        f"({nparam * 2 / 1e9:.2f} GB), init_params "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, Model(cfg), params
+
+
+def _cache_bytes(model, B, max_len) -> int:
+    caches = model.init_cache(B, max_len, abstract=True)
+    return sum(t.numel() * t.element_size() for c in caches.values()
+               for k, t in c.items() if k != "offset")
+
+
+def serve_mla():
+    """Phase 23: deepseek-v2-lite-16b through ``greedy_generate`` with phase
+    7's traffic. Returns ((flash_attention, bsr_spmm) launches of the warm
+    run, the operands of layer 0's ``we_g``/``we_2`` prefill products and
+    first-decode ``we_g`` product for 6b)."""
+    from repro_torch.kernels import bsr_spmm as bs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import vocab_padded
+    from repro_torch.serve import greedy_generate
+
+    cfg, model, params = _full_model(MLA_ARCH)
+    log(f"  MLA: {cfg.n_heads} heads, q/k {cfg.qk_nope_dim} + "
+        f"{cfg.qk_rope_dim} (rope), v {cfg.v_head_dim}, kv_lora_rank "
+        f"{cfg.kv_lora_rank}; {cfg.n_experts} experts (padded "
+        f"{params['blocks']['pos0']['router'].shape[-1]}) top-{cfg.top_k} + "
+        f"{cfg.n_shared_experts} shared, d_ff {cfg.d_ff}, vocab {cfg.vocab}")
+    B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    max_len = S + T + 1
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
+    moe_layers = sum(cfg.layer_moe())
+    run, ops, held = _first_run_held(
+        lambda hook: greedy_generate(model, params, prompt, max_len, T,
+                                     device="cuda", on_logits=hook),
+        keep=(0, 2, 3 * moe_layers))
+    clock, tokens, other = _serve_runs(run, (fa, bs), B, S, T)
+    launched = (fa.launches, bs.launches)
+    _log_held(held)
+    _check_serve(clock, tokens, other, ("flash_attention", "bsr_spmm"),
+                 (cfg.n_layers, 3 * moe_layers), (0, 3 * moe_layers),
+                 vocab_padded(cfg))
+    if held["shape"] != ((B, S, cfg.n_heads, cfg.qk_nope_dim
+                          + cfg.qk_rope_dim),
+                         (B, S, cfg.n_heads, cfg.v_head_dim), True):
+        raise AssertionError(f"MLA's attention ran at {held['shape']}")
+    mla = _cache_bytes(model, B, max_len)
+    gqa = cfg.n_layers * B * max_len * cfg.n_heads * (
+        cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim) * 2
+    log(f"MLA cache of {B} x {max_len} positions: {mla / 2**20:.1f} MiB "
+        f"(c_kv {cfg.kv_lora_rank} + k_rope {cfg.qk_rope_dim} a token a "
+        f"layer, bf16); a cache of the same {cfg.n_heads} heads' keys and "
+        f"values would hold {gqa / 2**20:.1f} MiB ({gqa / mla:.1f}x)")
+    # printed, not gated: bf16 routing flips near ties, and capacity drops
+    # differ between the prefill, the decode steps and this forward (23b
+    # holds the two in f32 with no drops)
+    _teacher_forced(model, params, prompt, tokens, clock.logits,
+                    "bf16, capacity_factor 1.25")
+    _profile_cached(model, params, prompt, tokens, max_len)
+    del params
+    torch.cuda.empty_cache()
+    return launched, tuple(ops)
+
+
+def _image_batch(cfg, B, S, steps, seed, device):
+    """Tokens, ``VL_GRID`` patches at the first positions of each row, and
+    pos3: t = 0 and (h, w) on the patch grid for the image; t = h = w = the
+    absolute position for the text, prompt and the ``steps`` decoded tokens
+    alike (the decode steps' plain RoPE at their offset is the same
+    rotation). Returns the prompt's batch and the pos3 of all S + steps
+    positions."""
+    gh, gw = VL_GRID
+    P = gh * gw
+    rng = np.random.default_rng(seed)
+    pos3 = np.broadcast_to(np.arange(S + steps), (3, B, S + steps)).copy()
+    pos3[0, :, :P] = 0
+    pos3[1, :, :P] = np.arange(P) // gw
+    pos3[2, :, :P] = np.arange(P) % gw
+    vmask = np.zeros((B, S), bool)
+    vmask[:, :P] = True
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+    batch = dict(tokens=t(rng.integers(0, cfg.vocab, (B, S)), torch.int32),
+                 vision_embeds=t(rng.standard_normal((B, P, cfg.d_model)),
+                                 torch.bfloat16),
+                 vision_mask=t(vmask, torch.bool),
+                 pos3=t(pos3[:, :, :S], torch.int32))
+    return batch, t(pos3, torch.int32)
+
+
+def _image_generate(model, params, batch, steps, max_len, device, hook):
+    """The image prompt's prefill through ``Model.forward(batch,
+    caches=...)``, then ``steps`` greedy text decode steps through
+    ``make_serve_step``; ``hook`` gets every forward's last logits. Returns
+    the (B, steps + 1) tokens."""
+    from repro_torch.serve import make_serve_step
+    step = make_serve_step(model)
+    B, S = batch["tokens"].shape
+    with torch.inference_mode():
+        caches = model.init_cache(B, max_len, device=device)
+        logits, _, caches = model(params, dict(batch, offset=torch.zeros(
+            B, dtype=torch.int32, device=device)), caches=caches)
+        logits = logits[:, -1]
+        out = []
+        for t in range(steps + 1):
+            if t:
+                logits, caches = step(params, caches, out[-1], torch.full(
+                    (B,), S + t - 1, dtype=torch.int32, device=device))
+            hook(logits)
+            out.append(torch.argmax(logits, -1).to(torch.int32)[:, None])
+    return torch.cat(out, dim=1)
+
+
+def _image_teacher_forced(model, params, batch, pos3, tokens, logits, what):
+    """``_teacher_forced_batch`` over the image prompt and the tokens fed to
+    the decode steps, pos3 continued over them."""
+    S, n = batch["tokens"].shape[1], len(logits) - 1
+    full = dict(batch, tokens=torch.cat([batch["tokens"], tokens[:, :n]], 1),
+                vision_mask=torch.nn.functional.pad(batch["vision_mask"],
+                                                    (0, n)),
+                pos3=pos3[:, :, :S + n])
+    return _teacher_forced_batch(model, params, full, S, logits, what)
+
+
+def serve_vl():
+    """Phase 24: qwen2-vl-7b, an image prompt's prefill through
+    ``Model.forward`` with caches and SERVE_TOKENS text decode steps through
+    ``make_serve_step``. Returns the warm run's flash_attention launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import vocab_padded
+
+    cfg, model, params = _full_model(VL_ARCH)
+    log(f"  {cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads of "
+        f"{cfg.hd}, M-RoPE sections {cfg.mrope_sections}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}")
+    B, S, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    max_len = S + steps + 1
+    batch, pos3 = _image_batch(cfg, B, S, steps, seed=0, device="cuda")
+    log(f"  image: {VL_GRID[0]} x {VL_GRID[1]} patches at the first "
+        f"{VL_GRID[0] * VL_GRID[1]} of {S} prompt positions; {steps} text "
+        f"decode steps")
+    run, _, held = _first_run_held(lambda hook: _image_generate(
+        model, params, batch, steps, max_len, "cuda", hook))
+    clock, tokens, other = _serve_runs(run, (fa,), B, S, steps + 1)
+    launched = fa.launches
+    _log_held(held)
+    _check_serve(clock, tokens, other, ("flash_attention",),
+                 (cfg.n_layers,), (0,), vocab_padded(cfg))
+    kv = _cache_bytes(model, B, max_len)
+    mha = kv * cfg.n_heads // cfg.n_kv_heads
+    log(f"GQA cache of {B} x {max_len} positions: {kv / 2**20:.1f} MiB; one "
+        f"of {cfg.n_heads} KV heads would hold {mha / 2**20:.1f} MiB")
+    _image_teacher_forced(model, params, batch, pos3, tokens, clock.logits,
+                          "bf16")
+    from repro_torch.serve import make_serve_step
+    step = make_serve_step(model)
+    zero = torch.zeros(B, dtype=torch.int32, device="cuda")
+
+    def prefill():
+        return model(params, dict(batch, offset=zero),
+                     caches=model.init_cache(B, max_len, device="cuda"))
+
+    with torch.inference_mode():
+        caches = prefill()[2]
+    offset = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    _profile_serve(prefill,
+                   lambda: step(params, caches, tokens[:, :1], offset))
+    del params, caches
+    torch.cuda.empty_cache()
+    return launched
+
+
+def vl_vs_plain_e2e() -> None:
+    """Phase 24b: qwen2-vl cut to E2E_LAYERS layers in f32, an image prompt
+    (phase 24's grid in an E2E_PROMPT + 512 prompt) prefilled and decoded
+    E2E_TOKENS - 1 steps on the CPU (plain versions) and on the card (the
+    kernel): tokens equal, logits within E2E_LOGIT_TOL; then the card's
+    decode logits against a teacher-forced forward, within E2E_LOGIT_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+
+    cfg = get_config(VL_ARCH).scaled(n_layers=E2E_LAYERS, dtype="float32",
+                                     param_dtype="float32")
+    model = Model(cfg)
+    gpu_params, cpu_params = _e2e_params(cfg)
+    S = E2E_PROMPT + VL_GRID[0] * VL_GRID[1]
+    steps = E2E_TOKENS - 1
+    batch, pos3 = _image_batch(cfg, E2E_BATCH, S, steps, seed=1,
+                               device="cpu")
+    batches = {"cpu": (batch, pos3),
+               "cuda": (_to(batch, "cuda"), pos3.cuda())}
+    out = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+        logits = []
+        before = fa.launches
+        t0 = time.perf_counter()
+        tok = _image_generate(model, p, batches[dev][0], steps, S + steps + 1,
+                              dev, lambda lg: logits.append(lg.float().cpu()))
+        out[dev] = (tok.cpu(), torch.stack(logits))
+        n = fa.launches - before
+        log(f"e2e {dev}: {time.perf_counter() - t0:.2f} s, flash_attention "
+            f"launches {n}")
+        if (dev == "cpu") != (n == 0):
+            raise AssertionError(f"the {dev} run launched {n}")
+    _same_e2e(out)
+    batch, pos3 = batches["cuda"]
+    err = _image_teacher_forced(model, gpu_params, batch, pos3,
+                                out["cuda"][0].cuda(),
+                                list(out["cuda"][1].unbind(0)), "f32")
+    if not err <= E2E_LOGIT_TOL:
+        raise AssertionError(f"decode and teacher-forced logits differ by "
+                             f"{err}")
+
+
+def _frames(cfg, B, F, seed, device):
+    feats = np.random.default_rng(seed).standard_normal((B, F, cfg.d_model))
+    return dict(features=torch.from_numpy(feats).to(device, torch.bfloat16))
+
+
+def encode_audio():
+    """Phase 25: hubert-xlarge over AUDIO_BATCH clips of AUDIO_FRAMES frames
+    through ``Model.forward``. Returns the warm forward's flash_attention
+    launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import vocab_padded
+
+    cfg, model, params = _full_model(AUDIO_ARCH)
+    log(f"  encoder: {cfg.n_heads} heads of {cfg.hd}, non-causal, gelu MLP "
+        f"d_ff {cfg.d_ff}, {cfg.vocab} units (padded {vocab_padded(cfg)})")
+    B, F = AUDIO_BATCH, AUDIO_FRAMES
+    batch = _frames(cfg, B, F, seed=0, device="cuda")
+    with torch.inference_mode(), _flash_hold() as held:
+        _, cold = _wall(lambda: model(params, batch))
+    _log_held(held)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    with torch.inference_mode():
+        (logits, _, _), warm = _wall(lambda: model(params, batch))
+    launched, other = fa.launches, _other_launches((fa,))
+    peak = torch.cuda.max_memory_allocated()
+    units = logits[..., :cfg.vocab].argmax(-1)
+    log(f"encode {B} x {F} frames ({F / 50:g} s at 50 frames/s): cold "
+        f"{cold * 1e3:.1f} ms, warm {warm * 1e3:.1f} ms "
+        f"({B * F / warm:.0f} frames/s); peak device memory "
+        f"{peak / 2**30:.3f} GiB; flash_attention launches {launched}, other "
+        f"kernels {other}; logits {tuple(logits.shape)}, "
+        f"{int(units.unique().numel())} distinct units predicted")
+    if held["shape"] != ((B, F, cfg.n_heads, cfg.hd),
+                         (B, F, cfg.n_heads, cfg.hd), False):
+        raise AssertionError(f"hubert's attention ran at {held['shape']}")
+    if tuple(logits.shape) != (B, F, vocab_padded(cfg)) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("hubert's logits are not finite or of shape "
+                             f"{tuple(logits.shape)}")
+    if launched != cfg.n_layers or other:
+        raise AssertionError(f"the forward launched {launched} "
+                             f"flash_attention and {other} others")
+    del logits
+    with torch.inference_mode():
+        log("profile of one warm forward:")
+        profile_breakdown(lambda: model(params, batch))
+    del params
+    torch.cuda.empty_cache()
+    return launched
+
+
+def audio_vs_plain_e2e() -> None:
+    """Phase 25b: hubert cut to E2E_LAYERS layers in f32 over
+    AUDIO_E2E_BATCH clips of AUDIO_FRAMES frames: the forward's logits on
+    the CPU (plain versions) and on the card (the kernel) within
+    E2E_LOGIT_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+
+    cfg = get_config(AUDIO_ARCH).scaled(n_layers=E2E_LAYERS, dtype="float32",
+                                        param_dtype="float32")
+    model = Model(cfg)
+    gpu_params, cpu_params = _e2e_params(cfg)
+    out = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+        before = fa.launches
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out[dev] = model(p, _frames(cfg, AUDIO_E2E_BATCH, AUDIO_FRAMES,
+                                        seed=1, device=dev))[0].cpu()
+        n = fa.launches - before
+        log(f"e2e {dev}: {time.perf_counter() - t0:.2f} s, flash_attention "
+            f"launches {n}")
+        if (dev == "cpu") != (n == 0):
+            raise AssertionError(f"the {dev} run launched {n}")
+    err = float((out["cpu"] - out["cuda"]).abs().max())
+    log(f"e2e: max |dlogit| {err:.3g} (tolerance {E2E_LOGIT_TOL}, logits up "
+        f"to {float(out['cpu'].abs().max()):.2f}); argmax agrees at "
+        f"{100 * float((out['cpu'].argmax(-1) == out['cuda'].argmax(-1)).float().mean()):.2f}% "
+        f"of frames")
+    if not err <= E2E_LOGIT_TOL:
+        raise AssertionError(f"card and CPU logits differ by {err}")
 
 
 # --------------------------------------------------------------------------
@@ -4738,15 +5302,10 @@ def check_ssd_chunk() -> dict:
 def serve_mamba() -> int:
     """Phase 9. Returns the ``ssd_chunk`` launches of the warm run."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import bsr_spmm as bs
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import segreduce
-    from repro_torch.kernels import semiring_matmul as smm
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.models import Model, init_params
     from repro_torch.models.model import vocab_padded
-    from repro_torch.serve import greedy_generate, make_prefill, \
-        make_serve_step
+    from repro_torch.serve import greedy_generate
 
     cfg = get_config(MAMBA_ARCH).scaled(param_dtype="bfloat16")
     model = Model(cfg)
@@ -4764,72 +5323,22 @@ def serve_mamba() -> int:
         f"in bf16 ({nparam * 2 / 1e9:.2f} GB), init_params "
         f"{time.perf_counter() - t0:.2f} s")
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
-
-    cold = _Clock((sc,), keep_logits=False)
-    cold.start()
-    greedy_generate(model, params, prompt, max_len, T, device="cuda",
-                    on_logits=cold)
-
-    # the main path: one warm run, every launch count set to 0 just before
-    # and read just after
-    torch.cuda.reset_peak_memory_stats()
-    clock = _Clock((sc,))
-    segreduce.launches = smm.launches = fa.launches = bs.launches = 0
-    sc.launches = 0
-    clock.start()
-    t0 = time.perf_counter()
-    tokens = greedy_generate(model, params, prompt, max_len, T,
-                             device="cuda", on_logits=clock)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    clock, tokens, other = _serve_runs(
+        lambda hook: greedy_generate(model, params, prompt, max_len, T,
+                                     device="cuda", on_logits=hook),
+        (sc,), B, S, T)
     launched = sc.launches
-    other = segreduce.launches + smm.launches + fa.launches + bs.launches
-    peak = torch.cuda.max_memory_allocated()
-    decode = sorted(clock.walls[1:])
-    med = decode[len(decode) // 2]
-    log(f"serve {B}x{S} prompt + {T} tokens: prefill cold "
-        f"{cold.walls[0] * 1e3:.1f} ms, warm {clock.walls[0] * 1e3:.1f} ms; "
-        f"decode per token (median of {len(decode)} steps) {med * 1e3:.2f} ms "
-        f"(min {decode[0] * 1e3:.2f}, max {decode[-1] * 1e3:.2f}), "
-        f"{B / med:.1f} tokens/s; whole run {wall:.3f} s, "
-        f"{B * T / wall:.1f} tokens/s; peak device memory "
-        f"{peak / 2**30:.3f} GiB")
-    log(f"ssd_chunk launches: prefill {clock.launches[0][0]}, decode steps "
-        f"{sorted({c[0] for c in clock.launches[1:]})}; whole run {launched};"
-        f" other kernels {other}")
-    tok = tokens.cpu().numpy()
-    log(f"tokens (first sequence): {tok[0].tolist()}")
-    if clock.launches[0] != (cfg.n_layers,):
-        raise AssertionError(f"prefill launched {clock.launches[0]} "
-                             f"ssd_chunk, not {cfg.n_layers}")
-    if any(c != (0,) for c in clock.launches[1:]) or launched != \
-            cfg.n_layers or other:
-        raise AssertionError(f"decode steps launched "
-                             f"{set(clock.launches[1:])}; the run "
-                             f"{launched} ssd_chunk and {other} others")
-    if not all(bool(torch.isfinite(lg).all()) for lg in clock.logits):
-        raise AssertionError("non-finite logits")
-    if tok.shape != (B, T) or tok.min() < 0 or tok.max() >= vp:
-        raise AssertionError(f"tokens out of [0, {vp}) or of shape "
-                             f"{tok.shape}")
+    _check_serve(clock, tokens, other, ("ssd_chunk",), (cfg.n_layers,),
+                 (0,), vp)
+    if launched != cfg.n_layers:
+        raise AssertionError(f"the run launched {launched} ssd_chunk")
     # a teacher-forced forward over prompt + generated tokens, against the
     # decode-step logits: printed, not gated (in bf16 the forward without a
     # cache runs the whole scan in bf16, as the reference does, while the
     # cached path keeps a float32 state; phase 9b holds the two in f32)
     _teacher_forced(model, params, prompt, tokens, clock.logits, "bf16")
-
-    prefill, step = make_prefill(model), make_serve_step(model)
-    prompt_t = torch.as_tensor(prompt, device="cuda").to(torch.int32)
+    _profile_cached(model, params, prompt, tokens, max_len)
     with torch.inference_mode():
-        log("profile of one warm prefill:")
-        profile_breakdown(lambda: prefill(
-            params, model.init_cache(B, max_len, device="cuda"), prompt_t))
-        _, caches = prefill(params, model.init_cache(B, max_len,
-                                                     device="cuda"), prompt_t)
-        offset = torch.full((B,), S, dtype=torch.int32, device="cuda")
-        log("profile of one decode step:")
-        profile_breakdown(lambda: step(params, caches, tokens[:, :1], offset),
-                          top=12)
         # the cached path's y @ out_proj is a float32 product (y is float32
         # because the state is, as in the reference): one layer's, at the
         # prefill's shape, beside the same product in bf16
@@ -4844,7 +5353,7 @@ def serve_mamba() -> int:
             f"{cfg.n_layers * f32_ms:.1f} ms a prefill), bf16 "
             f"{bf16_ms:.4f} ms ({cfg.n_layers * bf16_ms:.1f} ms a prefill)")
         del y32, y16
-    del params, caches
+    del params
     torch.cuda.empty_cache()
     return launched
 
@@ -4861,22 +5370,16 @@ def mamba_vs_plain_e2e() -> None:
     teacher-forced forward, within E2E_LOGIT_TOL."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_chunk as sc
-    from repro_torch.models import Model, init_params
+    from repro_torch.models import Model
     from repro_torch.serve import greedy_generate
 
     cfg = get_config(MAMBA_ARCH).scaled(
         n_layers=MAMBA_E2E_LAYERS, dtype="float32", param_dtype="float32")
     model = Model(cfg)
     B, S, T = MAMBA_E2E_BATCH, MAMBA_E2E_PROMPT, MAMBA_E2E_TOKENS
-    t0 = time.perf_counter()
-    cpu_params = init_params(cfg, seed=0, device="cpu")
-    gpu_params = _to(cpu_params, "cuda")
-    log(f"e2e: {cfg.name} with {cfg.n_layers} layers in f32, "
-        f"{sum(v.numel() for v in _leaves(cpu_params)) / 1e9:.3f} B "
-        f"parameters made on the CPU and copied to the card "
-        f"({time.perf_counter() - t0:.1f} s); a {S}-token prompt is "
-        f"{-(-S // cfg.ssm_chunk)} chunks of {cfg.ssm_chunk}, the last "
-        f"padded")
+    gpu_params, cpu_params = _e2e_params(cfg)
+    log(f"e2e: a {S}-token prompt is {-(-S // cfg.ssm_chunk)} chunks of "
+        f"{cfg.ssm_chunk}, the last padded")
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, (B, S))
     out = {}
     for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
@@ -4892,15 +5395,8 @@ def mamba_vs_plain_e2e() -> None:
         if (dev == "cpu") != (sc.launches == before):
             raise AssertionError(f"the {dev} run launched "
                                  f"{sc.launches - before} ssd_chunk")
-    (tc, lc), (tg, lg) = out["cpu"], out["cuda"]
-    err = float((lc - lg).abs().max())
-    log(f"e2e: tokens {tg.tolist()} (card) vs {tc.tolist()} (cpu); max "
-        f"|dlogit| {err:.3g} (tolerance {E2E_LOGIT_TOL}, logits up to "
-        f"{float(lc.abs().max()):.2f})")
-    if not torch.equal(tc, tg):
-        raise AssertionError("card and CPU tokens differ")
-    if not err <= E2E_LOGIT_TOL:
-        raise AssertionError(f"card and CPU logits differ by {err}")
+    _same_e2e(out)
+    tg, lg = out["cuda"]
     err = _teacher_forced(model, gpu_params, prompt, tg.cuda(),
                           list(lg.unbind(0)), "f32")
     if not err <= E2E_LOGIT_TOL:
@@ -4909,6 +5405,7 @@ def mamba_vs_plain_e2e() -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi = setup()
     seg_record = check_segreduce()
     smm_record = check_semiring_matmul()
@@ -4949,13 +5446,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     fa_record = check_flash_attention()
     (fa_record["launches"], bsr_launches), ops = serve_path()
-    with torch.inference_mode():      # phase 7's operands are inference
-        bsr_record = check_bsr_spmm(       # tensors
-            *(tuple(t.cuda() for t in op) for op in ops))
-    bsr_record["launches"] = bsr_launches
-    del ops
-    kernels_vs_plain_e2e()
     torch.cuda.empty_cache()          # phase 7's 30 GB went with its params
+    (mla_fa, mla_bs), mla_ops = serve_mla()
+    with torch.inference_mode():      # the operands are inference tensors
+        bsr_record = check_bsr_spmm({
+            arch: tuple(tuple(t.cuda() for t in op) for op in o)
+            for arch, o in ((SERVE_ARCH, ops), (MLA_ARCH, mla_ops))})
+    bsr_record["launches"] = bsr_launches
+    bsr_record["launches_by_path"] = {SERVE_ARCH: bsr_launches,
+                                      MLA_ARCH: mla_bs}
+    del ops, mla_ops
+    kernels_vs_plain_e2e()
+    kernels_vs_plain_e2e(MLA_ARCH)
+    torch.cuda.empty_cache()
+    vl_fa = serve_vl()
+    vl_vs_plain_e2e()
+    audio_fa = encode_audio()
+    audio_vs_plain_e2e()
+    fa_record["launches_by_path"] = {SERVE_ARCH: fa_record["launches"],
+                                     MLA_ARCH: mla_fa, VL_ARCH: vl_fa,
+                                     AUDIO_ARCH: audio_fa}
+    torch.cuda.empty_cache()          # phases 7 and 23-25 freed theirs
     log(f"device memory before phase 8: "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     ssd_record = check_ssd_chunk()
@@ -4975,6 +5486,7 @@ def main() -> int:
     seg_record["max_abs_err"] = max(seg_record["max_abs_err"],
                                     robust["max_abs_err"],
                                     elastic["max_abs_err"])
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of wall")
     log(json.dumps({"kernels": [seg_record, smm_record, fa_record,
                                 bsr_record, ssd_record]}))
     log(smi)

@@ -4,14 +4,18 @@
         --batch 4 --prompt-len 2048 --tokens 32
     python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --batch 4 --prompt-len 2048 --tokens 32
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+        --batch 4 --prompt-len 2048 --tokens 32
 
 Without ``--smoke`` it serves the full configuration with bfloat16
 parameters on one GPU (no mesh); ``--smoke`` takes the reduced one.
 Parameters come from ``init_params(seed=0)``, the prompt from
 ``numpy.random.default_rng(0)``. ``--device`` defaults to the GPU and
 raises when there is none; ``--device cpu`` runs the plain versions of the
-kernels. GQA decoders, mamba2 and the jamba hybrid are ported;
-architectures with MLA or the audio frontend raise ``NotImplementedError``.
+kernels. Every decoder of the registry is served: GQA and MLA attention,
+mamba2, the jamba hybrid, and qwen2-vl on a text prompt (as the reference's
+launcher serves it). An encoder (hubert-xlarge) has no decode and raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -44,6 +48,9 @@ def main(argv=None):
         cfg = get_smoke(args.arch)
     else:
         cfg = get_config(args.arch).scaled(param_dtype="bfloat16")
+    if cfg.kind == "encoder":
+        raise ValueError(f"{cfg.name} is an encoder: it has no decode to "
+                         f"serve")
     model = Model(cfg)
     params = init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)

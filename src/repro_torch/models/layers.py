@@ -1,12 +1,12 @@
-"""Model layers: norms, RoPE, GQA attention, MLP, MoE and the Mamba2 mixer
-(port of ``repro/models/layers.py``).
+"""Model layers: norms, RoPE and M-RoPE, GQA and MLA attention, MLP, MoE and
+the Mamba2 mixer (port of ``repro/models/layers.py``).
 
 Functions over explicit parameter dictionaries, in the reference's layout
-(``x @ w``, ``wq`` is (D, H * hd)). Attention without a cache runs on the
-``flash_attention`` kernel, the routed experts on the ``bsr_spmm`` kernel
-and the SSD scan's intra-chunk part on the ``ssd_chunk`` kernel (each
-wrapper takes its plain version for CPU tensors); the rest is torch ops, as
-it is plain XLA in JAX.
+(``x @ w``, ``wq`` is (D, H * hd)). Attention without a cache (GQA's and
+MLA's) runs on the ``flash_attention`` kernel, the routed experts on the
+``bsr_spmm`` kernel and the SSD scan's intra-chunk part on the ``ssd_chunk``
+kernel (each wrapper takes its plain version for CPU tensors); the rest is
+torch ops, as it is plain XLA in JAX.
 
 MoE dispatch is the reference's sort-based, capacity-bounded bucketing: the
 router's top-k choices form a block-sparse tokens -> (expert, slot) matrix,
@@ -16,8 +16,8 @@ JAX promotes mixed float types silently and torch's products refuse them,
 so the Mamba2 mixer writes each cast out (``_mm``, ``_promoted``) and
 returns the type the reference returns for the same input types.
 
-Not ported yet (ROADMAP §1, "Still to port": the rest of the LM stack):
-M-RoPE, MLA and expert-parallel MoE. Their entry points raise
+Not ported yet: expert-parallel MoE (``moe_block_ep``, ROADMAP §1 queue 1
+item 6, with ``dist/shardings.py`` over ``torch.distributed``). It raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -34,18 +34,10 @@ from ..kernels import ssd_chunk as _ssd
 from .config import ModelConfig
 
 
-def _not_ported(name: str):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP §1, still to port: 'the "
-            f"rest of the LM stack')")
-    stub.__name__ = name
-    return stub
-
-
-apply_mrope = _not_ported("apply_mrope")
-mla_block = _not_ported("mla_block")
-moe_block_ep = _not_ported("moe_block_ep")
+def moe_block_ep(*args, **kwargs):
+    raise NotImplementedError(
+        "moe_block_ep is not ported yet (ROADMAP §1 queue 1 item 6: "
+        "expert-parallel MoE over torch.distributed)")
 
 
 # --------------------------------------------------------------------------
@@ -63,17 +55,39 @@ def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / hd))
 
 
-def apply_rope(x: torch.Tensor, pos: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); pos: (B, S) integer. Half-split rotation, float32
-    angles."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
-    ang = pos[..., None].float() * freqs                     # (B, S, hd/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation of x (B, S, H, hd) by ang (B, S, hd/2), in
+    float32, rounded to x's type."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); pos: (B, S) integer. Half-split rotation, float32
+    angles."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)         # (hd/2,)
+    return _rotate(x, pos[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE. x: (B, S, H, hd); pos3: (3, B, S), the
+    (t, h, w) positions; ``sections`` splits the hd/2 frequency slots among
+    the three axes in that order (the first ``sections[0]`` slots turn with
+    t, and so on; slots past their sum, if any, with w, as the reference's
+    ``jnp.repeat(..., total_repeat_length=hd // 2)`` fills them)."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)         # (hd/2,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(tuple(sections), device=x.device))
+    sec_id = F.pad(sec_id, (0, max(half - sec_id.numel(), 0)),
+                   value=2)[:half]                            # (hd/2,)
+    axis_pos = pos3.float()[sec_id]                          # (hd/2, B, S)
+    return _rotate(x, axis_pos.permute(1, 2, 0) * freqs)
 
 
 # --------------------------------------------------------------------------
@@ -93,13 +107,7 @@ def gqa_block(x, params, cfg: ModelConfig, pos, *, cache=None,
               pos3=None) -> tuple[torch.Tensor, Any]:
     """GQA attention sublayer. cache: None (no cache) or dict(k, v, offset)
     with ``offset`` a host integer; k and v are written in place. Returns
-    (out, new_cache).
-
-    A first fill of the cache (offset 0, S > 1) is causal attention over the
-    fresh q/k/v (the cache holds nothing older, and positions at or past S
-    are masked in the reference's ``_decode_attention``), so it runs on
-    ``attention``; later chunks and single-token decode attend over the
-    cache with ``_decode_attention``.
+    (out, new_cache). With a cache the attention is ``_cached_attention``'s.
     """
     B, S, D = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -114,7 +122,7 @@ def gqa_block(x, params, cfg: ModelConfig, pos, *, cache=None,
     k = k.reshape(B, S, KVH, hd)
     v = v.reshape(B, S, KVH, hd)
     # as the reference: M-RoPE where the config has sections and the batch
-    # has pos3 (not ported: it raises), else plain RoPE at pos, pos3 ignored
+    # has pos3, else plain RoPE at pos (pos3 ignored)
     if cfg.mrope_sections is not None and pos3 is not None:
         q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
@@ -125,23 +133,41 @@ def gqa_block(x, params, cfg: ModelConfig, pos, *, cache=None,
     if cache is not None:
         off = int(cache["offset"])
         ck, cv = cache["k"], cache["v"]
-        if off + S > ck.shape[1]:
-            raise ValueError(f"the cache holds {ck.shape[1]} positions; "
-                             f"{off} + {S} do not fit")
+        _check_room(ck, off, S)
         k = k.to(ck.dtype)
         v = v.to(cv.dtype)
         ck[:, off:off + S] = k
         cv[:, off:off + S] = v
         new_cache = dict(k=ck, v=cv, offset=off + S)
-        if off == 0 and S > 1:
-            out = attention(q, k, v, causal=True)
-        else:
-            out = _decode_attention(q, ck[:, :off + S], cv[:, :off + S],
-                                    off + S)
+        out = _cached_attention(q, k, v, ck[:, :off + S], cv[:, :off + S],
+                                off)
     else:
         out = attention(q, k, v, causal=cfg.causal)
     out = out.reshape(B, S, H * hd) @ params["wo"]
     return out, new_cache
+
+
+def _check_room(cache_t: torch.Tensor, off: int, S: int) -> None:
+    if off + S > cache_t.shape[1]:
+        raise ValueError(f"the cache holds {cache_t.shape[1]} positions; "
+                         f"{off} + {S} do not fit")
+
+
+def _cached_attention(q, k, v, k_live, v_live, off: int) -> torch.Tensor:
+    """Attention of q (B, S, H, d) at absolute positions off .. off + S - 1
+    with a cache: k/v are this chunk's keys and values as the cache holds
+    them, k_live/v_live the cache's first off + S positions.
+
+    A first fill (off 0, S > 1) is causal attention over the fresh keys (the
+    cache holds nothing older, and the reference's ``_decode_attention``
+    masks the positions at or past S), so it runs on the ``flash_attention``
+    kernel when q, k and v share a type; a cache of another type, later
+    chunks and one-token decode attend with ``_decode_attention``, as the
+    reference does."""
+    S = q.shape[1]
+    if off == 0 and S > 1 and q.dtype == k.dtype == v.dtype:
+        return attention(q, k, v, causal=True)
+    return _decode_attention(q, k_live, v_live, off + S)
 
 
 def _decode_attention(q, k, v, valid_len: int) -> torch.Tensor:
@@ -163,6 +189,63 @@ def _decode_attention(q, k, v, valid_len: int) -> torch.Tensor:
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return out.reshape(B, S, kvh * rep, dv).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# --------------------------------------------------------------------------
+
+def mla_block(x, params, cfg: ModelConfig, pos, *, cache=None):
+    """MLA: keys and values come from a kv_lora_rank latent ``c_kv`` and one
+    rope key ``k_rope`` shared by the heads, which is all a cache holds
+    (kv_lora_rank + qk_rope_dim numbers a token, where GQA's cache of the
+    same heads holds 2 H hd).
+
+    cache: None or dict(c_kv (B, L, kv_lora_rank), k_rope (B, L, 1,
+    qk_rope_dim), offset) with ``offset`` a host integer; both are written in
+    place. Returns (out, new_cache).
+
+    Attention has d = qk_nope_dim + qk_rope_dim and dv = v_head_dim: without
+    a cache on the ``flash_attention`` kernel, with one as
+    ``_cached_attention`` says. With a cache, k and v are up-projected from
+    the off + S live positions only; the reference up-projects all L and
+    masks the rest, and the answer is the same. The up-projection and ``wo``
+    are plain products, as in the reference.
+    """
+    B, S, D = x.shape
+    H, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (x @ params["wq"]).reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q.split([nope, rope], dim=-1)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    # the compressed kv latent and the shared rope key
+    c_kv, k_rope = (x @ params["w_dkv"]).split([cfg.kv_lora_rank, rope],
+                                               dim=-1)
+    c_kv = rmsnorm(c_kv, params["kv_ln"], cfg.rms_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta)
+    new_cache = None
+    if cache is not None:
+        off = int(cache["offset"])
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        _check_room(cc, off, S)
+        cc[:, off:off + S] = c_kv
+        cr[:, off:off + S] = k_rope
+        new_cache = dict(c_kv=cc, k_rope=cr, offset=off + S)
+        c_kv, k_rope = cc[:, :off + S], cr[:, :off + S]
+    # up-project keys and values from the latent
+    wkv = params["w_ukv"].reshape(cfg.kv_lora_rank, H, nope + cfg.v_head_dim)
+    lt = _promoted(c_kv, wkv)            # a cache of another type promotes
+    kv = torch.einsum("bsl,lhe->bshe", c_kv.to(lt), wkv.to(lt))
+    k_nope, v = kv.split([nope, cfg.v_head_dim], dim=-1)
+    kt = _promoted(k_nope, k_rope)       # jnp.concatenate promotes
+    k = torch.cat([k_nope.to(kt), k_rope.to(kt).expand(*k_nope.shape[:3],
+                                                       rope)], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    if cache is not None:
+        out = _cached_attention(q, k, v, k, v, off)
+    else:
+        out = attention(q, k, v, causal=cfg.causal)
+    out = out.reshape(B, S, H * cfg.v_head_dim) @ params["wo"]
+    return out, new_cache
 
 
 # --------------------------------------------------------------------------

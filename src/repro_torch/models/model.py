@@ -12,11 +12,11 @@ Init is deterministic in (seed, path) with the reference's distributions,
 not its numbers: one ``torch.Generator`` per leaf, seeded with the CRC-32
 of the seed and the leaf's path.
 
-Ported families: decoders with GQA attention and a dense or MoE FFN, the
-attention-free Mamba2 stack (``kind="ssm"``) and the Mamba/attention hybrid
-(``kind="hybrid"``). MLA, M-RoPE and the audio/vision frontends raise
-``NotImplementedError`` (ROADMAP §1, still to port: "the rest of the LM
-stack").
+Every family of the registry: decoders with GQA or MLA attention and a dense
+or MoE FFN, Qwen2-VL's vision-patch frontend with M-RoPE, the HuBERT encoder
+over audio frames, the attention-free Mamba2 stack (``kind="ssm"``) and the
+Mamba/attention hybrid (``kind="hybrid"``). The forward pass only: the loss
+and training wait (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -187,35 +187,50 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None):
 # --------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """The decoder stack over an explicit parameter tree.
+    """The layer stack over an explicit parameter tree.
 
     ``forward(params, batch, caches=None)`` returns (logits, aux_loss,
     new_caches) as the reference's. Caches are updated in place and
     returned: the KV cache is the largest buffer a server holds, and a copy
     per step would double it. Their layout is the reference's, with each
     attention position's ``offset`` kept on the host, where the eager loop
-    reads it; a mamba position's cache is its conv history and SSM state.
+    reads it: GQA's k and v, MLA's latent ``c_kv`` and rope key ``k_rope``;
+    a mamba position's cache is its conv history and SSM state.
+
+    ``cast_early`` casts the parameters to the compute type before the
+    layer loop, the ``_KEEP_F32`` leaves excepted (the reference's option:
+    there it moves bf16 through the sharded all-gathers; here it is one cast
+    a forward instead of one a layer, with the same numbers).
     """
 
     _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "ln1", "ln2", "kv_ln")
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, *, cast_early: bool = False):
         super().__init__()
-        if cfg.use_mla or cfg.frontend == "audio_frames":
-            raise NotImplementedError(
-                f"{cfg.name}: MLA and the audio frontend are not ported yet "
-                f"(ROADMAP §1, still to port: 'the rest of the LM stack')")
         self.cfg = cfg
+        self.cast_early = cast_early
 
-    # ---------------- embedding ----------------
+    # ---------------- embedding / frontend ----------------
     def embed(self, params, batch):
-        if "vision_embeds" in batch or "features" in batch:
-            raise NotImplementedError("the port embeds tokens only; the "
-                                      "vision and audio frontends wait in "
-                                      "ROADMAP §1, 'the rest of the LM "
-                                      "stack'")
-        x = nn.functional.embedding(batch["tokens"], params["embed"])
-        return x.to(_dtype(self.cfg.dtype))
+        """Token embeddings, or the frontend's: ``features @ frame_proj``
+        for audio frames; for vision patches, ``vision_embeds @ vision_proj``
+        over the True positions of ``vision_mask`` (patch t at the t-th True
+        position of its row, patch T - 1 for any past the T-th, as the
+        reference clips). A batch without ``vision_embeds`` (a decode step)
+        is text only."""
+        cfg = self.cfg
+        adt = _dtype(cfg.dtype)
+        if cfg.frontend == "audio_frames":
+            return batch["features"].to(adt) @ params["frame_proj"].to(adt)
+        x = nn.functional.embedding(batch["tokens"], params["embed"]).to(adt)
+        if cfg.frontend == "vision_patches" and "vision_embeds" in batch:
+            ve = batch["vision_embeds"].to(adt) @ params["vision_proj"].to(adt)
+            vm = batch["vision_mask"].to(torch.bool)
+            take = (torch.cumsum(vm, dim=1) - 1).clamp(0, ve.shape[1] - 1)
+            ve_at = torch.gather(ve, 1, take[..., None].expand(
+                *take.shape, ve.shape[-1]))
+            x = torch.where(vm[..., None], ve_at, x)
+        return x
 
     # ---------------- one layer ----------------
     def _cast_params(self, p):
@@ -225,6 +240,8 @@ class Model(nn.Module):
 
     def _mixer(self, x, p, kind, pos, pos3, cache):
         if kind == "attn":
+            if self.cfg.use_mla:
+                return L.mla_block(x, p, self.cfg, pos, cache=cache)
             return L.gqa_block(x, p, self.cfg, pos, cache=cache, pos3=pos3)
         return L.mamba_block(x, p, self.cfg, cache=cache)
 
@@ -248,6 +265,8 @@ class Model(nn.Module):
     def forward(self, params, batch, *, caches=None):
         """Returns (logits (B, S, vocab_padded), aux_loss, new_caches)."""
         cfg = self.cfg
+        if self.cast_early:
+            params = self._cast_early(params)
         period = period_of(cfg)
         reps = cfg.n_layers // period
         kinds = cfg.layer_kinds()[:period]
@@ -266,9 +285,9 @@ class Model(nn.Module):
                 c = None
                 if caches is not None:
                     cc = caches[f"pos{i}"]
-                    c = dict(k=cc["k"][r], v=cc["v"][r],
-                             offset=int(cc["offset"][r])) if kind == "attn" \
-                        else dict(conv=cc["conv"][r], state=cc["state"][r])
+                    c = {k: v[r] for k, v in cc.items() if k != "offset"}
+                    if kind == "attn":
+                        c["offset"] = int(cc["offset"][r])
                 x, a, nc = self._layer(x, blk, kind, moe, pos, pos3, c)
                 aux = aux + a
                 if kind == "attn" and nc is not None:
@@ -278,32 +297,55 @@ class Model(nn.Module):
         logits = x @ head.T.to(x.dtype)
         return logits, aux, caches
 
+    def _cast_early(self, params):
+        adt = _dtype(self.cfg.dtype)
+        out = dict(params)
+        out["blocks"] = {pos: self._cast_params(blk)
+                         for pos, blk in params["blocks"].items()}
+        for k in ("embed", "lm_head", "vision_proj", "frame_proj"):
+            if k in params:
+                out[k] = params[k].to(adt)
+        return out
+
     # ---------------- kv / state caches ----------------
-    def init_cache(self, batch_size: int, max_len: int, device=None):
+    def init_cache(self, batch_size: int, max_len: int, device=None, *,
+                   abstract: bool = False, dtype=None):
         """Zeroed caches in the reference's layout, on ``device`` (None: the
-        GPU), per period position: for attention, k and v of (reps, B,
-        max_len, KVH, hd) in the compute type and ``offset`` (reps,) int32
-        on the host; for mamba, ``conv`` (reps, B, d_conv - 1, Din + 2N) in
-        the compute type and ``state`` (reps, B, H, P, N) in float32."""
+        GPU), per period position: for GQA attention, k and v of (reps, B,
+        max_len, KVH, hd); for MLA, ``c_kv`` (reps, B, max_len,
+        kv_lora_rank) and ``k_rope`` (reps, B, max_len, 1, qk_rope_dim);
+        both in ``dtype`` (None: the compute type), with ``offset`` (reps,)
+        int32 on the host; for mamba, ``conv`` (reps, B, d_conv - 1, Din +
+        2N) in ``dtype`` and ``state`` (reps, B, H, P, N) in float32.
+        ``abstract=True`` puts every tensor, offsets too, on the ``meta``
+        device (shapes and types without storage, the reference's
+        ``ShapeDtypeStruct``s)."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        dt = _dtype(cfg.dtype)
+        dev = torch.device("meta") if abstract else resolve_device(device)
+        host = dev if abstract else torch.device("cpu")
+        dt = dtype or _dtype(cfg.dtype)
         period = period_of(cfg)
         reps = cfg.n_layers // period
+
+        def mk(*shape, dtyp=dt, on=dev):
+            return torch.zeros((reps, batch_size) + shape, dtype=dtyp,
+                               device=on)
+
         caches = {}
         for i, kind in enumerate(cfg.layer_kinds()[:period]):
             if kind == "attn":
-                shape = (reps, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
-                caches[f"pos{i}"] = dict(
-                    k=torch.zeros(shape, dtype=dt, device=dev),
-                    v=torch.zeros(shape, dtype=dt, device=dev),
-                    offset=torch.zeros(reps, dtype=torch.int32))
+                if cfg.use_mla:
+                    c = dict(c_kv=mk(max_len, cfg.kv_lora_rank),
+                             k_rope=mk(max_len, 1, cfg.qk_rope_dim))
+                else:
+                    c = dict(k=mk(max_len, cfg.n_kv_heads, cfg.hd),
+                             v=mk(max_len, cfg.n_kv_heads, cfg.hd))
+                c["offset"] = torch.zeros(reps, dtype=torch.int32,
+                                          device=host)
             else:
-                caches[f"pos{i}"] = dict(
-                    conv=torch.zeros((reps, batch_size, cfg.d_conv - 1,
-                                      cfg.d_inner + 2 * cfg.ssm_state),
-                                     dtype=dt, device=dev),
-                    state=torch.zeros((reps, batch_size, cfg.ssm_heads,
-                                       cfg.ssm_headdim, cfg.ssm_state),
-                                      dtype=torch.float32, device=dev))
+                c = dict(conv=mk(cfg.d_conv - 1,
+                                 cfg.d_inner + 2 * cfg.ssm_state),
+                         state=mk(cfg.ssm_heads, cfg.ssm_headdim,
+                                  cfg.ssm_state, dtyp=torch.float32))
+            caches[f"pos{i}"] = c
         return caches

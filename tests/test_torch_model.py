@@ -271,24 +271,45 @@ def test_pos3_without_mrope_sections_is_ignored_as_in_jax():
 
 
 def test_pos3_with_mrope_sections_raises():
+    # the name is kept from the slice that refused M-RoPE: qwen2-vl with a
+    # pos3 of distinct t/h/w now runs M-RoPE, as the reference does (its
+    # logits against JAX's: tests/test_torch_families.py), and differs
+    # from the same tokens without pos3 (plain RoPE at pos)
     cfg = get_smoke("qwen2-vl-7b").scaled(dtype="float32")
     assert cfg.mrope_sections is not None
     p = init_params(cfg, seed=0, device=CPU)
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    pos3 = torch.zeros((3, 1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="apply_mrope"):
-        Model(cfg)(p, dict(tokens=toks, pos3=pos3))
+    toks = torch.as_tensor(np.random.default_rng(17).integers(
+        0, cfg.vocab, (1, 6)), dtype=torch.int32)
+    pos3 = torch.stack([torch.zeros(6, dtype=torch.int32),
+                        torch.arange(6, dtype=torch.int32) // 3,
+                        torch.arange(6, dtype=torch.int32) % 3])[:, None]
+    mrope, _, _ = Model(cfg)(p, dict(tokens=toks, pos3=pos3))
+    plain, _, _ = Model(cfg)(p, dict(tokens=toks))
+    assert torch.isfinite(mrope).all()
+    assert not torch.allclose(mrope, plain, **TOL)
+    # t = h = w = pos collapses M-RoPE to RoPE
+    same, _, _ = Model(cfg)(p, dict(tokens=toks, pos3=torch.arange(
+        6, dtype=torch.int32).expand(3, 1, 6)))
+    torch.testing.assert_close(same, plain, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "hubert-xlarge"],
                          ids=str)
 def test_unported_families_raise(arch):
-    # MLA and the audio frontend (mamba2 and jamba are ported:
-    # tests/test_torch_mamba.py)
-    with pytest.raises(NotImplementedError):
-        Model(get_smoke(arch))
-    with pytest.raises(NotImplementedError):
-        tlayers.mla_block(None, None, None, None)
+    # the name is kept from the slice that refused MLA and the audio
+    # frontend: both construct now, and their forward matches JAX's
+    # (tests/test_torch_families.py); what is still not ported raises
+    cfg = get_smoke(arch).scaled(dtype="float32")
+    model = Model(cfg)
+    p = init_params(cfg, seed=0, device=CPU)
+    batch = dict(features=torch.randn(1, 5, cfg.d_model)) \
+        if cfg.frontend == "audio_frames" else \
+        dict(tokens=torch.zeros((1, 5), dtype=torch.int32))
+    logits, _, _ = model(p, batch)
+    assert tuple(logits.shape) == (1, 5, tmodel.vocab_padded(cfg))
+    assert torch.isfinite(logits).all()
+    with pytest.raises(NotImplementedError, match="moe_block_ep"):
+        tlayers.moe_block_ep(None, None, None, None)
 
 
 # --------------------------------------------------------------------------
@@ -340,9 +361,7 @@ def test_greedy_generate_matches_jax():
         np.testing.assert_allclose(np_of(logits[t]), np_of(lg), **TOL)
 
 
-PORTED_DECODERS = [a for a in ARCHS if get_smoke(a).kind == "decoder"
-                   and not get_smoke(a).use_mla
-                   and get_smoke(a).frontend is None]
+PORTED_DECODERS = [a for a in ARCHS if get_smoke(a).kind == "decoder"]
 
 
 @pytest.mark.parametrize("arch", PORTED_DECODERS, ids=str)
@@ -397,8 +416,15 @@ def test_serve_launcher_on_cpu(capsys):
     assert tuple(out.shape) == (2, 3)
     assert int(out.max()) < tmodel.vocab_padded(get_smoke(ARCH))
     assert "qwen2-moe-a2.7b on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        tserve.main(["--arch", "deepseek-v2-lite-16b", "--smoke", "--device",
+    # MLA serves now (its tokens against JAX's: tests/test_torch_families.py)
+    out = tserve.main(["--arch", "deepseek-v2-lite-16b", "--smoke",
+                       "--batch", "2", "--prompt-len", "6", "--tokens", "2",
+                       "--device", "cpu"])
+    assert tuple(out.shape) == (2, 2)
+    assert "deepseek-v2-lite-16b on cpu" in capsys.readouterr().out
+    # an encoder has no decode
+    with pytest.raises(ValueError, match="encoder"):
+        tserve.main(["--arch", "hubert-xlarge", "--smoke", "--device",
                      "cpu"])
 
 
