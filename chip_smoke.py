@@ -61,6 +61,20 @@ Phases (any failure exits non-zero and prints no result line):
    blocked-ELL operands (K up to 4, ids past the last block, rows of
    padding alone, bk = 48, C = 960), with times at the six shapes beside
    the bound and ``torch.bmm``;
+6c. the flash_attention backward kernel (``csrc/flash_attention_bwd.cu``)
+   against its plain backward on the same (q, k, v, o, lse, dO), and the
+   forward kernel's lse against the plain version's: causal and not, f32
+   and bf16, ragged S (130, 2080), Skv beside S (bottom right, rows that
+   see no key), GQA, d = dv in 16, 64, 128, d = 80, d = 192 with dv = 128;
+   at phase 26's (2, 4096, 16, 128) bf16 causal the backward's time beside
+   its bound, the plain backward and SDPA's backward, and the forward with
+   and without lse;
+6d. bsr_spmm's gradients (two products on its kernel, through the
+   autograd Function) against its plain backward at phase 26's ``we_g`` and
+   ``we_2`` shapes (C = 640) and on random blocked-ELL operands (K up to 4,
+   repeated ids, ids past the last block, padding rows, column blocks no
+   block names); times at ``we_g``'s shape beside the bound and
+   ``torch.bmm``'s two gradient products;
 7b. kernels against plain versions end to end: qwen2-moe-a2.7b cut to 2
    layers (every width kept) in f32, ``greedy_generate`` on the CPU (plain
    versions) and on the card (kernels) from the same parameters (made on
@@ -254,22 +268,42 @@ Phases (any failure exits non-zero and prints no result line):
    ``coverage('pagerank.iter')`` printed. Every segreduce call of (a) and
    (b) is recorded on its rank and held against the plain version there.
 
+26. train: qwen2-moe-a2.7b at full width, 4 of its 24 layers (every
+   width kept; float32 parameters, gradients and AdamW's m and v, 48.7
+   GB at 4 layers against 242 GB at 24): ``init_params(seed=0)`` on the
+   card, ``SyntheticLM(seed=11)`` batches of 2 x 4096 through a
+   ``Prefetcher``, 10 steps of ``make_train_step`` with the launcher's
+   ``AdamWConfig(warmup_steps=20, decay_steps=100)``; each step's loss,
+   grad_norm and lr (finite), cold and warm step wall, tokens/s, peak
+   memory, the launches of every kernel a step (flash forward 8 with
+   remat, its backward 4, bsr_spmm 24 forward and 24 backward products,
+   the others 0), then one more step profiled by operator with the busy
+   share. 26b: the same model cut to 2 layers in f32, batch 2 x 256: loss,
+   aux and every gradient leaf on the card (kernels and their backward
+   kernels) against the CPU (plain versions) from the same parameters, the
+   CPU taking the card's routing choices (those that differ counted
+   first). 26c: ``python -m repro_torch.launch.train --arch
+   qwen2-moe-a2.7b --smoke --steps 30`` in its own process: the loss
+   falls.
+
 In phases 12-15 every segreduce call of one run is recorded by shape
 (route, dtype, tag, N, D, S); each shape's first call is run again, held
 against the plain version on the same inputs (phase 2's tolerance) and
 timed like phase 3's calls, and the calls by route must equal the launches
 the phase counted.
 
-Phases run in the order 1, 2, 2b, 3-5, 10-13, 15, 14, 6, 7, 23, 6b, 7b,
-23b, 24, 24b, 25, 25b, 8, 9, 9b, 16-22; the script prints its wall last
-before the records.
+Phases run in the order 1, 2, 2b, 3-5, 10-13, 15, 14, 6, 7, 23, 6b, 6c,
+6d, 7b, 23b, 24, 24b, 25, 25b, 26, 26b, 26c, 8, 9, 9b, 16-22; the script
+prints its wall last before the records.
 
 Phases 2-5 and 10-15 fail if a sorted-route launch saw its ids descend (a
 caller's broken ``sorted_ids`` promise: ``segreduce.descents()``). The two
 lines before the last are a JSON object with one record per kernel
 (segreduce's adds the atomic route's time, the main-path calls' summed time
 and bound, phases 10-15's launches by route, each rank's launches on
-the 2x2 and the 2x2x2 grids, phase 21's and phase 22's) and the card's
+the 2x2 and the 2x2x2 grids, phase 21's and phase 22's; flash_attention's
+and bsr_spmm's a ``backward`` record of the same keys, its launches phase
+26's run) and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 The script imports nothing of JAX.
 """
@@ -322,6 +356,14 @@ MLA_ARCH, VL_ARCH, AUDIO_ARCH = \
 VL_GRID = (16, 32)
 AUDIO_BATCH, AUDIO_FRAMES = 8, 1500
 AUDIO_E2E_BATCH = 2
+# phase 26: training qwen2-moe-a2.7b at full width, 4 of 24 layers (float32
+# parameters, gradients and AdamW's m and v: 16 B a parameter, 48.7 GB at
+# 4 layers, 242 GB at 24), batch 2 x 4096 (the registry's train_4k
+# sequence), 10 steps. 26b: E2E_LAYERS layers in f32 on card and CPU
+TRAIN_ARCH = SERVE_ARCH
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 4096, 10
+TRAIN_E2E_BATCH, TRAIN_E2E_SEQ = 2, 256
+TRAIN_E2E_TOL = 1e-4
 # phase 8: (G, q, H, P, N) of phase 9's prefill (batch 4 x 2048 / 128 chunks)
 SSD_MAIN = (64, 128, 80, 64, 128)
 # phase 9: the mamba2 serving cell (phase 7's traffic)
@@ -346,7 +388,7 @@ HIPMCL_PROTEINS, HIPMCL_FAMILY, HIPMCL_P_IN, HIPMCL_CROSS = \
 SPMM_K = 16
 
 KERNELS = ("segreduce", "semiring_matmul", "flash_attention", "bsr_spmm",
-           "ssd_chunk")
+           "ssd_chunk", "flash_attention_bwd")
 
 # phases 16-19: the 2x2 grid, four ranks (one process a grid position).
 # They read phase 3's and phase 10's graphs from GRID_DIR and are held
@@ -4443,6 +4485,314 @@ def _time_bsr_path(bs, arch, main_ops, we2_ops, decode_ops) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 6c: the flash_attention backward kernel vs its plain backward
+# --------------------------------------------------------------------------
+
+FLASH_TRAIN = (2, 4096, 16, 128)     # (B, S, H, d) of phase 26's attention
+
+
+def _flash_grads(fa, q, k, v, do, causal):
+    """The kernels' (o, lse) and (dq, dk, dv) for these operands: the
+    forward kernel with its lse, then the backward kernel."""
+    B, S, H, _ = q.shape
+    o = torch.empty((B, S, H, v.shape[3]), dtype=q.dtype, device="cuda")
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    fa._launch(q, k, v, o, causal, lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    fa._launch_backward(q, k, v, o, lse, do, dq, dk, dv, causal)
+    return o, lse, (dq, dk, dv)
+
+
+def _grad_close(got, want, rtol, frac, what):
+    """Max abs error; raises unless |got - want| <= rtol |want| + frac
+    max|want| (the gradient's own scale: its sums run over S or Skv
+    terms in another order)."""
+    scale = float(want.double().abs().max()) if want.numel() else 0.0
+    return _close(got, want, rtol, frac * scale, what)
+
+
+def _flash_bwd_bound(q, k, v, causal):
+    """Least time of the backward on these inputs: 2 (3 d + 2 dv) FLOP a
+    (query, visible key) pair (Q K^T and dO V^T again, dV, dK, dQ) at the
+    bf16 tensor-core peak (f32 FMA for f32), or q, k, v, o, dO and lse read
+    once and dq, dk, dv written once at 3.35 TB/s."""
+    B, S, H, d = q.shape
+    skv, dv = k.shape[1], v.shape[3]
+    pairs = sum(min(skv, max(0, i + skv - S + 1)) for i in range(S)) \
+        if causal else S * skv
+    flops = 2 * B * H * (3 * d + 2 * dv) * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel()
+                  + 2 * B * S * H * dv) * q.element_size() + B * H * S * 4
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops, nbytes
+
+
+def check_flash_backward() -> dict:
+    """Phase 6c. Over causal and not, f32 and bf16, ragged S (130, 2080),
+    Skv beside S (bottom right, and rows that see no key), GQA, d = dv in
+    16, 64, 128, d = 80 and MLA's d = 192 with dv = 128: the forward
+    kernel's lse against the plain version's (within 1e-4 absolute: the
+    wgmma kernel's exp2 and log2 are approximate), and the backward
+    kernel's dq, dk, dv against ``flash_attention_backward_plain`` on the
+    same (q, k, v, o, lse, dO). Tolerance: f32 within 1e-4 |want| + 1e-4
+    max|want|, bf16 within 2^-7 |want| + 2^-9 max|want| (one bf16 rounding
+    of each store, and sums of up to 4,096 float32 terms in another order).
+    Then at phase 26's (2, 4096, 16, 128) bf16 causal: the backward's time
+    beside its bound, the plain backward and SDPA's backward, and the
+    forward kernel with and without lse."""
+    from repro_torch.kernels import flash_attention as fa
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: (1e-4, 1e-4), bf16: (2.0 ** -7, 2.0 ** -9)}
+    H = 16
+    cases = [(2 if S < 2048 else 1, S, S, kvh, d, d, dtype, causal)
+             for S in (130, 2080) for d in (16, 64, 128)
+             for kvh in (16, 4) for dtype in (f32, bf16)
+             for causal in (True, False)]
+    cases += [(2, 130, 300, 4, 64, 64, bf16, True),       # Skv > S
+              (2, 300, 40, 4, 64, 64, bf16, True),        # rows see no key
+              (1, 300, 2080, 2, 128, 128, f32, False),
+              (1, 77, 33, 16, 128, 128, f32, True)]
+    cases += [(1, S, S, 16, 192, 128, dtype, True) for S in (130, 2080)
+              for dtype in (f32, bf16)]
+    cases += [(1, S, S, 16, 80, 80, dtype, False) for S in (130, 1500)
+              for dtype in (f32, bf16)]
+    max_err = lse_err = 0.0
+    for i, (B, S, skv, kvh, d, dv, dtype, causal) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(600 + i)
+        q = torch.randn(B, S, H, d, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, skv, kvh, d, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, skv, kvh, dv, generator=g, device="cuda").to(dtype)
+        do = torch.randn(B, S, H, dv, generator=g, device="cuda").to(dtype)
+        o, lse, got = _flash_grads(fa, q, k, v, do, causal)
+        _, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                               return_lse=True)
+        want = fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                 causal=causal)
+        torch.cuda.synchronize()
+        what = (f"B={B} S={S} Skv={skv} KVH={kvh} d={d} dv={dv} {dtype} "
+                f"causal={causal}")
+        fin = torch.isfinite(want_lse)
+        if not torch.equal(fin, torch.isfinite(lse)):
+            raise AssertionError(f"flash lse {what}: -inf rows differ")
+        lse_err = max(lse_err, _close(lse[fin], want_lse[fin], 0.0, 1e-4,
+                                      f"flash lse {what}"))
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            if x.shape != y.shape or x.dtype != y.dtype:
+                raise AssertionError(f"flash {name} {what}: "
+                                     f"{tuple(x.shape)}/{x.dtype} vs "
+                                     f"{tuple(y.shape)}/{y.dtype}")
+            max_err = max(max_err, _grad_close(x, y, *tol[dtype],
+                                               f"flash {name} {what}"))
+    log(f"flash_attention backward: {len(cases)} cases match the plain "
+        f"backward (max abs err {max_err:.3g}; lse within {lse_err:.3g}; "
+        f"causal and not, f32 and bf16, S in 77, 130, 300, 1500, 2080, Skv "
+        f"of 33 to 2080 beside them, d in 16, 64, 80, 128 and 192 (dv = "
+        f"128), KVH 16, 4 and 2 at H = 16)")
+
+    B, S, H, d = FLASH_TRAIN
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(B, S, H, d, generator=g, device="cuda")
+                   .to(bf16) for _ in range(4))
+    o, lse, got = _flash_grads(fa, q, k, v, do, True)
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                             causal=True)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        max_err = max(max_err, _grad_close(x, y, *tol[bf16],
+                                           f"flash {name} {FLASH_TRAIN}"))
+    del want
+    dq, dk, dv = got
+    ms = cuda_time_ms(lambda: fa._launch_backward(
+        q, k, v, o, lse, do, dq, dk, dv, True), iters=5, warmup=1)
+    plain_ms = cuda_time_ms(lambda: fa.flash_attention_backward_plain(
+        q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
+    fwd_ms = cuda_time_ms(lambda: fa._launch(q, k, v, o, True), iters=20)
+    fwd_lse_ms = cuda_time_ms(lambda: fa._launch(q, k, v, o, True, lse),
+                              iters=20)
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = cuda_time_ms(lambda: out.backward(dot, retain_graph=True),
+                              iters=10)
+    del qt, kt, vt, out, dot
+    bound, by, flops, nbytes = _flash_bwd_bound(q, k, v, True)
+    log(f"flash_attention backward {FLASH_TRAIN} bf16 causal: kernel "
+        f"{ms:.4f} ms, plain backward {plain_ms:.4f} ms, SDPA's backward "
+        f"(torch.autograd) {library_ms:.4f} ms; bound {bound:.4f} ms by {by} "
+        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+        f"{100 * bound / ms:.2f}% of it; the forward kernel at this shape "
+        f"{fwd_ms:.4f} ms without lse, {fwd_lse_ms:.4f} ms writing it")
+    return {"source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "route": "cuda", "launches": None, "max_abs_err": max_err,
+            "lse_max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "forward_ms": fwd_ms, "forward_lse_ms": fwd_lse_ms}
+
+
+# --------------------------------------------------------------------------
+# phase 6d: bsr_spmm's gradients on its kernel vs the plain backward
+# --------------------------------------------------------------------------
+
+def _bsr_grad_close(got, want, cols, vals, x, dy):
+    """Max abs error of (dvals, dx); raises unless each is within the bound
+    of any summation order, 2 L u (its product of absolute values) with L
+    the terms a sum takes (n for dvals, every (r, t) of a column block
+    times bm for dx) and u = 2^-24, plus one bf16 rounding (2^-7 |want|)."""
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_backward_plain
+    mags = bsr_spmm_backward_plain(cols, vals.float().abs(), x.float().abs(),
+                                   dy.float().abs())
+    R, K, bm, _ = vals.shape
+    lens = (x.shape[1], R * K * bm)
+    err = 0.0
+    for name, g, w, mag, n in zip(("dvals", "dx"), got, want, mags, lens):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} {tuple(g.shape)}/{g.dtype} vs "
+                                 f"{tuple(w.shape)}/{w.dtype}")
+        bound = 2 * n * 2.0 ** -24 * mag.double()
+        if g.dtype == torch.bfloat16:
+            bound = bound + 2.0 ** -7 * w.double().abs()
+        e = (g.double() - w.double()).abs()
+        if not bool((e <= bound).all()):
+            raise AssertionError(f"{name} beyond the summation-order bound: "
+                                 f"max err {float(e.max())}")
+        err = max(err, float(e.max()) if e.numel() else 0.0)
+    return err
+
+
+def _bsr_grads(bs, cols, vals, x, dy):
+    """(dvals, dx) through the kernel's autograd Function."""
+    vals = vals.detach().requires_grad_()
+    x = x.detach().requires_grad_()
+    y = bs.bsr_spmm(cols, vals, x)
+    return torch.autograd.grad(y, (vals, x), dy)
+
+
+def _expert_operands(g, C, bk, n, dtype=torch.bfloat16):
+    """Random operands of one expert product at phase 26's shapes: 64
+    padded experts of C rows, the 4 padding experts' ids -1."""
+    E = 64
+    cols = torch.arange(E, dtype=torch.int32, device="cuda").reshape(E, 1)
+    cols[60:] = -1
+    vals = torch.randn(E, 1, C, bk, generator=g, device="cuda").to(dtype)
+    x = (torch.randn(E * bk, n, generator=g, device="cuda")
+         / math.sqrt(bk)).to(dtype)
+    dy = torch.randn(E * C, n, generator=g, device="cuda").to(dtype)
+    return cols, vals, x, dy
+
+
+def check_bsr_backward() -> dict:
+    """Phase 6d: both gradients of ``bsr_spmm`` through its autograd
+    Function (each a product on the kernel) against
+    ``bsr_spmm_backward_plain``: at phase 26's ``we_g`` and ``we_2`` shapes
+    (64 experts of C = 640 rows, 4 of them padding), and on random
+    blocked-ELL operands with K up to 4, repeated column ids, ids past x's
+    last block, rows of padding alone and column blocks no block names.
+    Then at ``we_g``'s shape: the two products' times, the transposes'
+    bytes and times, the plain backward's, and ``torch.bmm``'s two
+    gradient products, beside the bound."""
+    from repro_torch.kernels import bsr_spmm as bs
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(700)
+    cases = [("phase 26 we_g (R=64 K=1 bm=640 bk=2048 n=1408)",
+              *_expert_operands(g, 640, 2048, 1408)),
+             ("phase 26 we_2 (R=64 K=1 bm=640 bk=1408 n=2048)",
+              *_expert_operands(g, 640, 1408, 2048))]
+    # (R, K, bm, bk, n, nblk, density, dtype, ids past the end, padding rows,
+    # column blocks nobody names)
+    for i, (R, K, bm, bk, n, nblk, density, dtype, oor, pad_rows,
+            unnamed) in enumerate(
+            [(32, 4, 128, 128, 256, 8, 0.5, bf16, 0, (), (2, 5)),
+             (32, 4, 128, 128, 256, 8, 0.9, f32, 2, (3,), ()),
+             (7, 3, 5, 7, 9, 4, 0.6, f32, 1, (0,), (1,)),
+             (16, 4, 256, 128, 512, 6, 0.8, bf16, 2, (3, 7), (0,)),
+             (8, 3, 130, 48, 136, 4, 0.9, bf16, 1, (2,), ()),
+             (6, 2, 64, 64, 64, 4, 1.0, bf16, 0, (), (0, 1, 2))]):
+        gi = torch.Generator(device="cuda").manual_seed(710 + i)
+        cols = torch.randint(0, nblk + oor, (R, K), generator=gi,
+                             device="cuda", dtype=torch.int32)
+        cols = torch.where(torch.rand(R, K, generator=gi, device="cuda")
+                           < density, cols, -1)
+        for c in unnamed:
+            cols = torch.where(cols == c, -1, cols)
+        if pad_rows:
+            cols[list(pad_rows)] = -1
+        vals = torch.randn(R, K, bm, bk, generator=gi, device="cuda").to(dtype)
+        x = torch.randn(nblk * bk, n, generator=gi, device="cuda").to(dtype)
+        dy = torch.randn(R * bm, n, generator=gi, device="cuda").to(dtype)
+        cases.append((f"R={R} K={K} bm={bm} bk={bk} n={n} {dtype}, ids up "
+                       f"to {nblk + oor - 1} of {nblk}, padding rows "
+                       f"{pad_rows}, unnamed blocks {unnamed}",
+                       cols, vals, x, dy))
+    max_err = 0.0
+    for name, cols, vals, x, dy in cases:
+        got = _bsr_grads(bs, cols, vals, x, dy)
+        want = bs.bsr_spmm_backward_plain(cols, vals, x, dy)
+        torch.cuda.synchronize()
+        try:
+            max_err = max(max_err, _bsr_grad_close(got, want, cols, vals, x,
+                                                   dy))
+        except AssertionError as e:
+            raise AssertionError(f"bsr_spmm backward {name}: {e}") from e
+    log(f"bsr_spmm backward: {len(cases)} cases match the plain backward "
+        f"(max abs err {max_err:.3g}, within 2 L u |.||.| + one bf16 "
+        f"rounding)")
+
+    _, cols, vals, x, dy = cases[0]
+    del cases
+    R, K, bm, bk = vals.shape
+    n = x.shape[1]
+    nblk = x.shape[0] // bk
+    dyv = dy.reshape(R, 1, bm, n)
+    xt = x.reshape(nblk, bk, n).transpose(1, 2).reshape(nblk * n, bk)
+    cols_t, vals_t = bs._transposed(cols, vals, nblk)
+    t_dvals = cuda_time_ms(lambda: bs._kernel_product(cols, dyv, xt, bf16),
+                           iters=10)
+    t_dx = cuda_time_ms(lambda: bs._kernel_product(cols_t, vals_t, dy, bf16),
+                        iters=10)
+    t_xt = cuda_time_ms(lambda: x.reshape(nblk, bk, n).transpose(1, 2)
+                        .contiguous(), iters=10)
+    t_vt = cuda_time_ms(lambda: bs._transposed(cols, vals, nblk), iters=10)
+    vg, xg = vals.detach().requires_grad_(), x.detach().requires_grad_()
+    y = bs.bsr_spmm(cols, vg, xg)
+    ms = cuda_time_ms(lambda: torch.autograd.grad(y, (vg, xg), dy,
+                                                  retain_graph=True),
+                      iters=10)
+    del y, vg, xg
+    plain_ms = cuda_time_ms(lambda: bs.bsr_spmm_backward_plain(
+        cols, vals, x, dy), iters=3, warmup=1)
+    xe, w, dye = vals[:, 0], x.reshape(R, bk, n), dy.reshape(R, bm, n)
+    library_ms = cuda_time_ms(lambda: (torch.bmm(dye, w.transpose(1, 2)),
+                                       torch.bmm(xe.transpose(1, 2), dye)),
+                              iters=10)
+    real = int((cols >= 0).sum())
+    flops = 2 * 2 * bm * bk * n * real
+    nbytes = (2 * real * bm * bk + 2 * real * bk * n + R * bm * n) * 2
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+    log(f"bsr_spmm backward at phase 26's we_g shape (R={R} K=1 bm=C={bm} "
+        f"bk={bk} n={n} bf16, {real} real experts): the Function's backward "
+        f"{ms:.4f} ms (dvals product {t_dvals:.4f} ms, dx product "
+        f"{t_dx:.4f} ms, x's transpose {xt.numel() * 2 / 1e6:.1f} MB in "
+        f"{t_xt:.4f} ms, A^T's build {vals_t.numel() * 2 / 1e6:.1f} MB in "
+        f"{t_vt:.4f} ms, its width {cols_t.shape[1]} read on the host), "
+        f"plain backward {plain_ms:.4f} ms, torch.bmm's two products "
+        f"{library_ms:.4f} ms; bound {bound:.4f} ms by {by} "
+        f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+        f"{100 * bound / ms:.1f}% of it")
+    return {"source": "src/repro_torch/kernels/csrc/bsr_spmm.cu",
+            "route": "cuda", "launches": None, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms,
+            "dvals_ms": t_dvals, "dx_ms": t_dx, "transpose_ms": t_xt + t_vt}
+
+
+# --------------------------------------------------------------------------
 # phase 7: qwen2-moe-a2.7b serving at full width and depth
 # --------------------------------------------------------------------------
 
@@ -5404,6 +5754,241 @@ def mamba_vs_plain_e2e() -> None:
                              f"{err}")
 
 
+# --------------------------------------------------------------------------
+# phases 26-26c: training qwen2-moe-a2.7b on one card
+# --------------------------------------------------------------------------
+
+def _train_launches():
+    """(flash forward, flash backward, bsr_spmm forward products, bsr_spmm
+    backward products, ssd_chunk, segreduce, semiring_matmul) launches since
+    the last ``_zero_launches``."""
+    from repro_torch.kernels import (bsr_spmm, flash_attention, segreduce,
+                                     semiring_matmul, ssd_chunk)
+    return (flash_attention.launches, flash_attention.backward_launches,
+            bsr_spmm.launches - bsr_spmm.backward_launches,
+            bsr_spmm.backward_launches, ssd_chunk.launches,
+            segreduce.launches, semiring_matmul.launches)
+
+
+def _zero_train_launches():
+    from repro_torch.kernels import bsr_spmm, flash_attention
+    _zero_launches()
+    flash_attention.backward_launches = bsr_spmm.backward_launches = 0
+
+
+def train_path() -> dict:
+    """Phase 26: qwen2-moe-a2.7b at full width, TRAIN_LAYERS of its 24
+    layers, float32 parameters from ``init_params(seed=0)`` and AdamW's
+    float32 state on the card; ``SyntheticLM(seed=11)`` batches of
+    TRAIN_BATCH x TRAIN_SEQ through a ``Prefetcher``; TRAIN_STEPS steps of
+    ``make_train_step`` with the launcher's ``AdamWConfig``. Prints each
+    step's loss, grad_norm and lr (finite, or the phase fails), the cold and
+    warm step wall, tokens/s, the peak memory, the launches of each kernel
+    a step (every step the same, every kernel of the path launched), then
+    one more step profiled by operator with the device's busy share.
+    Returns the launches of the measured run, by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, init_params
+    from repro_torch.models.model import vocab_padded
+    from repro_torch.train import (AdamWConfig, Prefetcher, SyntheticLM,
+                                   init_opt_state, make_train_step)
+
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=TRAIN_LAYERS)
+    model = Model(cfg)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    nparam = sum(v.numel() for v in _leaves(params))
+    E = params["blocks"]["pos0"]["router"].shape[-1]
+    cap = max(8, min(int(cfg.capacity_factor * B * S * cfg.top_k / E
+                         + 0.999), B * S))
+    log(f"{cfg.name} training, {cfg.n_layers} of 24 layers, every width "
+        f"kept (d_model {cfg.d_model}, {cfg.n_heads}x{cfg.hd} heads, "
+        f"{cfg.n_experts} experts padded to {E} of d_ff {cfg.d_ff}, top-"
+        f"{cfg.top_k} + {cfg.n_shared_experts} shared, vocab "
+        f"{vocab_padded(cfg)}): {nparam / 1e9:.3f} B float32 parameters, "
+        f"{16 * nparam / 1e9:.1f} GB with gradients and AdamW's m and v; "
+        f"batch {B} x {S} ({B * S} tokens a step, C = {cap} an expert); "
+        f"init {time.perf_counter() - t0:.2f} s")
+    step_fn = make_train_step(model, AdamWConfig(warmup_steps=20,
+                                                 decay_steps=100))
+    pf = Prefetcher(SyntheticLM(cfg.vocab, S, B, seed=11))
+    walls, per_step, rows = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_launches()
+    try:
+        for step in range(TRAIN_STEPS):
+            before = _train_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = {k: v.cuda() for k, v in pf.next().items()}
+            params, opt, m = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_step.append(tuple(a - b for a, b in zip(_train_launches(),
+                                                        before)))
+            row = [float(m[k]) for k in ("loss", "grad_norm", "lr", "aux")]
+            rows.append(row)
+            log(f"  step {step}: loss {row[0]:.4f}, grad_norm {row[1]:.4f}, "
+                f"lr {row[2]:.3e}, aux {row[3]:.4f}, wall "
+                f"{walls[-1] * 1e3:.1f} ms")
+        launches = _train_launches()
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for r in rows for x in r):
+            raise AssertionError("a non-finite loss, grad_norm or lr")
+        warm = sorted(walls[2:])
+        med = warm[len(warm) // 2]
+        log(f"phase 26: cold step {walls[0] * 1e3:.1f} ms, warm step "
+            f"{med * 1e3:.1f} ms (median of the last {len(warm)}; min "
+            f"{warm[0] * 1e3:.1f}, max {warm[-1] * 1e3:.1f}), "
+            f"{B * S / med:.1f} tokens/s; peak device memory "
+            f"{peak / 2**30:.3f} GiB; loss {rows[0][0]:.4f} -> "
+            f"{rows[-1][0]:.4f}")
+        names = ("flash fwd", "flash bwd", "bsr fwd", "bsr bwd", "ssd_chunk",
+                 "segreduce", "semiring_matmul")
+        log(f"launches a step ({', '.join(names)}): "
+            f"{sorted(set(per_step))}; the run: {launches}")
+        want = (2 * TRAIN_LAYERS, TRAIN_LAYERS, 6 * TRAIN_LAYERS,
+                6 * TRAIN_LAYERS, 0, 0, 0)
+        if set(per_step) != {want}:
+            raise AssertionError(f"launches a step {set(per_step)}, not "
+                                 f"{want}")
+        log("profile of one more warm step:")
+        batch = {k: v.cuda() for k, v in pf.next().items()}
+        profile_breakdown(lambda: step_fn(params, opt, batch), top=14)
+    finally:
+        pf.close()
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches[0],
+            "flash_attention_backward": launches[1],
+            "bsr_spmm": launches[2], "bsr_spmm_backward": launches[3],
+            "step_ms": med * 1e3, "peak_gib": peak / 2**30}
+
+
+@contextlib.contextmanager
+def _routes(replay=None):
+    """While open, every ``router_top_k`` choice is appended to the yielded
+    list (on the host); with ``replay`` (a list of such choices) each call
+    also counts the choices that differ from it and then takes it, its
+    probabilities gathered from this run's."""
+    from repro_torch.models import layers as L
+    got, wrapped, calls = [], L.router_top_k, [0]
+
+    def hook(probs, k):
+        vals, idx = wrapped(probs, k)
+        got.append(idx.cpu())
+        if replay is not None:
+            want = replay[calls[0]].to(idx.device)
+            calls[0] += 1
+            return probs.gather(-1, want), want
+        return vals, idx
+
+    L.router_top_k = hook
+    try:
+        yield got
+    finally:
+        L.router_top_k = wrapped
+
+
+def train_vs_plain_e2e() -> None:
+    """Phase 26b: qwen2-moe-a2.7b cut to E2E_LAYERS layers (every width
+    kept) in float32, batch TRAIN_E2E_BATCH x TRAIN_E2E_SEQ: the loss and
+    every gradient leaf (``value_and_grad``, remat on) on the card, where
+    the kernels and their backward kernels run, against the CPU, where the
+    plain versions run, from the same parameters (made on the card and
+    copied). The card's recomputed periods must route as its forward did;
+    the CPU run takes the card's routing choices, call for call (the ones
+    that differ are counted first); loss and aux within 1e-5 relative,
+    each leaf within TRAIN_E2E_TOL of its largest |g| on the CPU (two
+    float32 summation orders, through softmax, the router and 2 layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import SyntheticLM, value_and_grad
+    from repro_torch.dist.compression import _flatten
+
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=E2E_LAYERS, dtype="float32",
+                                        param_dtype="float32")
+    model = Model(cfg)
+    gpu_params, cpu_params = _e2e_params(cfg)
+    batch = SyntheticLM(cfg.vocab, TRAIN_E2E_SEQ, TRAIN_E2E_BATCH,
+                        seed=11).batch_at(0)
+    _zero_train_launches()
+    t0 = time.perf_counter()
+    with _routes() as card_routes:
+        lg, mg, gg = value_and_grad(model, gpu_params,
+                                    {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    n = _train_launches()
+    gg = [t.cpu() for t in _flatten(gg)]
+    del gpu_params
+    t0 = time.perf_counter()
+    with _routes(replay=card_routes) as cpu_routes:
+        lc, mc, gc = value_and_grad(model, cpu_params, batch)
+    t_cpu = time.perf_counter() - t0
+    L = len(card_routes) // 2           # forward, then remat in reverse
+    if len(card_routes) != 2 * E2E_LAYERS or not all(
+            torch.equal(card_routes[i], card_routes[2 * L - 1 - i])
+            for i in range(L)):
+        raise AssertionError("26b: the card's recomputed periods routed "
+                             "otherwise than its forward")
+    differ = sum(int((a != b).sum()) for a, b in zip(cpu_routes, card_routes))
+    total = sum(a.numel() for a in card_routes)
+    log(f"26b: {cfg.name} with {cfg.n_layers} layers in f32, batch "
+        f"{TRAIN_E2E_BATCH} x {TRAIN_E2E_SEQ}: card {t_gpu:.2f} s, CPU "
+        f"{t_cpu:.2f} s; launches on the card (flash fwd, flash bwd, bsr "
+        f"fwd, bsr bwd, ssd, segreduce, smm) {n}; routing choices that "
+        f"differ {differ} of {total} (forward and recompute; the CPU run "
+        f"takes the card's, and the card's recompute routed as its forward)")
+    if n[:4] != (2 * E2E_LAYERS, E2E_LAYERS, 6 * E2E_LAYERS,
+                 6 * E2E_LAYERS) or any(n[4:]):
+        raise AssertionError(f"26b launched {n}")
+    for name, a, b in (("loss", lg, lc), ("aux", mg["aux"], mc["aux"])):
+        a, b = float(a), float(b)
+        if not abs(a - b) <= 1e-5 * abs(b):
+            raise AssertionError(f"26b: {name} {a} on the card, {b} on the "
+                                 f"CPU")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gg, _flatten(gc))):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not err <= TRAIN_E2E_TOL * scale:
+            raise AssertionError(f"26b: gradient leaf {i} {tuple(b.shape)} "
+                                 f"differs by {err} (its max |g| {scale})")
+        worst = max(worst, err / max(scale, 1e-30))
+    log(f"26b: loss {float(lg):.6f} (card) vs {float(lc):.6f} (CPU), aux "
+        f"{float(mg['aux']):.6f} vs {float(mc['aux']):.6f}; all {len(gg)} "
+        f"gradient leaves within {worst:.3g} of their largest |g| "
+        f"(tolerance {TRAIN_E2E_TOL})")
+
+
+def launcher_train() -> None:
+    """Phase 26c: ``python -m repro_torch.launch.train --arch
+    qwen2-moe-a2.7b --smoke --steps 30`` on the card, in its own process;
+    the last step's loss must be below the first step's."""
+    import os
+    import re
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--smoke", "--steps", "30"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the training launcher exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    losses = [float(x) for x in
+              re.findall(r"^step\s+\d+ loss (\S+)", proc.stdout, re.M)]
+    log(f"26c: the launcher, {TRAIN_ARCH} --smoke --steps 30, in "
+        f"{time.perf_counter() - t0:.1f} s (the process's start included): "
+        f"losses {losses}")
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        raise AssertionError(f"26c: the loss did not fall: {losses}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = setup()
@@ -5455,6 +6040,8 @@ def main() -> int:
     bsr_record["launches"] = bsr_launches
     bsr_record["launches_by_path"] = {SERVE_ARCH: bsr_launches,
                                       MLA_ARCH: mla_bs}
+    fa_record["backward"] = check_flash_backward()
+    bsr_record["backward"] = check_bsr_backward()
     del ops, mla_ops
     kernels_vs_plain_e2e()
     kernels_vs_plain_e2e(MLA_ARCH)
@@ -5467,6 +6054,16 @@ def main() -> int:
                                      MLA_ARCH: mla_fa, VL_ARCH: vl_fa,
                                      AUDIO_ARCH: audio_fa}
     torch.cuda.empty_cache()          # phases 7 and 23-25 freed theirs
+    train = train_path()
+    train_vs_plain_e2e()
+    launcher_train()
+    fa_record["backward"]["launches"] = train["flash_attention_backward"]
+    bsr_record["backward"]["launches"] = train["bsr_spmm_backward"]
+    fa_record["launches_by_path"][f"{TRAIN_ARCH} training"] = \
+        train["flash_attention"]
+    bsr_record["launches_by_path"][f"{TRAIN_ARCH} training"] = \
+        train["bsr_spmm"]
+    torch.cuda.empty_cache()
     log(f"device memory before phase 8: "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     ssd_record = check_ssd_chunk()

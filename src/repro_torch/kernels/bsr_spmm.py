@@ -19,6 +19,19 @@ last block reads the last block, as ``ref.bsr_spmm``'s clip does. bf16
 with bk and n multiples of 8 (the experts' shapes) runs on Hopper's tensor
 cores (wgmma fed by TMA; a tile shaped for bm <= 64 at decode); float32 and
 other bf16 shapes run a float32 FMA kernel.
+
+Gradients: on a CUDA tensor that needs one the wrapper goes through
+``BsrSpmm``, an autograd Function whose backward is two more blocked-ELL
+products on the same kernel (the TPU kernel has none: the JAX package
+differentiates its einsum twin). For ``y = A @ x``:
+``dvals[r, t] = dy[r] @ x[c]^T`` (c = ``block_cols[r, t]``) is R * K
+block-rows of one block ``dy[r]`` with id c over x's blocks transposed;
+``dx[c] = sum over (r, t) naming c of vals[r, t]^T @ dy[r]`` is A^T in
+blocked-ELL form, a block-row per column block, its width the most pairs
+that name one block (one host read a backward call), over dy. An id of -1
+gives no gradient, an id past x's last block sends its gradient to the last
+block, and a column block that no pair names gets zeros.
+``bsr_spmm_backward_plain`` is the loop the products are held against.
 """
 from __future__ import annotations
 
@@ -30,8 +43,10 @@ import torch
 # dtype -> code in bsr_spmm.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the last reset (the plain path never counts)
+# kernel launches since the last reset (the plain path never counts); the
+# gradients' products count in both
 launches = 0
+backward_launches = 0
 
 _fn = None
 
@@ -98,31 +113,137 @@ def _launch(cols, vals, x, y) -> None:
     launches += 1
 
 
+def _kernel_product(cols, vals, x, out) -> torch.Tensor:
+    """The kernel's y = A @ x, its operands cast to ``out``."""
+    R, K, bm, bk = vals.shape
+    if max(R, bm, bk, x.shape[0], x.shape[1]) >= 2**31 or \
+            -(-bm // 64) > 65535 or R > 65535:
+        raise ValueError(f"bsr_spmm takes R <= 65535, bm <= 64 * 65535 and "
+                         f"dimensions below 2^31, got {tuple(vals.shape)}"
+                         f" and {tuple(x.shape)}")
+    cols = cols.to(torch.int32).contiguous()
+    vals = vals.to(out).contiguous()
+    x = x.to(out).contiguous()
+    y = torch.empty((R * bm, x.shape[1]), dtype=out, device=x.device)
+    if y.numel():
+        _launch(cols, vals, x, y)
+    return y
+
+
+def _transposed(block_cols, block_vals, nblk):
+    """A^T in blocked-ELL form: (cols (nblk, K'), vals (nblk, K', bk, bm)),
+    block-row c holding vals[r, t]^T with id r for every (r, t) whose id,
+    clipped to the last block, is c, in ascending (r, t); -1 and zeros pad.
+    K' is read on the host: the one read of a backward call. Padding
+    entries go to a block-row past the last, dropped at the end."""
+    R, K, bm, bk = block_vals.shape
+    flat = block_cols.reshape(-1).long()
+    col = torch.where(flat >= 0, flat.clamp(max=nblk - 1), nblk)
+    col, entry = torch.sort(col, stable=True)
+    count = torch.bincount(col, minlength=nblk + 1)
+    width = int(count[:nblk].max())
+    start = torch.cumsum(count, 0) - count
+    real = col < nblk
+    slot = torch.where(real, torch.arange(R * K, device=flat.device)
+                       - start[col], 0)
+    cols_t = torch.full((nblk + 1, max(width, 1)), -1, dtype=torch.int32,
+                        device=flat.device)
+    cols_t[col, slot] = torch.where(real, entry // K, -1).to(torch.int32)
+    vals_t = torch.zeros((nblk + 1, max(width, 1), bk, bm),
+                         dtype=block_vals.dtype, device=flat.device)
+    vals_t[col, slot] = block_vals.reshape(R * K, bm, bk)[entry] \
+        .transpose(1, 2)
+    return cols_t[:nblk, :width], vals_t[:nblk, :width]
+
+
+def _backward_products(cols, vals, x, dy, need_vals, need_x):
+    """(dvals, dx) of y = A @ x from dy on the kernel (None where not
+    needed), in the kernel's output type."""
+    global backward_launches
+    R, K, bm, bk = vals.shape
+    n = x.shape[1]
+    nblk = x.shape[0] // bk
+    out = dy.dtype
+    dvals = dx = None
+    if need_vals:
+        # R * K block-rows of one block dy[r] (bm x n) named c, over x's
+        # blocks transposed: (nblk * n, bk)
+        dyv = dy.reshape(R, 1, bm, n).expand(R, K, bm, n) \
+            .reshape(R * K, 1, bm, n)
+        xt = x.reshape(nblk, bk, n).transpose(1, 2).reshape(nblk * n, bk)
+        dvals = _kernel_product(cols.reshape(R * K, 1), dyv, xt, out) \
+            .reshape(R, K, bm, bk)
+        backward_launches += 1
+    if need_x:
+        cols_t, vals_t = _transposed(cols, vals, nblk)
+        if cols_t.shape[1] == 0:
+            dx = torch.zeros((nblk * bk, n), dtype=out, device=dy.device)
+        else:
+            dx = _kernel_product(cols_t, vals_t, dy, out)
+            backward_launches += 1
+    return dvals, dx
+
+
+def bsr_spmm_backward_plain(block_cols, block_vals, x, dy):
+    """(dvals, dx) of y = A @ x: the loop over the K stored blocks of every
+    row, in float32, each gradient in its input's type. An id of -1 gives
+    none; an id past x's last block sends its gradient to the last block;
+    a column block no (r, t) names gets zeros."""
+    _check(block_cols, block_vals, x)
+    R, K, bm, bk = block_vals.shape
+    n = x.shape[1]
+    nblk = x.shape[0] // bk
+    xb = x.reshape(nblk, bk, n).float()
+    dyb = dy.reshape(R, bm, n).float()
+    dvals = torch.zeros((R, K, bm, bk), dtype=torch.float32, device=x.device)
+    dx = torch.zeros((nblk, bk, n), dtype=torch.float32, device=x.device)
+    for t in range(K):
+        cols = block_cols[:, t].long()
+        real = cols >= 0
+        c = cols.clamp(0, nblk - 1)
+        dvals[:, t] = torch.where(real[:, None, None],
+                                  torch.bmm(dyb, xb[c].transpose(1, 2)), 0.0)
+        part = torch.bmm(block_vals[:, t].float().transpose(1, 2), dyb)
+        dx.index_add_(0, c[real], part[real])
+    return dvals.to(block_vals.dtype), dx.reshape(nblk * bk, n).to(x.dtype)
+
+
+class BsrSpmm(torch.autograd.Function):
+    """y = A @ x on the kernel, with both gradients on the kernel too."""
+
+    @staticmethod
+    def forward(ctx, block_cols, block_vals, x):
+        out = torch.promote_types(block_vals.dtype, x.dtype)
+        ctx.save_for_backward(block_cols, block_vals, x)
+        return _kernel_product(block_cols, block_vals, x, out)
+
+    @staticmethod
+    def backward(ctx, dy):
+        cols, vals, x = ctx.saved_tensors
+        out = dy.dtype
+        dvals, dx = _backward_products(
+            cols, vals.to(out), x.to(out), dy.contiguous(),
+            ctx.needs_input_grad[1], ctx.needs_input_grad[2])
+        return (None, None if dvals is None else dvals.to(vals.dtype),
+                None if dx is None else dx.to(x.dtype))
+
+
 def bsr_spmm(block_cols: torch.Tensor, block_vals: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for A in blocked-ELL form. Returns (R * bm, n).
 
     CPU tensors take the plain version; a CUDA tensor launches the kernel or
-    raises.
+    raises, through ``BsrSpmm`` when a gradient is needed.
     """
     out = _check(block_cols, block_vals, x)
     if x.device.type == "cpu":
         return bsr_spmm_plain(block_cols, block_vals, x)
     if x.device.type != "cuda":
         raise ValueError(f"bsr_spmm runs on cpu or cuda, not {x.device}")
-    R, K, bm, bk = block_vals.shape
-    if max(R, bm, bk, x.shape[0], x.shape[1]) >= 2**31 or \
-            -(-bm // 64) > 65535 or R > 65535:
-        raise ValueError(f"bsr_spmm takes R <= 65535, bm <= 64 * 65535 and "
-                         f"dimensions below 2^31, got {tuple(block_vals.shape)}"
-                         f" and {tuple(x.shape)}")
-    cols = block_cols.to(torch.int32).contiguous()
-    vals = block_vals.to(out).contiguous()
-    x = x.to(out).contiguous()
-    y = torch.empty((R * bm, x.shape[1]), dtype=out, device=x.device)
-    if y.numel():
-        _launch(cols, vals, x, y)
-    return y
+    if torch.is_grad_enabled() and (block_vals.requires_grad
+                                    or x.requires_grad):
+        return BsrSpmm.apply(block_cols, block_vals, x)
+    return _kernel_product(block_cols, block_vals, x, out)
 
 
 def to_blocked_ell(dense: np.ndarray, bm: int, bk: int,

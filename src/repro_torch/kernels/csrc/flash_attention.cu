@@ -54,6 +54,11 @@
 // max and sum with warp shuffles; it cannot come within 7 % of the bound
 // (67 TFLOP/s of float32 FMA at most).
 //
+// The row log-sum-exp: given a buffer lse (B, H, S) float32 (the autograd
+// Function passes one for the backward in flash_attention_bwd.cu; serving
+// passes none), each kernel also writes lse = m + log l of every real row
+// in natural units, -inf for a row that sees no key.
+//
 // C interface (bound with ctypes): flash_attention_launch returns
 // cudaGetLastError() after the launch (or the error of setting the dynamic
 // shared-memory size), 0 on success, -1 for a dtype, head dim or grid this
@@ -103,9 +108,9 @@ constexpr size_t smem_floats() {
 template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       int Skv, int H, int KVH, int d, int dv, float scale,
-                       int causal) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int S, int Skv, int H,
+                       int KVH, int d, int dv, float scale, int causal) {
   using E = Elem<T>;
   extern __shared__ float smem[];
   float* qs = smem;                    // Q tile, transposed: [DM][kPad]
@@ -235,6 +240,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();                     // l_s is final (also with no tile)
+  if (lse != nullptr && tid < kBQ && q0 + tid < S)   // natural log
+    lse[((size_t)b * H + h) * S + q0 + tid] =
+        m_s[tid] == -INFINITY ? -INFINITY : m_s[tid] + logf(l_s[tid]);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -275,9 +283,9 @@ __global__ void __launch_bounds__(384, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
-                             const __grid_constant__ CUtensorMap map_o, int S,
-                             int Skv, int H, int KVH, float scale_log2,
-                             int causal) {
+                             const __grid_constant__ CUtensorMap map_o,
+                             float* __restrict__ lse, int S, int Skv, int H,
+                             int KVH, float scale_log2, int causal) {
   using namespace hopper;
   using L = FlashSmem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -447,6 +455,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
     const float d_a = fmaxf(l_a, 1e-30f), d_b = fmaxf(l_b, 1e-30f);
+    if (lse != nullptr && tq == 0) {   // m is in log2 units: back to ln
+      float* row = lse + ((size_t)b * H + h) * S;
+      if (row_a < S)
+        row[row_a] = m_a == -INFINITY
+            ? -INFINITY : (m_a + log2f(l_a)) * 0.6931471805599453f;
+      if (row_b < S)
+        row[row_b] = m_b == -INFINITY
+            ? -INFINITY : (m_b + log2f(l_b)) * 0.6931471805599453f;
+    }
     // the output, rounded once, into this warpgroup's own Q rows (no longer
     // read: its last Q K^T has completed), then TMA-stored (rows past S are
     // not written)
@@ -475,9 +492,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int Skv, int H, int KVH, float scale, int causal,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int S, int Skv, int H, int KVH,
+                 float scale, int causal, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v, map_o;
   const uint32_t box[4] = {64, 1, 128, 1};
   const uint64_t q_dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)S,
@@ -503,7 +520,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (ntq > 65535) return -1;
   const dim3 grid(B * H, ntq);
   kern<<<grid, 384, smem, stream>>>(
-      map_q, map_k, map_v, map_o, S, Skv, H, KVH,
+      map_q, map_k, map_v, map_o, lse, S, Skv, H, KVH,
       scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -519,9 +536,9 @@ bool wgmma_fits(const void* q, const void* k, const void* v, const void* o,
 }
 
 template <typename T, int DM>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Skv, int H, int KVH, int d, int dv, float scale, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Skv, int H, int KVH, int d, int dv, float scale,
+           int causal, cudaStream_t stream) {
   const size_t smem = smem_floats<DM>() * sizeof(float);
   auto kern = flash_attention_kernel<T, DM>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -530,50 +547,53 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Skv, H, KVH, d, dv,
-      scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Skv, H, KVH, d,
+      dv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_dm(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int Skv, int H, int KVH, int d, int dv, float scale,
-              int causal, cudaStream_t s) {
+int launch_dm(const void* q, const void* k, const void* v, void* o, float* lse,
+              int B, int S, int Skv, int H, int KVH, int d, int dv,
+              float scale, int causal, cudaStream_t s) {
   const int dm = d > dv ? d : dv;
   if (dm <= 32)
-    return launch<T, 32>(q, k, v, o, B, S, Skv, H, KVH, d, dv, scale, causal, s);
+    return launch<T, 32>(q, k, v, o, lse, B, S, Skv, H, KVH, d, dv, scale,
+                         causal, s);
   if (dm <= 64)
-    return launch<T, 64>(q, k, v, o, B, S, Skv, H, KVH, d, dv, scale, causal, s);
+    return launch<T, 64>(q, k, v, o, lse, B, S, Skv, H, KVH, d, dv, scale,
+                         causal, s);
   if (dm <= 128)
-    return launch<T, 128>(q, k, v, o, B, S, Skv, H, KVH, d, dv, scale, causal,
-                          s);
+    return launch<T, 128>(q, k, v, o, lse, B, S, Skv, H, KVH, d, dv, scale,
+                          causal, s);
   if (dm <= 256)
-    return launch<T, 256>(q, k, v, o, B, S, Skv, H, KVH, d, dv, scale, causal,
-                          s);
+    return launch<T, 256>(q, k, v, o, lse, B, S, Skv, H, KVH, d, dv, scale,
+                          causal, s);
   return -1;
 }
 
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int Skv, int H, int KVH, int d, int dv,
-                                      float scale, int causal, int dtype,
-                                      void* stream) {
+                                      const void* v, void* o, float* lse,
+                                      int B, int S, int Skv, int H, int KVH,
+                                      int d, int dv, float scale, int causal,
+                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * H > 65535 || KVH <= 0 || H % KVH) return -1;
   switch (dtype) {
     case kF32:
-      return launch_dm<float>(q, k, v, o, B, S, Skv, H, KVH, d, dv, scale,
-                              causal, s);
+      return launch_dm<float>(q, k, v, o, lse, B, S, Skv, H, KVH, d, dv,
+                              scale, causal, s);
     case kBF16:
       if (wgmma_fits(q, k, v, o, d, dv, Skv))
         return d == 64
-            ? launch_wgmma<64>(q, k, v, o, B, S, Skv, H, KVH, scale, causal, s)
-            : launch_wgmma<128>(q, k, v, o, B, S, Skv, H, KVH, scale, causal,
-                                s);
-      return launch_dm<__nv_bfloat16>(q, k, v, o, B, S, Skv, H, KVH, d, dv,
-                                      scale, causal, s);
+            ? launch_wgmma<64>(q, k, v, o, lse, B, S, Skv, H, KVH, scale,
+                               causal, s)
+            : launch_wgmma<128>(q, k, v, o, lse, B, S, Skv, H, KVH, scale,
+                                causal, s);
+      return launch_dm<__nv_bfloat16>(q, k, v, o, lse, B, S, Skv, H, KVH, d,
+                                      dv, scale, causal, s);
   }
   return -1;
 }

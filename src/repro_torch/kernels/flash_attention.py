@@ -20,6 +20,15 @@ its blocks and KV heads repeated for GQA:
   j <= i + Skv - S. A query that sees no key gives zeros (the online
   softmax's ``acc / max(l, 1e-30)``).
 
+Gradients: on a CUDA tensor that needs one (grad mode on, an input that
+requires grad) the wrapper goes through ``FlashAttention``, an autograd
+Function whose forward launches the same kernel and also writes the row
+log-sum-exp ``lse`` (B, H, S) float32, and whose backward launches
+``csrc/flash_attention_bwd.cu`` (dQ, dK, dV; ``backward_launches`` counts
+its calls). The TPU kernel has none: the JAX package differentiates its
+pure twin. ``flash_attention_backward_plain`` is the materialised formula
+the kernel is held against.
+
 Numerics follow the Pallas kernel: scores, running max, denominator and
 accumulator in float32, ``p`` rounded to v's type before the PV product,
 the output divided by ``max(l, 1e-30)`` and rounded once to q's type.
@@ -38,10 +47,13 @@ import torch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
-# kernel launches since the last reset (the plain path never counts)
+# kernel launches since the last reset (the plain path never counts): the
+# forward kernel's, and the backward's (one a call of its three launches)
 launches = 0
+backward_launches = 0
 
 _fn = None
+_bwd_fn = None
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -64,33 +76,71 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True, return_lse: bool = False):
     """The plain PyTorch version: ``repro/kernels/ref.py``'s materialised
     softmax in float32, with GQA and S != Skv (rows that see no key give 0).
+    With ``return_lse`` also the row log-sum-exp of the scaled scores,
+    (B, H, S) float32, -inf for a row that sees no key.
     """
     _check(q, k, v)
-    B, S, H, d = q.shape
-    skv = k.shape[1]
-    rep = H // k.shape[2]
-    kf = k.float().repeat_interleave(rep, dim=2)
-    vf = v.float().repeat_interleave(rep, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(d)
-    if causal:
-        qpos = torch.arange(S, device=q.device)[:, None] + (skv - S)
-        seen = torch.arange(skv, device=q.device)[None, :] <= qpos
-        s = s.masked_fill(~seen, -math.inf)
+    s, seen = _scores(q, k, causal)
+    if seen is not None:
         p = torch.softmax(s, dim=-1).masked_fill(~seen.any(-1)[:, None], 0.0)
     else:
         p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    vf = v.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
 
 
-def _launch(q, k, v, o, causal: bool) -> None:
+def _scores(q, k, causal):
+    """Scaled scores (B, H, S, Skv) in float32, -inf where the bottom-right
+    causal mask hides a key; and the mask (None when not causal)."""
+    S, skv = q.shape[1], k.shape[1]
+    kf = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(q.shape[3])
+    if not causal:
+        return s, None
+    qpos = torch.arange(S, device=q.device)[:, None] + (skv - S)
+    seen = torch.arange(skv, device=q.device)[None, :] <= qpos
+    return s.masked_fill(~seen, -math.inf), seen
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal=True):
+    """(dq, dk, dv) of attention, materialised in float32: P = exp(s - lse)
+    (0 where masked or where lse is -inf), Delta = rowsum(dO * o),
+    dV = P^T dO, dS = P (dO V^T - Delta), dQ = scale dS K, dK = scale
+    dS^T Q, the GQA group's heads summed onto their KV head. Each gradient
+    in its input's type."""
+    _check(q, k, v)
+    B, S, H, d = q.shape
+    kvh, dv = k.shape[2], v.shape[3]
+    rep = H // kvh
+    s, _ = _scores(q, k, causal)
+    lse = lse.float()[..., None]
+    p = torch.where(torch.isinf(s) | torch.isinf(lse), 0.0,
+                    torch.exp(s - lse))
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]  # (B,H,S,1)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    kf = k.float().repeat_interleave(rep, dim=2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta) / math.sqrt(d)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dvv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    skv = k.shape[1]
+    dk = dk.reshape(B, skv, kvh, rep, d).sum(3)
+    dvv = dvv.reshape(B, skv, kvh, rep, dv).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
+
+
+def _launch(q, k, v, o, causal: bool, lse=None) -> None:
     global _fn, launches
     if _fn is None:
         from ._build import load
         fn = load("flash_attention").flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -98,6 +148,7 @@ def _launch(q, k, v, o, causal: bool) -> None:
     skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              None if lse is None else lse.data_ptr(),
               B, S, skv, H, kvh, d, dv, 1.0 / math.sqrt(d), int(causal),
               _DTYPE_CODE[q.dtype], stream)
     if err != 0:
@@ -107,12 +158,66 @@ def _launch(q, k, v, o, causal: bool) -> None:
     launches += 1
 
 
+def _launch_backward(q, k, v, o, lse, do, dq, dk, dv, causal: bool) -> None:
+    global _bwd_fn, backward_launches
+    if _bwd_fn is None:
+        from ._build import load
+        fn = load("flash_attention_bwd").flash_attention_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    B, S, H, d = q.shape
+    skv, kvh, dvd = k.shape[1], k.shape[2], v.shape[3]
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, skv, H,
+                  kvh, d, dvd, 1.0 / math.sqrt(d), int(causal),
+                  _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed "
+                           f"({q.dtype}, q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, causal {causal}): error {err}")
+    backward_launches += 1
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention on the kernels with its gradient: the forward kernel writes
+    o and lse, the backward kernel gives dq, dk and dv from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        B, S, H, _ = q.shape
+        o = torch.empty((B, S, H, v.shape[3]), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        if o.numel():
+            _launch(q, k, v, o, causal, lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        if q.numel() and k.numel():
+            _launch_backward(q, k, v, o, lse, do.contiguous(), dq, dk, dv,
+                             ctx.causal)
+        else:
+            for t in (dq, dk, dv):
+                t.zero_()
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Softmax attention of q (B, S, H, d) over k, v (B, Skv, KVH, d|dv).
 
     CPU tensors take the plain version; a CUDA tensor launches the kernel or
-    raises. Returns (B, S, H, dv) in q's type.
+    raises, through ``FlashAttention`` when a gradient is needed. Returns
+    (B, S, H, dv) in q's type.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -127,6 +232,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention takes B * H <= 65535 and sequences "
                          "below 2^30")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
     B, S, H, _ = q.shape
     o = torch.empty((B, S, H, v.shape[3]), dtype=q.dtype, device=q.device)
     if o.numel():

@@ -34,6 +34,8 @@ import math
 
 import torch
 
+from . import refuse_grad
+
 TAGS = ("sum", "min", "max")
 _TAG_CODE = {"sum": 0, "min": 1, "max": 2}
 # dtype -> (code in segreduce.cu, ctypes type of the accumulator fill)
@@ -283,6 +285,8 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
                                     identity=identity, sorted_ids=sorted_ids)
     if values.device.type != "cuda":
         raise ValueError(f"segreduce runs on cpu or cuda, not {values.device}")
+    refuse_grad("segreduce", "nothing differentiates a segmented reduce, "
+                "in either package", values)
     vdims = tuple(values.shape[1:])
     which = route(values.dtype, math.prod(vdims), sorted_ids)
     s = int(num_segments)

@@ -33,6 +33,8 @@ import math
 
 import torch
 
+from . import refuse_grad
+
 KINDS = ("plus_times", "min_plus", "max_min", "or_and")
 _KIND_CODE = {k: i for i, k in enumerate(KINDS)}
 # dtype -> code in semiring_matmul.cu
@@ -175,6 +177,8 @@ def semiring_matmul(a: torch.Tensor, b: torch.Tensor,
     if a.device.type != "cuda":
         raise ValueError(f"semiring_matmul runs on cpu or cuda, not "
                          f"{a.device}")
+    refuse_grad("semiring_matmul", "nothing differentiates a semiring "
+                "product, in either package", a, b)
     if max(a.shape[0], a.shape[1], b.shape[1]) >= 2**31:
         raise ValueError("semiring_matmul takes dimensions below 2^31")
     a = a.to(out).contiguous()

@@ -39,6 +39,8 @@ import ctypes
 
 import torch
 
+from . import refuse_grad
+
 # dtype -> code in ssd_chunk.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 256
@@ -152,6 +154,8 @@ def ssd_chunk(xc, dtc, A, Bc, Cc):
         return ssd_chunk_plain(xc, dtc, A, Bc, Cc)
     if xc.device.type != "cuda":
         raise ValueError(f"ssd_chunk runs on cpu or cuda, not {xc.device}")
+    refuse_grad("ssd_chunk", "its backward waits for the SSD backward slice, "
+                "ROADMAP queue 1", xc, dtc, A, Bc, Cc)
     G, q, H, P = xc.shape
     N = Bc.shape[2]
     if not 1 <= q <= MAX_CHUNK or max(P, N) > MAX_DIM:

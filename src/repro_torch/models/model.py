@@ -15,8 +15,10 @@ of the seed and the leaf's path.
 Every family of the registry: decoders with GQA or MLA attention and a dense
 or MoE FFN, Qwen2-VL's vision-patch frontend with M-RoPE, the HuBERT encoder
 over audio frames, the attention-free Mamba2 stack (``kind="ssm"``) and the
-Mamba/attention hybrid (``kind="hybrid"``). The forward pass only: the loss
-and training wait (ROADMAP §1).
+Mamba/attention hybrid (``kind="hybrid"``), each with ``Model.loss``.
+``forward(remat=True)`` (the default) recomputes each period in the
+backward pass, as the reference's ``jax.checkpoint`` with
+``nothing_saveable`` over its scan body.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import zlib
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.coo import resolve_device
 from . import layers as L
@@ -262,8 +265,13 @@ class Model(nn.Module):
         return x, aux, new_cache
 
     # ---------------- full stack ----------------
-    def forward(self, params, batch, *, caches=None):
-        """Returns (logits (B, S, vocab_padded), aux_loss, new_caches)."""
+    def forward(self, params, batch, *, caches=None, remat=True):
+        """Returns (logits (B, S, vocab_padded), aux_loss, new_caches).
+
+        With ``remat`` (and grad mode on, and no caches) each period runs
+        under ``torch.utils.checkpoint`` (non-reentrant): only its input is
+        kept, and the backward pass runs its forward again, kernels
+        included."""
         cfg = self.cfg
         if self.cast_early:
             params = self._cast_early(params)
@@ -279,23 +287,59 @@ class Model(nn.Module):
             else offset.to(x.device)[:, None] + steps[None]
         pos3 = batch.get("pos3")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for r in range(reps):
+
+        def run_period(x, blks):
+            total = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, (kind, moe) in enumerate(zip(kinds, moes)):
-                blk = {k: v[r] for k, v in params["blocks"][f"pos{i}"].items()}
-                c = None
-                if caches is not None:
-                    cc = caches[f"pos{i}"]
-                    c = {k: v[r] for k, v in cc.items() if k != "offset"}
-                    if kind == "attn":
-                        c["offset"] = int(cc["offset"][r])
-                x, a, nc = self._layer(x, blk, kind, moe, pos, pos3, c)
+                x, a, _ = self._layer(x, blks[i], kind, moe, pos, pos3, None)
+                total = total + a
+            return x, total
+
+        for r in range(reps):
+            blks = [{k: v[r] for k, v in params["blocks"][f"pos{i}"].items()}
+                    for i in range(period)]
+            if caches is None:
+                if remat and torch.is_grad_enabled():
+                    x, a = checkpoint(run_period, x, blks,
+                                      use_reentrant=False)
+                else:
+                    x, a = run_period(x, blks)
                 aux = aux + a
-                if kind == "attn" and nc is not None:
-                    caches[f"pos{i}"]["offset"][r] = nc["offset"]
+                continue
+            for i, (kind, moe) in enumerate(zip(kinds, moes)):
+                cc = caches[f"pos{i}"]
+                c = {k: v[r] for k, v in cc.items() if k != "offset"}
+                if kind == "attn":
+                    c["offset"] = int(cc["offset"][r])
+                x, a, nc = self._layer(x, blks[i], kind, moe, pos, pos3, c)
+                aux = aux + a
+                if kind == "attn":
+                    cc["offset"][r] = nc["offset"]
         x = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
         head = params.get("lm_head", params["embed"])
         logits = x @ head.T.to(x.dtype)
         return logits, aux, caches
+
+    # ---------------- loss ----------------
+    def loss(self, params, batch):
+        """(loss, dict(nll, aux, ntok)): the mean token NLL, logsumexp in
+        float32, over ``labels >= 0`` (labels clamped to >= 0), or for an
+        encoder over its ``mask`` of ``targets``; plus the MoE aux loss.
+        ``ntok`` counts the positions, at least 1."""
+        logits, aux, _ = self.forward(params, batch)
+        if self.cfg.kind == "encoder":
+            labels = batch["targets"]
+            mask = batch["mask"].float()
+        else:
+            labels = batch["labels"]
+            mask = (labels >= 0).float()
+        labels = labels.clamp(min=0).long()
+        lf = logits.float()
+        gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+        nll = (torch.logsumexp(lf, dim=-1) - gold) * mask
+        ntok = mask.sum().clamp(min=1.0)
+        mean = nll.sum() / ntok
+        return mean + aux, dict(nll=mean, aux=aux, ntok=ntok)
 
     def _cast_early(self, params):
         adt = _dtype(self.cfg.dtype)

@@ -251,3 +251,95 @@ def test_kernel_long_sums_on_gpu(cuda, dtype, R, K, bm, bk, n):
     if dtype == torch.bfloat16:
         bound += 2.0 ** -7 * want.abs()
     assert bool(((got - want).abs() <= bound).all())
+
+
+# --------------------------------------------------------------------------
+# the gradients: the plain backward against autograd, the Function on the GPU
+# --------------------------------------------------------------------------
+
+def grad_operands(R, K, bm, bk, n, nblk, seed, oor=0, pad_rows=(),
+                  unnamed=(), dtype=torch.float32, device="cpu"):
+    """Random blocked-ELL operands and dy: ids up to nblk + oor - 1 (past
+    x's last block when oor > 0), -1 in about a fifth of the slots, rows of
+    padding alone and column blocks no slot names."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, nblk + oor, (R, K)).astype(np.int32)
+    cols[rng.random((R, K)) < 0.2] = -1
+    for c in unnamed:
+        cols[cols == c] = -1
+    cols[list(pad_rows)] = -1
+    t = [torch.as_tensor(a).to(device) for a in (
+        cols, rng.standard_normal((R, K, bm, bk)),
+        rng.standard_normal((nblk * bk, n)),
+        rng.standard_normal((R * bm, n)))]
+    return t[0], t[1].to(dtype), t[2].to(dtype), t[3].to(dtype)
+
+
+# (R, K, bm, bk, n, nblk, ids past the end, padding rows, unnamed blocks)
+GRAD_CASES = [(6, 4, 8, 8, 16, 4, 0, (), (1,)),
+              (5, 3, 5, 7, 9, 4, 2, (0,), ()),
+              (8, 1, 12, 16, 8, 8, 0, (2, 5), (3,)),
+              (4, 4, 8, 4, 4, 3, 1, (3,), (0, 2))]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_backward_plain_vs_autograd(case):
+    """``bsr_spmm_backward_plain`` against torch.autograd through the plain
+    forward (K up to 4, repeated ids, ids past the last block, padding
+    rows, unnamed column blocks), float32 within 1e-5: the same float32
+    products summed in another order. Unnamed column blocks get zeros."""
+    R, K, bm, bk, n, nblk, oor, pad_rows, unnamed = case
+    cols, vals, x, dy = grad_operands(R, K, bm, bk, n, nblk, seed=R * K,
+                                      oor=oor, pad_rows=pad_rows,
+                                      unnamed=unnamed)
+    leaves = [vals.clone().requires_grad_(), x.clone().requires_grad_()]
+    want = torch.autograd.grad(bs.bsr_spmm_plain(cols, *leaves), leaves, dy)
+    got = bs.bsr_spmm_backward_plain(cols, vals, x, dy)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    for c in unnamed:
+        assert not bool(got[1][c * bk:(c + 1) * bk].any())
+    assert not bool(got[0][cols < 0].any())
+
+
+def test_transposed_layout_names_every_pair():
+    """A^T's blocked-ELL form (what the dx product runs on): block-row c
+    holds vals[r, t]^T with id r for every (r, t) whose clipped id is c,
+    in ascending (r, t), padded with -1."""
+    cols = torch.tensor([[0, 2], [2, -1], [7, 0]], dtype=torch.int32)
+    vals = torch.arange(3 * 2 * 2 * 3, dtype=torch.float32) \
+        .reshape(3, 2, 2, 3)
+    cols_t, vals_t = bs._transposed(cols, vals, nblk=3)
+    assert cols_t.tolist() == [[0, 2, -1], [-1, -1, -1], [0, 1, 2]]
+    assert torch.equal(vals_t[0, 0], vals[0, 0].T)
+    assert torch.equal(vals_t[0, 1], vals[2, 1].T)
+    assert torch.equal(vals_t[2, 2], vals[2, 0].T)    # id 7 clipped to 2
+    assert not bool(vals_t[1].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_backward_kernel_vs_plain_on_gpu(cuda, dtype, case):
+    """Both gradients through ``BsrSpmm`` (two products on the kernel)
+    against the plain backward: float32 within 1e-4, bfloat16 within 2^-7
+    of |want| plus 2^-7 of max|want| (one rounding of the stored output
+    and of dy's products)."""
+    R, K, bm, bk, n, nblk, oor, pad_rows, unnamed = case
+    cols, vals, x, dy = grad_operands(R, K, bm, bk, n, nblk, seed=R * K,
+                                      oor=oor, pad_rows=pad_rows,
+                                      unnamed=unnamed, dtype=dtype,
+                                      device=cuda)
+    leaves = [vals.clone().requires_grad_(), x.clone().requires_grad_()]
+    before = bs.backward_launches
+    got = torch.autograd.grad(bs.bsr_spmm(cols, *leaves), leaves, dy)
+    torch.cuda.synchronize()
+    assert bs.backward_launches == before + 2
+    want = bs.bsr_spmm_backward_plain(cols, vals, x, dy)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for g, w in zip(got, want):
+        w = w.float()
+        err = (g.float() - w).abs()
+        assert bool((err <= tol * w.abs() + tol * w.abs().max()).all())

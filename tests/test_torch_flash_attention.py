@@ -187,3 +187,105 @@ def test_kernel_vs_plain_on_gpu(cuda, dtype, S, skv, H, kvh, d):
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), **tol)
+
+
+# --------------------------------------------------------------------------
+# the backward: the plain formula against autograd, the Function on the GPU
+# --------------------------------------------------------------------------
+
+# (B, S, Skv, H, KVH, d, dv, causal): phase 6c's kinds at small sizes (ragged
+# S, Skv beside S with rows that see no key, GQA, d = dv in 16, 64, 128,
+# hubert's d = 80 and MLA's d = 192 with dv = 128)
+BWD_CASES = [(2, 9, 9, 4, 4, 16, 16, True), (2, 9, 9, 4, 2, 16, 16, False),
+             (1, 33, 33, 4, 1, 64, 64, True), (1, 20, 40, 4, 2, 64, 64, True),
+             (1, 30, 12, 2, 2, 128, 128, True),
+             (1, 17, 17, 2, 2, 80, 80, False),
+             (1, 13, 13, 2, 2, 192, 128, True)]
+
+
+def bwd_operands(B, S, skv, H, kvh, d, dv, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(shape)).to(dtype)
+            for shape in ((B, S, H, d), (B, skv, kvh, d), (B, skv, kvh, dv),
+                          (B, S, H, dv))]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_backward_plain_vs_autograd(case):
+    """``flash_attention_backward_plain`` on the plain forward's (o, lse)
+    against torch.autograd through the plain forward, in float32 (float64
+    inputs rounded to float32): within 1e-5 absolute and relative."""
+    B, S, skv, H, kvh, d, dv, causal = case
+    q, k, v, do = bwd_operands(B, S, skv, H, kvh, d, dv, seed=S + d)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = fa.flash_attention_plain(*leaves, causal=causal, return_lse=True)
+    want = torch.autograd.grad(o, leaves, do)
+    got = fa.flash_attention_backward_plain(q, k, v, o.detach(), lse.detach(),
+                                            do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    # a row that sees no key: lse -inf, and neither it nor its keys get a
+    # gradient from it
+    if causal and skv < S:
+        assert bool(torch.isinf(lse[:, :, :S - skv]).all())
+        assert not bool(got[0][:, :S - skv].any())
+
+
+def test_lse_vs_logsumexp_of_jax_scores():
+    """The plain version's lse against ``jax.nn.logsumexp`` of the scaled
+    scores under the bottom-right causal mask (rows that see no key: -inf)."""
+    import jax
+    q, k, v, _ = bwd_operands(1, 12, 8, 2, 1, 16, 16, seed=5)
+    _, lse = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    jq, jk = jnp.asarray(q.numpy()), jnp.asarray(k.numpy())
+    s = jnp.einsum("bqhd,bkhd->bhqk", jq, jnp.repeat(jk, 2, axis=2)) / 4.0
+    seen = jnp.arange(8)[None, :] <= jnp.arange(12)[:, None] - 4
+    want = jax.nn.logsumexp(jnp.where(seen, s, -jnp.inf), axis=-1)
+    np.testing.assert_allclose(lse.numpy(), np_of(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_plain_path_differentiable_on_cpu():
+    """On the CPU the wrapper takes the plain version, which autograd
+    differentiates: the gradient exists and matches the plain backward."""
+    q, k, v, do = bwd_operands(1, 10, 10, 2, 1, 16, 16, seed=8)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_backward_kernel_vs_plain_on_gpu(cuda, dtype, case):
+    """The Function on the card: forward kernel with lse, backward kernel;
+    held against the plain backward on the same (q, k, v, o, lse, dO)
+    (phase 6c's tolerance: 1e-4 or 2^-7 of |want| plus 1e-4 or 2^-9 of
+    max|want|)."""
+    B, S, skv, H, kvh, d, dv, causal = case
+    q, k, v, do = (t.to(cuda) for t in bwd_operands(
+        B, S, skv, H, kvh, d, dv, seed=S + d, dtype=dtype))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.launches, fa.backward_launches)
+    out = fa.flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.backward_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    want = fa.flash_attention_backward_plain(q, k, v, out.detach(), lse, do,
+                                             causal=causal)
+    rtol, frac = (1e-4, 1e-4) if dtype == torch.float32 else (2.0 ** -7,
+                                                              2.0 ** -9)
+    for g, w in zip(got, want):
+        w = w.float()
+        err = (g.float() - w).abs()
+        assert bool((err <= rtol * w.abs() + frac * w.abs().max()).all())
