@@ -7,8 +7,10 @@ Phases (any failure exits non-zero and prints no result line):
 1. setup: the card's name and power limit, the torch and CUDA versions, the
    kernels' build times (one nvcc per source, all started together, from
    the sources in this checkout) and ptxas' registers and spills; then
-   ``cuobjdump -sass`` of the flash_attention, bsr_spmm and ssd_chunk
-   libraries, which fails unless each wgmma kernel holds HGMMA and UTMALDG;
+   ``cuobjdump -sass`` of the flash_attention, flash_attention_bwd,
+   bsr_spmm and ssd_chunk libraries, which fails unless each wgmma kernel
+   holds HGMMA and UTMALDG and both attention libraries hold each of their
+   wgmma kernels (ptxas' registers and spills of each printed);
 2. segreduce vs plain: the segmented-reduce kernel against its plain
    PyTorch version on the card. The atomic route over tags, dtypes, id
    orders, sizes and vector values; the sorted route (``sorted_ids=True``)
@@ -43,10 +45,11 @@ Phases (any failure exits non-zero and prints no result line):
 6. flash_attention vs plain: the attention kernel against its plain version
    over causal and not, f32 and bf16, ragged S (130 and 2080 leave a ragged
    128-row tile), head dims 16-128, GQA and Skv beside S, MLA's d = 192
-   with dv = 128 (causal) and hubert's d = 80 (not), with times at phase
-   7's (4, 2048, 16, 128) bf16 causal and at phases 23-25's shapes
-   (``FLASH_PATHS``) beside the bound and
-   ``F.scaled_dot_product_attention``;
+   with dv = 128 and hubert's d = 80 (both bf16 on the wgmma kernel), with
+   each case's ``route()`` printed and checked (wgmma for every main-path
+   shape, fma for f32 and d = 16), and times at phase 7's (4, 2048, 16,
+   128) bf16 causal and at phases 23-25's shapes (``FLASH_PATHS``) beside
+   the bound and ``F.scaled_dot_product_attention``;
 7. serve: qwen2-moe-a2.7b at full width and depth (24 layers, bf16
    parameters from ``init_params(seed=0)``) through ``greedy_generate``:
    batch 4, a 2,048-token prompt, 32 greedy tokens; cold and warm prefill,
@@ -65,7 +68,9 @@ Phases (any failure exits non-zero and prints no result line):
    against its plain backward on the same (q, k, v, o, lse, dO), and the
    forward kernel's lse against the plain version's: causal and not, f32
    and bf16, ragged S (130, 2080), Skv beside S (bottom right, rows that
-   see no key), GQA, d = dv in 16, 64, 128, d = 80, d = 192 with dv = 128;
+   see no key), GQA groups of 1, 2, 4 and 8, d = dv in 16, 64, 128, d =
+   80, d = 192 with dv = 128, each case's ``backward_route()`` printed and
+   checked (wgmma for bf16 d == dv in 64..128, phase 26's shape included);
    at phase 26's (2, 4096, 16, 128) bf16 causal the backward's time beside
    its bound, the plain backward and SDPA's backward, and the forward with
    and without lse;
@@ -314,6 +319,7 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -501,13 +507,42 @@ def setup() -> str:
             if "registers" in line or "warning" in line or (
                     "spill" in line and " 0 bytes spill" not in line):
                 log("    ptxas:", line.strip())
+        for fname, regs, spills in _ptxas_by_function(info["log"]):
+            if "wgmma" in fname:
+                log(f"    ptxas {fname[:64]}...: {regs}; {spills}")
     check_hopper_sass(_build)
     return smi.splitlines()[0]
 
 
+def _ptxas_by_function(text: str) -> list:
+    """(function, its "Used N registers" text, its spill stores and loads)
+    of each entry function in ptxas' -v output."""
+    out, name, spills = [], None, "spills not reported"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), "spills not reported"
+        elif "spill stores" in line and name:
+            spills = ", ".join(x.strip() for x in line.split(",")
+                               if "spill" in x)
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used \d+ registers", line)
+            out.append((name, regs.group(0) if regs else line.strip(),
+                        spills))
+            name = None
+    return out
+
+
 # the kernels redesigned on wgmma and TMA: each function whose name holds
-# "wgmma" must contain both instructions in its SASS
-HOPPER_KERNELS = ("flash_attention", "bsr_spmm", "ssd_chunk")
+# "wgmma" must contain both instructions in its SASS, and a library must
+# hold each wgmma kernel named here
+HOPPER_KERNELS = ("flash_attention", "bsr_spmm", "ssd_chunk",
+                  "flash_attention_bwd")
+HOPPER_NAMES = {
+    "flash_attention": ("flash_attention_wgmma_kernel",),
+    "flash_attention_bwd": ("flash_attention_bwd_dkdv_wgmma_kernel",
+                            "flash_attention_bwd_dq_wgmma_kernel"),
+}
 
 
 def cuobjdump_path() -> str:
@@ -539,6 +574,9 @@ def check_hopper_sass(_build) -> None:
                  if "wgmma" in f.split(None, 1)[0]]
         if not funcs:
             raise AssertionError(f"{name}: no wgmma kernel in its library")
+        for want in HOPPER_NAMES.get(name, ()):
+            if not any(want in f.split(None, 1)[0] for f in funcs):
+                raise AssertionError(f"{name}: no {want} in its library")
         for f in funcs:
             fname = f.split(None, 1)[0]
             counts = {op: f.count(op) for op in ("HGMMA", "UTMALDG",
@@ -4182,6 +4220,47 @@ FLASH_PATHS = {
 }
 
 
+def _want_route(d, dv, dtype, backward=False):
+    """The route ``csrc/flash_attention{,_bwd}.cu`` should take for fresh
+    (16-byte aligned) tensors and Skv > 0: bf16 with d and dv multiples of 8,
+    64 <= d <= 192 and 64 <= dv <= 128 runs the forward's wgmma kernel; the
+    backward's takes bf16 with d == dv, a multiple of 8 in 64..128."""
+    if dtype != torch.bfloat16 or d % 8 or dv % 8:
+        return "fma"
+    if backward:
+        return "wgmma" if d == dv and 64 <= d <= 128 else "fma"
+    return "wgmma" if 64 <= d <= 192 and 64 <= dv <= 128 else "fma"
+
+
+def _check_routes(what, got, want, must) -> None:
+    """Print each case's route (``got``: case -> route) and fail unless it
+    is ``want``'s, and unless ``must`` (a description -> (case, route)) holds
+    every case it names."""
+    short = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    line = []
+    for case, r in got.items():
+        B, S, skv, kvh, d, dv, dtype, causal = case
+        line.append(f"{S}/{skv}/{kvh}/{d}/{dv}/{short[dtype]}/"
+                    f"{'c' if causal else 'n'}:{r}")
+        if len(line) == 6:
+            log("  " + "  ".join(line))
+            line = []
+    if line:
+        log("  " + "  ".join(line))
+    bad = {c: r for c, r in got.items() if r != want[c]}
+    if bad:
+        raise AssertionError(f"{what}: routes {bad} differ from "
+                             f"{ {c: want[c] for c in bad} }")
+    for desc, (case, r) in must.items():
+        if got.get(case) != r:
+            raise AssertionError(f"{what}: {desc} {case} took "
+                                 f"{got.get(case)}, not {r}")
+    log(f"{what} routes (S/Skv/KVH/d/dv/type/causal:route above): "
+        f"{sum(r == 'wgmma' for r in got.values())} wgmma, "
+        f"{sum(r == 'fma' for r in got.values())} fma; "
+        f"{', '.join(f'{k} {r}' for k, (_, r) in must.items())}")
+
+
 def _close(got, want, rtol, atol, what):
     """Max abs error; raises unless |got - want| <= atol + rtol |want|."""
     err = (got.double() - want.double()).abs()
@@ -4270,19 +4349,34 @@ def check_flash_attention() -> dict:
               (1, 130, 2080, 4, 128, 128, bf16, True),
               (1, 300, 2080, 2, 128, 128, bf16, False),
               (2, 300, 40, 4, 64, 64, bf16, True)]
-    # MLA's d = 192 with dv = 128 (the FMA kernel's DM = 256), causal, and
-    # hubert's d = 80 without a mask (DM = 128), over ragged S
+    # MLA's d = 192 with dv = 128, causal, and hubert's d = 80 without a
+    # mask, over ragged S (bf16: the wgmma kernel's D = 192, DV = 128 and
+    # D = DV = 128 over zero columns; f32: the FMA kernel)
     cases += [(2 if S < 2048 else 1, S, S, 16, 192, 128, dtype, True)
               for S in (1, 77, 130, 2080) for dtype in (f32, bf16)]
     cases += [(1, 130, 300, 16, 192, 128, bf16, True)]
     cases += [(2 if S < 1500 else 1, S, S, 16, 80, 80, dtype, False)
               for S in (1, 77, 130, 1500) for dtype in (f32, bf16)]
+    # the wgmma kernel's other widths: MLA at ragged S with Skv beside S
+    # (rows that see no key when S > Skv), d = 80 with GQA (KVH 4) under the
+    # causal mask, d != dv both ways, d = 96 over zero columns
+    cases += [(2, 77, 200, 16, 192, 128, bf16, True),
+              (1, 300, 130, 16, 192, 128, bf16, True),
+              (2, 130, 130, 4, 80, 80, bf16, True),
+              (1, 77, 300, 4, 80, 80, bf16, True),
+              (1, 300, 77, 4, 80, 80, bf16, True),
+              (1, 130, 130, 4, 64, 128, bf16, True),
+              (1, 130, 130, 4, 128, 64, bf16, False),
+              (1, 77, 77, 16, 192, 64, bf16, True),
+              (1, 130, 130, 16, 96, 96, bf16, True)]
     max_err = 0.0
+    routes = {}
     for i, (B, S, skv, kvh, d, dv, dtype, causal) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(200 + i)
         q = torch.randn(B, S, H, d, generator=g, device="cuda").to(dtype)
         k = torch.randn(B, skv, kvh, d, generator=g, device="cuda").to(dtype)
         v = torch.randn(B, skv, kvh, dv, generator=g, device="cuda").to(dtype)
+        routes[cases[i]] = fa.route(q, k, v)
         got = fa.flash_attention(q, k, v, causal=causal)
         want = fa.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -4296,14 +4390,29 @@ def check_flash_attention() -> dict:
         max_err = max(max_err, err)
     log(f"flash_attention: {len(cases)} cases match the plain version (max "
         f"abs err {max_err:.3g}; causal and not, f32 and bf16, S in 1, 77, "
-        f"130, 1500, 2048, 2080, d in 16, 64, 80, 128 and 192 (MLA: dv = "
-        f"128), KVH 16 and 4 at H = 16; Skv of 40 to 2080 beside S of 5 to "
-        f"300)")
+        f"130, 300, 1500, 2048, 2080, d in 16, 64, 80, 96, 128 and 192 (dv "
+        f"= d, or 64 and 128 beside it), KVH 16 and 4 at H = 16; Skv of 40 "
+        f"to 2080 beside S of 5 to 300)")
 
     B, S, H, d = FLASH_MAIN
     g = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = (torch.randn(B, S, H, d, generator=g, device="cuda")
                .to(bf16) for _ in range(3))
+    main_case = (B, S, S, H, d, d, bf16, True)
+    routes[main_case] = fa.route(q, k, v)
+    must = {"FLASH_MAIN": (main_case, "wgmma"),
+            "f32": ((2, 130, 130, 16, 128, 128, f32, True), "fma"),
+            "d = 16": ((2, 130, 130, 16, 16, 16, bf16, True), "fma")}
+    for arch, (B2, S2, H2, kvh, d2, dv2, causal) in FLASH_PATHS.items():
+        qq = torch.empty(B2, S2, H2, d2, device="cuda", dtype=bf16)
+        kk = torch.empty(B2, S2, kvh, d2, device="cuda", dtype=bf16)
+        vv = torch.empty(B2, S2, kvh, dv2, device="cuda", dtype=bf16)
+        case = (B2, S2, S2, kvh, d2, dv2, bf16, causal)
+        routes[case] = fa.route(qq, kk, vv)
+        must[arch] = (case, "wgmma")
+        del qq, kk, vv
+    _check_routes("flash_attention", routes,
+                  {c: _want_route(c[4], c[5], c[6]) for c in routes}, must)
     main = _time_flash(fa, q, k, v, True, str(FLASH_MAIN), tol[bf16])
     record = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4559,13 +4668,25 @@ def check_flash_backward() -> dict:
               for dtype in (f32, bf16)]
     cases += [(1, S, S, 16, 80, 80, dtype, False) for S in (130, 1500)
               for dtype in (f32, bf16)]
+    # the wgmma backward's edges: rows that see no key (S > Skv, causal),
+    # GQA groups of 2 (KVH 8) and 4 (KVH 4) at d = 64 and 128 with ragged
+    # tiles, Skv > S with a group of 2, d = 80 causal over zero columns
+    cases += [(1, 300, 100, 4, 128, 128, bf16, True),
+              (1, 130, 130, 8, 64, 64, bf16, True),
+              (1, 130, 130, 8, 128, 128, bf16, False),
+              (1, 257, 257, 4, 64, 64, bf16, False),
+              (1, 257, 257, 4, 128, 128, bf16, True),
+              (1, 77, 300, 8, 128, 128, bf16, True),
+              (1, 130, 130, 4, 80, 80, bf16, True)]
     max_err = lse_err = 0.0
+    routes = {}
     for i, (B, S, skv, kvh, d, dv, dtype, causal) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(600 + i)
         q = torch.randn(B, S, H, d, generator=g, device="cuda").to(dtype)
         k = torch.randn(B, skv, kvh, d, generator=g, device="cuda").to(dtype)
         v = torch.randn(B, skv, kvh, dv, generator=g, device="cuda").to(dtype)
         do = torch.randn(B, S, H, dv, generator=g, device="cuda").to(dtype)
+        routes[cases[i]] = fa.backward_route(q, k, v)
         o, lse, got = _flash_grads(fa, q, k, v, do, causal)
         _, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
                                                return_lse=True)
@@ -4588,14 +4709,23 @@ def check_flash_backward() -> dict:
                                                f"flash {name} {what}"))
     log(f"flash_attention backward: {len(cases)} cases match the plain "
         f"backward (max abs err {max_err:.3g}; lse within {lse_err:.3g}; "
-        f"causal and not, f32 and bf16, S in 77, 130, 300, 1500, 2080, Skv "
-        f"of 33 to 2080 beside them, d in 16, 64, 80, 128 and 192 (dv = "
-        f"128), KVH 16, 4 and 2 at H = 16)")
+        f"causal and not, f32 and bf16, S in 77, 130, 257, 300, 1500, 2080, "
+        f"Skv of 33 to 2080 beside them, d in 16, 64, 80, 128 and 192 (dv = "
+        f"128), KVH 16, 8, 4 and 2 at H = 16)")
 
     B, S, H, d = FLASH_TRAIN
     g = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn(B, S, H, d, generator=g, device="cuda")
                    .to(bf16) for _ in range(4))
+    train_case = (B, S, S, H, d, d, bf16, True)
+    routes[train_case] = fa.backward_route(q, k, v)
+    _check_routes("flash_attention backward", routes,
+                  {c: _want_route(c[4], c[5], c[6], backward=True)
+                   for c in routes},
+                  {"FLASH_TRAIN": (train_case, "wgmma"),
+                   "f32": ((2, 130, 130, 16, 128, 128, f32, True), "fma"),
+                   "d = 16": ((2, 130, 130, 16, 16, 16, bf16, True), "fma"),
+                   "MLA": ((1, 130, 130, 16, 192, 128, bf16, True), "fma")})
     o, lse, got = _flash_grads(fa, q, k, v, do, True)
     want = fa.flash_attention_backward_plain(q, k, v, o, lse, do,
                                              causal=True)

@@ -28,38 +28,53 @@
 // (0.0695 ms). What the kernel does not hide is the softmax between the
 // products: one instruction less per exponential bought 7 % (PERF.md).
 //
-// Design (bf16, d == dv in {64, 128}, tensors on 16 bytes: what TMA and the
-// models' heads take): an FA3-shaped forward (flash_attention_wgmma_kernel).
-// A block of three warpgroups owns a 128-row query tile: warpgroup 0 is the
-// producer, one thread of which TMA-loads the Q tile once and each 128-key
-// tile of K and V into a three-stage ring gated by mbarriers; warpgroups 1
-// and 2 (setmaxnreg: 240 registers, the producer 24) each own 64 rows. Per
-// key tile a consumer runs S = Q K^T as wgmma m64n128k16 (Q and K K-major in
-// shared memory, SW128 boxes of 64 columns: d = 128 as two), masks S only
-// on a tile that crosses the diagonal or the end of Skv, takes the online
-// softmax in registers with exp2 (scale * log2 e folded in; ex2.approx, one
-// instruction), and feeds p, rounded to bf16, straight from the score
-// accumulators as the register A operand of O += P V (wgmma m64n{d}k16, V
-// MN-major: the transpose bit). The output goes through the warpgroup's own
-// (spent) Q rows to a TMA store. The grid runs the heaviest query tiles
-// first (blockIdx.y reversed, heads fastest), so the causal grid has no long
-// tail. Issuing S of the next tile before this tile's softmax, and taking
-// turns between the two consumers (FA3's overlaps), measured no faster here
-// (PERF.md).
+// Design (bf16; d and dv multiples of 8 with 64 <= d <= 192 and 64 <= dv
+// <= 128; q, k, v on 16 bytes: what TMA and the models' heads take, MLA's
+// d = 192 / dv = 128 and hubert's d = 80 included): an FA3-shaped forward
+// (flash_attention_wgmma_kernel<D, DV>, D and DV the head dims rounded up
+// to 64-column boxes). A block of three warpgroups owns a 128-row query
+// tile: warpgroup 0 is the producer, one thread of which TMA-loads the Q
+// tile once and each 128-key tile of K and V into a ring gated by mbarriers
+// (three stages; two at D = 192, whose three would need 289 KB of shared
+// memory); warpgroups 1 and 2 (setmaxnreg: 240 registers, the producer 24)
+// each own 64 rows. Per key tile a consumer runs S = Q K^T as wgmma
+// m64n128k16 (Q and K K-major in shared memory, SW128 boxes of 64 columns),
+// masks S only on a tile that crosses the diagonal or the end of Skv, takes
+// the online softmax in registers with exp2 (scale * log2 e folded in;
+// ex2.approx, one instruction), and feeds p, rounded to bf16, straight from
+// the score accumulators as the register A operand of O += P V (wgmma
+// m64n{DV}k16, V MN-major: the transpose bit). A head dim between the
+// boxes (d = 80) needs no layout of its own: the tensor maps carry the real
+// d and dv, so TMA fills the columns past them with zeros, as it fills the
+// rows past S of a ragged tile; the products run over the whole boxes and
+// the store drops the columns past dv. The output goes through the
+// warpgroup's own (spent) Q rows, max(D, DV) columns wide, to a TMA store.
+// The grid runs the heaviest query tiles first (blockIdx.y reversed, heads
+// fastest), so the causal grid has no long tail. Issuing S of the next
+// tile before this tile's softmax, and taking turns between the two
+// consumers (FA3's overlaps), measured no faster here (PERF.md).
 //
-// Everything else (f32, other head dims, MLA's d != dv, unaligned rows) runs
-// a float32 FMA kernel (flash_attention_kernel): 64-row query tiles, per KV
-// tile S = Q K^T * scale as a 4x4 register micro-tile per thread (Q and K
-// transposed in shared memory), then four threads per row take the row's
-// max and sum with warp shuffles; it cannot come within 7 % of the bound
-// (67 TFLOP/s of float32 FMA at most).
+// Times on an H100 80GB HBM3 at 700 W (PERF.md §6 row 4): (4, 2048, 16,
+// 128) causal 0.17 ms (SDPA 0.14); MLA's (4, 2048, 16, d 192, dv 128)
+// causal 0.21 ms (SDPA 0.18-0.26); hubert's (8, 1500, 16, 80) 0.36 ms
+// (SDPA 0.27), where the zero columns are 60 % more work than d = 80
+// needs.
+//
+// Everything else (float32, head dims outside those ranges, unaligned rows)
+// runs a float32 FMA kernel (flash_attention_kernel): 64-row query tiles,
+// per KV tile S = Q K^T * scale as a 4x4 register micro-tile per thread (Q
+// and K transposed in shared memory), then four threads per row take the
+// row's max and sum with warp shuffles; it cannot come within 7 % of the
+// bound (67 TFLOP/s of float32 FMA at most). flash_attention_route says
+// which kernel an input takes.
 //
 // The row log-sum-exp: given a buffer lse (B, H, S) float32 (the autograd
 // Function passes one for the backward in flash_attention_bwd.cu; serving
 // passes none), each kernel also writes lse = m + log l of every real row
 // in natural units, -inf for a row that sees no key.
 //
-// C interface (bound with ctypes): flash_attention_launch returns
+// C interface (bound with ctypes): flash_attention_route returns 1 when the
+// launch takes the tensor-core kernel, else 0; flash_attention_launch returns
 // cudaGetLastError() after the launch (or the error of setting the dynamic
 // shared-memory size), 0 on success, -1 for a dtype, head dim or grid this
 // file does not take, or -2 (hopper::kTensorMapError) when a tensor map is
@@ -266,19 +281,34 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // mbarrier that counts the consumer warps done with both. Thread (w, g, q)
 // of a consumer warpgroup holds rows 16 w + g and 16 w + g + 8 of its 64
 // (hopper.cuh's accumulator layout).
+//
+// D and DV are the head dims d and dv rounded up to whole 64-column boxes
+// (64, 128, 192 and 64, 128). The tensor maps carry the real d and dv, so
+// the columns of a box past them load as zeros (the same zero fill that
+// covers a ragged last row tile) and are never stored: d = 80 runs D = 128,
+// its Q K^T summing zeros over the last 48 columns and its P V producing
+// 48 zero columns the store drops.
 
 constexpr int kFQ = 128, kFK = 128;    // query rows a block, keys a tile
-constexpr int kFStages = 3;            // K/V stages
+constexpr int kFMaxStages = 3;         // K/V stages (fewer when they do not fit)
+constexpr size_t kSmemLimit = 232448;  // shared memory a block may use
 
-template <int D>
+template <int D, int DV>
 struct FlashSmem {
   static constexpr uint32_t kBox = 128 * 128;          // 128 rows x 64 bf16
-  static constexpr uint32_t kQ = (D / 64) * kBox;      // Q tile
-  static constexpr uint32_t kKV = (D / 64) * kBox;     // one K or V tile
-  static constexpr size_t kBytes = kQ + 2 * kFStages * kKV + 1024;  // + align
+  // the Q tile, and the O tile written through the same (spent) rows
+  static constexpr uint32_t kQ = ((D > DV ? D : DV) / 64) * kBox;
+  static constexpr uint32_t kK = (D / 64) * kBox;      // one K tile
+  static constexpr uint32_t kV = (DV / 64) * kBox;     // one V tile
+  // three stages where they fit (d = dv = 128: 225 KB); MLA's D = 192,
+  // DV = 128 takes two (209 KB; three would need 289 KB)
+  static constexpr int kStages =
+      kQ + kFMaxStages * (kK + kV) + 1024 <= kSmemLimit - 1024 ? kFMaxStages
+                                                               : 2;
+  static constexpr size_t kBytes = kQ + kStages * (kK + kV) + 1024;  // + align
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(384, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
@@ -287,16 +317,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              float* __restrict__ lse, int S, int Skv, int H,
                              int KVH, float scale_log2, int causal) {
   using namespace hopper;
-  using L = FlashSmem<D>;
+  using L = FlashSmem<D, DV>;
+  constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t qbar, kfull[kFStages], vfull[kFStages],
-      empty[kFStages];
+  __shared__ __align__(8) uint64_t qbar, kfull[kFMaxStages],
+      vfull[kFMaxStages], empty[kFMaxStages];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* qs = smem;
-  auto ks = [&](int s) { return smem + L::kQ + s * L::kKV; };
+  auto ks = [&](int s) { return smem + L::kQ + s * L::kK; };
   auto vs = [&](int s) {
-    return smem + L::kQ + (kFStages + s) * L::kKV;
+    return smem + L::kQ + kStages * L::kK + s * L::kV;
   };
 
   const int wg = threadIdx.x / 128;
@@ -311,7 +342,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (threadIdx.x == 0) {
     mbar_init(&qbar, 1);
-    for (int s = 0; s < kFStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&kfull[s], 1);
       mbar_init(&vfull[s], 1);
       mbar_init(&empty[s], 8);         // lane 0 of every consumer warp
@@ -323,21 +354,21 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (wg == 0) {                       // producer warpgroup
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(&qbar, L::kQ);
+      mbar_arrive_expect_tx(&qbar, (D / 64) * L::kBox);
 #pragma unroll
       for (int c = 0; c < D / 64; ++c)
         tma_load_4d(qs + c * L::kBox, &map_q, &qbar, c * 64, h, q0, b);
       for (int it = 0; it < ntile; ++it) {
-        const int s = it % kFStages;
-        mbar_wait(&empty[s], ((it / kFStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&kfull[s], L::kKV);
+        const int s = it % kStages;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&kfull[s], L::kK);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
           tma_load_4d(ks(s) + c * L::kBox, &map_k, &kfull[s], c * 64, hk,
                       it * kFK, b);
-        mbar_arrive_expect_tx(&vfull[s], L::kKV);
+        mbar_arrive_expect_tx(&vfull[s], L::kV);
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c)
+        for (int c = 0; c < DV / 64; ++c)
           tma_load_4d(vs(s) + c * L::kBox, &map_v, &vfull[s], c * 64, hk,
                       it * kFK, b);
       }
@@ -350,15 +381,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int rows0 = q0 + cw * 64;    // this warpgroup's first row
     const int row_a = rows0 + warp * 16 + g, row_b = row_a + 8;
 
-    float oacc[D / 2];
+    float oacc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
     mbar_wait(&qbar, 0);
 
     for (int it = 0; it < ntile; ++it) {
-      const int s = it % kFStages;
-      const uint32_t par = (it / kFStages) & 1;
+      const int s = it % kStages;
+      const uint32_t par = (it / kStages) & 1;
       const int k0 = it * kFK;
       float sacc[kFK / 2];
       mbar_wait(&kfull[s], par);
@@ -427,7 +458,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       l_a = l_a * c_a + rs_a;
       l_b = l_b * c_b + rs_b;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         oacc[4 * j] *= c_a;
         oacc[4 * j + 1] *= c_a;
         oacc[4 * j + 2] *= c_b;
@@ -439,7 +470,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int kk = 0; kk < kFK / 16; ++kk) {
         const uint64_t dv = desc_mnmajor(vs(s) + kk * 2048, L::kBox);
-        if constexpr (D == 128)
+        if constexpr (DV == 128)
           wgmma_rs_n128<1>(oacc, pf[kk], dv, 1);
         else
           wgmma_rs_n64<1>(oacc, pf[kk], dv, 1);
@@ -465,12 +496,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             ? -INFINITY : (m_b + log2f(l_b)) * 0.6931471805599453f;
     }
     // the output, rounded once, into this warpgroup's own Q rows (no longer
-    // read: its last Q K^T has completed), then TMA-stored (rows past S are
-    // not written)
+    // read: its last Q K^T has completed; kQ holds max(D, DV) columns), then
+    // TMA-stored (rows past S and columns past dv are not written)
     const int ra = warp * 16 + g, rb = ra + 8;
     unsigned char* out = qs + cw * 8192;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       unsigned char* box = out + (j / 8) * L::kBox;
       *reinterpret_cast<__nv_bfloat162*>(box + sw128_offset(ra, j % 8) +
                                          tq * 4) =
@@ -483,7 +514,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     named_barrier(1 + cw, 128);
     if ((threadIdx.x & 127) == 0) {
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c)
+      for (int c = 0; c < DV / 64; ++c)
         tma_store_4d(&map_o, out + c * L::kBox, c * 64, h, rows0, b);
       bulk_commit();
       bulk_wait_read<0>();             // the block's shared memory outlives it
@@ -491,28 +522,38 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D>
+// The maps carry the real d and dv: the columns of a box past them load as
+// zeros and are not stored.
+template <int D, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int S, int Skv, int H, int KVH,
-                 float scale, int causal, cudaStream_t stream) {
+                 float* lse, int B, int S, int Skv, int H, int KVH, int d,
+                 int dv, float scale, int causal, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v, map_o;
   const uint32_t box[4] = {64, 1, 128, 1};
-  const uint64_t q_dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)S,
+  const uint64_t q_dims[4] = {(uint64_t)d, (uint64_t)H, (uint64_t)S,
                               (uint64_t)B};
-  const uint64_t q_strides[3] = {(uint64_t)D, (uint64_t)H * D,
-                                 (uint64_t)S * H * D};
-  const uint64_t kv_dims[4] = {(uint64_t)D, (uint64_t)KVH, (uint64_t)Skv,
-                               (uint64_t)B};
-  const uint64_t kv_strides[3] = {(uint64_t)D, (uint64_t)KVH * D,
-                                  (uint64_t)Skv * KVH * D};
+  const uint64_t q_strides[3] = {(uint64_t)d, (uint64_t)H * d,
+                                 (uint64_t)S * H * d};
+  const uint64_t k_dims[4] = {(uint64_t)d, (uint64_t)KVH, (uint64_t)Skv,
+                              (uint64_t)B};
+  const uint64_t k_strides[3] = {(uint64_t)d, (uint64_t)KVH * d,
+                                 (uint64_t)Skv * KVH * d};
+  const uint64_t v_dims[4] = {(uint64_t)dv, (uint64_t)KVH, (uint64_t)Skv,
+                              (uint64_t)B};
+  const uint64_t v_strides[3] = {(uint64_t)dv, (uint64_t)KVH * dv,
+                                 (uint64_t)Skv * KVH * dv};
+  const uint64_t o_dims[4] = {(uint64_t)dv, (uint64_t)H, (uint64_t)S,
+                              (uint64_t)B};
+  const uint64_t o_strides[3] = {(uint64_t)dv, (uint64_t)H * dv,
+                                 (uint64_t)S * H * dv};
   const uint32_t out_box[4] = {64, 1, 64, 1};
   if (hopper::make_map_bf16(&map_q, q, 4, q_dims, q_strides, box) ||
-      hopper::make_map_bf16(&map_k, k, 4, kv_dims, kv_strides, box) ||
-      hopper::make_map_bf16(&map_v, v, 4, kv_dims, kv_strides, box) ||
-      hopper::make_map_bf16(&map_o, o, 4, q_dims, q_strides, out_box))
+      hopper::make_map_bf16(&map_k, k, 4, k_dims, k_strides, box) ||
+      hopper::make_map_bf16(&map_v, v, 4, v_dims, v_strides, box) ||
+      hopper::make_map_bf16(&map_o, o, 4, o_dims, o_strides, out_box))
     return hopper::kTensorMapError;
-  const size_t smem = FlashSmem<D>::kBytes;
-  auto kern = flash_attention_wgmma_kernel<D>;
+  const size_t smem = FlashSmem<D, DV>::kBytes;
+  auto kern = flash_attention_wgmma_kernel<D, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -525,13 +566,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the tensor-core path: bf16, d == dv in {64, 128}, tensors on 16 bytes (TMA)
-// and at least one key (a tensor map has no empty dimension)
-bool wgmma_fits(const void* q, const void* k, const void* v, const void* o,
-                int d, int dv, int Skv) {
-  return d == dv && (d == 64 || d == 128) && Skv > 0 &&
+template <int D>
+int launch_wgmma_dv(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int S, int Skv, int H, int KVH, int d,
+                    int dv, float scale, int causal, cudaStream_t s) {
+  return dv > 64 ? launch_wgmma<D, 128>(q, k, v, o, lse, B, S, Skv, H, KVH, d,
+                                        dv, scale, causal, s)
+                 : launch_wgmma<D, 64>(q, k, v, o, lse, B, S, Skv, H, KVH, d,
+                                       dv, scale, causal, s);
+}
+
+// the tensor-core route: bf16; d and dv multiples of 8 (rows on 16 bytes, as
+// TMA's strides must be) with 64 <= d <= 192 and 64 <= dv <= 128 (a
+// narrower head would fill most of its 64-column box with zeros; a wider d
+// or dv does not fit shared memory or the registers); q, k and v on 16
+// bytes; and at least one key (a tensor map has no empty dimension). The
+// output is the wrapper's own fresh tensor: its map is refused, and the
+// launch fails, were it not on 16 bytes.
+bool wgmma_fits(const void* q, const void* k, const void* v, int d, int dv,
+                int Skv, int dtype) {
+  return dtype == kBF16 && d % 8 == 0 && dv % 8 == 0 && d >= 64 &&
+         d <= 192 && dv >= 64 && dv <= 128 && Skv > 0 &&
          (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
+          reinterpret_cast<uintptr_t>(v)) %
                  16 == 0;
 }
 
@@ -574,6 +631,14 @@ int launch_dm(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
+// 1 when flash_attention_launch takes the tensor-core route for these
+// inputs, else 0 (the float32 FMA kernel)
+extern "C" int flash_attention_route(const void* q, const void* k,
+                                     const void* v, int d, int dv, int Skv,
+                                     int dtype) {
+  return wgmma_fits(q, k, v, d, dv, Skv, dtype) ? 1 : 0;
+}
+
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int B, int S, int Skv, int H, int KVH,
@@ -581,17 +646,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * H > 65535 || KVH <= 0 || H % KVH) return -1;
+  if (wgmma_fits(q, k, v, d, dv, Skv, dtype)) {
+    if (d > 128)
+      return launch_wgmma_dv<192>(q, k, v, o, lse, B, S, Skv, H, KVH, d, dv,
+                                  scale, causal, s);
+    if (d > 64)
+      return launch_wgmma_dv<128>(q, k, v, o, lse, B, S, Skv, H, KVH, d, dv,
+                                  scale, causal, s);
+    return launch_wgmma_dv<64>(q, k, v, o, lse, B, S, Skv, H, KVH, d, dv,
+                               scale, causal, s);
+  }
   switch (dtype) {
     case kF32:
       return launch_dm<float>(q, k, v, o, lse, B, S, Skv, H, KVH, d, dv,
                               scale, causal, s);
     case kBF16:
-      if (wgmma_fits(q, k, v, o, d, dv, Skv))
-        return d == 64
-            ? launch_wgmma<64>(q, k, v, o, lse, B, S, Skv, H, KVH, scale,
-                               causal, s)
-            : launch_wgmma<128>(q, k, v, o, lse, B, S, Skv, H, KVH, scale,
-                                causal, s);
       return launch_dm<__nv_bfloat16>(q, k, v, o, lse, B, S, Skv, H, KVH, d,
                                       dv, scale, causal, s);
   }

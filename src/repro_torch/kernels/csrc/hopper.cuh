@@ -64,12 +64,14 @@ constexpr int kTensorMapError = -2;
 // A tensor map over a tensor of `rank` dims and elements of `elem_bytes`,
 // dims[0] innermost and contiguous, strides[i] the element stride of
 // dims[i + 1]; boxes of box[i] elements, box[0] * elem_bytes = 128 (the SW128
-// row). Elements outside dims load as zeros and are not stored. Returns 0 or
-// kTensorMapError.
+// row; with CU_TENSOR_MAP_SWIZZLE_NONE any multiple of 16 bytes up to 256
+// elements, landing as plain rows). Elements outside dims load as zeros and
+// are not stored. Returns 0 or kTensorMapError.
 inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
                     uint32_t elem_bytes, const void* base, int rank,
                     const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box) {
+                    const uint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kTensorMapError;
   cuuint64_t gdim[5], gstride[4];
@@ -82,8 +84,7 @@ inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
   }
   const CUresult r = fn(map, type, rank, const_cast<void*>(base), gdim,
                         gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError;
 }
@@ -103,6 +104,15 @@ inline int make_map_f32(CUtensorMap* map, const void* base, int rank,
                         const uint32_t* box) {
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rank, dims,
                   strides, box);
+}
+
+// float32 elements in plain rows (no swizzle): a box of box[0] floats lands
+// as box[0] consecutive floats (16-byte aligned shared memory)
+inline int make_map_f32_rows(CUtensorMap* map, const void* base, int rank,
+                             const uint64_t* dims, const uint64_t* strides,
+                             const uint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rank, dims,
+                  strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // the device's SM count (cached per process)
@@ -184,9 +194,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (globaltimer_ns() - t0 > 10000000000ull) __trap();
 }
 
-// cp.async.bulk.tensor.{3,4}d: one box of `map` at coordinates (c0 innermost)
+// cp.async.bulk.tensor.{2,3,4}d: one box of `map` at coordinates (c0 innermost)
 // into shared memory at `dst` (1024-byte aligned for SW128); completes `bytes`
 // of the transaction count of `bar`. Issued by one thread.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {

@@ -32,9 +32,23 @@ the kernel is held against.
 Numerics follow the Pallas kernel: scores, running max, denominator and
 accumulator in float32, ``p`` rounded to v's type before the PV product,
 the output divided by ``max(l, 1e-30)`` and rounded once to q's type.
-bf16 with d == dv in {64, 128} (the models' heads) runs on Hopper's tensor
-cores (wgmma fed by TMA, 128 query rows a block); float32, other head dims
-and MLA's d != dv run a float32 FMA kernel.
+
+Routes (``route`` and ``backward_route`` say which a call takes):
+
+- forward: bf16 with d and dv multiples of 8, 64 <= d <= 192 and
+  64 <= dv <= 128 (every registry head: MLA's d = 192 / dv = 128 and
+  hubert's d = 80 included) runs on Hopper's tensor cores, wgmma fed by
+  TMA, 128 query rows a block; head dims between 64-column boxes load
+  their missing columns as TMA's zeros. What bounds it is the tensor
+  cores' rate; the softmax between the two products is what it does not
+  hide (40-43 % of the bound at the main-path shapes, PERF.md §6 row 4).
+- backward: bf16 with d == dv a multiple of 8 in 64..128 runs two
+  wgmma kernels (dK/dV a key tile with the GQA group inside the block, dQ a
+  query tile), P and dS passed as register operands, no atomics.
+- everything else (float32, MLA's backward, other head dims, rows not on
+  16 bytes) runs the float32 FMA kernels. They are kernels of their own,
+  chosen by type and shape in the ``.cu``, not a fallback: a refused launch
+  or tensor map raises.
 """
 from __future__ import annotations
 
@@ -52,8 +66,8 @@ MAX_HEAD_DIM = 256
 launches = 0
 backward_launches = 0
 
-_fn = None
-_bwd_fn = None
+_fn = _route_fn = None
+_bwd_fn = _bwd_route_fn = None
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -135,22 +149,75 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal=True):
     return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
 
 
-def _launch(q, k, v, o, causal: bool, lse=None) -> None:
-    global _fn, launches
+def _bind(name: str, n_ptr: int):
+    """``<name>_launch`` (``n_ptr`` pointers, then seven ints, the scale,
+    causal, the dtype code and the stream) and ``<name>_route`` of the
+    library built from ``csrc/<name>.cu``."""
+    from ._build import load
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    route_fn = getattr(lib, f"{name}_route")
+    route_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    route_fn.restype = ctypes.c_int
+    return fn, route_fn
+
+
+def _lib():
+    global _fn, _route_fn
     if _fn is None:
-        from ._build import load
-        fn = load("flash_attention").flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn, _route_fn = _bind("flash_attention", 5)
+    return _fn
+
+
+def _bwd_lib():
+    global _bwd_fn, _bwd_route_fn
+    if _bwd_fn is None:
+        _bwd_fn, _bwd_route_fn = _bind("flash_attention_bwd", 10)
+    return _bwd_fn
+
+
+def _ask_route(route_fn, q, k, v) -> str:
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return "wgmma" if route_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               q.shape[3], v.shape[3], k.shape[1],
+                               _DTYPE_CODE[q.dtype]) else "fma"
+
+
+def route(q, k, v) -> str:
+    """Which version ``flash_attention`` runs for these inputs: "plain" on
+    the CPU; on the GPU "wgmma" (the tensor-core kernel) or "fma" (the
+    float32 FMA kernel), as ``csrc/flash_attention.cu`` decides."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return "plain"
+    _lib()
+    return _ask_route(_route_fn, q, k, v)
+
+
+def backward_route(q, k, v) -> str:
+    """Which version the gradient of ``flash_attention`` runs for these
+    inputs: "plain" on the CPU (autograd through the plain version); on the
+    GPU "wgmma" or "fma", as ``csrc/flash_attention_bwd.cu`` decides."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return "plain"
+    _bwd_lib()
+    return _ask_route(_bwd_route_fn, q, k, v)
+
+
+def _launch(q, k, v, o, causal: bool, lse=None) -> None:
+    global launches
+    fn = _lib()
     B, S, H, d = q.shape
     skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              None if lse is None else lse.data_ptr(),
-              B, S, skv, H, kvh, d, dv, 1.0 / math.sqrt(d), int(causal),
-              _DTYPE_CODE[q.dtype], stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             None if lse is None else lse.data_ptr(),
+             B, S, skv, H, kvh, d, dv, 1.0 / math.sqrt(d), int(causal),
+             _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({q.dtype}, "
                            f"q {tuple(q.shape)}, k {tuple(k.shape)}, causal "
@@ -159,23 +226,22 @@ def _launch(q, k, v, o, causal: bool, lse=None) -> None:
 
 
 def _launch_backward(q, k, v, o, lse, do, dq, dk, dv, causal: bool) -> None:
-    global _bwd_fn, backward_launches
-    if _bwd_fn is None:
-        from ._build import load
-        fn = load("flash_attention_bwd").flash_attention_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _bwd_fn = fn
+    global backward_launches
+    fn = _bwd_lib()
     B, S, H, d = q.shape
     skv, kvh, dvd = k.shape[1], k.shape[2], v.shape[3]
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if do.data_ptr() % 16:             # TMA reads rows from 16-byte bases
+        do = do.clone()
+    # scratch of the kernels: Delta and lse * log2 e, (B, H, S) each with the
+    # rows padded to whole 128-row tiles
+    scratch = torch.empty(2 * B * H * (-(-S // 128) * 128),
+                          dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _bwd_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, skv, H,
-                  kvh, d, dvd, 1.0 / math.sqrt(d), int(causal),
-                  _DTYPE_CODE[q.dtype], stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), do.data_ptr(), scratch.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, skv, H,
+             kvh, d, dvd, 1.0 / math.sqrt(d), int(causal),
+             _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed "
                            f"({q.dtype}, q {tuple(q.shape)}, k "

@@ -32,12 +32,12 @@ F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -7)
 
 
-def qkv(B, S, H, d, seed, skv=None, kvh=None, dtype=np.float32):
+def qkv(B, S, H, d, seed, skv=None, kvh=None, dtype=np.float32, dv=None):
     rng = np.random.default_rng(seed)
-    skv, kvh = skv or S, kvh or H
+    skv, kvh, dv = skv or S, kvh or H, dv or d
     return (rng.standard_normal((B, S, H, d)).astype(dtype),
             rng.standard_normal((B, skv, kvh, d)).astype(dtype),
-            rng.standard_normal((B, skv, kvh, d)).astype(dtype))
+            rng.standard_normal((B, skv, kvh, dv)).astype(dtype))
 
 
 def port(q, k, v, causal, dtype=torch.float32):
@@ -166,6 +166,61 @@ def cuda():
     return torch.device("cuda")
 
 
+def test_route_on_the_cpu_is_the_plain_version():
+    """On the CPU both the forward and the gradient run the plain version,
+    whatever the type and head dims."""
+    for d, dv, dtype in ((128, 128, torch.bfloat16), (192, 128, torch.bfloat16),
+                         (80, 80, torch.float32), (16, 16, torch.bfloat16)):
+        q, k, v = (torch.as_tensor(x).to(dtype)
+                   for x in qkv(1, 5, 2, d, seed=1, dv=dv))
+        assert fa.route(q, k, v) == "plain"
+        assert fa.backward_route(q, k, v) == "plain"
+
+
+@pytest.mark.parametrize("S", [17, 130])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_backward_plain_vs_jax_vjp(d, causal, S):
+    """``flash_attention_backward_plain``, the card kernels' oracle, on the
+    plain forward's (o, lse) against ``jax.vjp`` of the JAX package's
+    ``ref.flash_attention`` on the same float32 inputs: within 1e-5
+    absolute and relative (two orders of float32 sums of O(1) terms)."""
+    import jax
+    q, k, v = qkv(1, S, 2, d, seed=S + d + causal)
+    do = np.random.default_rng(d).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv, tdo = (torch.as_tensor(x) for x in (q, k, v, do))
+    o, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                      return_lse=True)
+    got = fa.flash_attention_backward_plain(tq, tk, tv, o, lse, tdo,
+                                            causal=causal)
+    _, vjp = jax.vjp(lambda a, b, c: ref.flash_attention(a, b, c, causal),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np_of(w), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_route_on_gpu(cuda):
+    """The main paths' shapes take the tensor cores: the serving prefill
+    (4, 2048, 16, 128), deepseek-v2-lite's MLA (d 192, dv 128), qwen2-vl's
+    GQA 28/4 and hubert's d = 80, and the training backward at
+    (2, 4096, 16, 128); float32 and d = 16 take the FMA kernels."""
+    def ops(B, S, H, kvh, d, dv, dtype=torch.bfloat16):
+        return (torch.empty(B, S, H, d, device=cuda, dtype=dtype),
+                torch.empty(B, S, kvh, d, device=cuda, dtype=dtype),
+                torch.empty(B, S, kvh, dv, device=cuda, dtype=dtype))
+    for shape in [(4, 2048, 16, 16, 128, 128), (4, 2048, 16, 16, 192, 128),
+                  (4, 2048, 28, 4, 128, 128), (8, 1500, 16, 16, 80, 80)]:
+        assert fa.route(*ops(*shape)) == "wgmma", shape
+    assert fa.backward_route(*ops(2, 4096, 16, 16, 128, 128)) == "wgmma"
+    for shape in [(2, 130, 16, 16, 128, 128, torch.float32),
+                  (2, 130, 16, 16, 16, 16)]:
+        assert fa.route(*ops(*shape)) == "fma", shape
+        assert fa.backward_route(*ops(*shape)) == "fma", shape
+    assert fa.backward_route(*ops(1, 130, 16, 16, 192, 128)) == "fma"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,skv,H,kvh,d", [(77, 77, 4, 2, 64),
@@ -174,10 +229,19 @@ def cuda():
                                            (130, 130, 4, 2, 64),
                                            (258, 258, 2, 1, 128),
                                            (130, 300, 4, 2, 64),
-                                           (140, 12, 2, 2, 128)])
+                                           (140, 12, 2, 2, 128),
+                                           # MLA's (d, dv) at ragged S, Skv
+                                           # beside it; d = 80 with GQA;
+                                           # d = 96 over zero columns
+                                           (130, 300, 4, 4, (192, 128)),
+                                           (300, 77, 4, 4, (192, 128)),
+                                           (130, 130, 4, 1, 80),
+                                           (77, 200, 4, 2, 80),
+                                           (130, 130, 2, 2, 96)])
 def test_kernel_vs_plain_on_gpu(cuda, dtype, S, skv, H, kvh, d):
+    d, dv = d if isinstance(d, tuple) else (d, d)
     q, k, v = (torch.as_tensor(x, device=cuda).to(dtype)
-               for x in qkv(2, S, H, d, seed=14, skv=skv, kvh=kvh))
+               for x in qkv(2, S, H, d, seed=14, skv=skv, kvh=kvh, dv=dv))
     for causal in (True, False):
         before = fa.launches
         got = fa.flash_attention(q, k, v, causal=causal)
@@ -200,7 +264,14 @@ BWD_CASES = [(2, 9, 9, 4, 4, 16, 16, True), (2, 9, 9, 4, 2, 16, 16, False),
              (1, 33, 33, 4, 1, 64, 64, True), (1, 20, 40, 4, 2, 64, 64, True),
              (1, 30, 12, 2, 2, 128, 128, True),
              (1, 17, 17, 2, 2, 80, 80, False),
-             (1, 13, 13, 2, 2, 192, 128, True)]
+             (1, 13, 13, 2, 2, 192, 128, True),
+             # the bf16 tensor-core backward's edges: ragged 64- and 128-row
+             # tiles with GQA groups of 2 and 4, rows that see no key, Skv
+             # beside S, d = 80 under the causal mask
+             (1, 130, 130, 4, 2, 64, 64, True),
+             (1, 200, 100, 4, 1, 128, 128, True),
+             (1, 77, 150, 4, 2, 128, 128, True),
+             (1, 40, 40, 2, 2, 80, 80, True)]
 
 
 def bwd_operands(B, S, skv, H, kvh, d, dv, seed, dtype=torch.float32):
