@@ -117,6 +117,16 @@ Phases (any failure exits non-zero and prints no result line):
    with the model's dt and A (exp overflows above the diagonal), each
    case's route printed and checked; times at the main shape beside both
    routes' bounds;
+8b. ssd_chunk's backward kernel (``csrc/ssd_chunk_bwd.cu``) against
+   ``ssd_chunk_backward_plain`` on the same inputs and cotangents: the main
+   shape with bf16 x/B/C and f32 dt/A (as training passes them) and in f32,
+   the smoke widths (q 16, P 8, N 16), a 40-token and a 256-token chunk,
+   (2, 1, 3, 4, 5) and the model-like overflow chunk; each case's
+   ``backward_route()`` printed and checked, every gradient finite and
+   within 2^-10 of the sum of its terms' magnitudes, two calls bitwise
+   equal; times at the main shape (each of its four launches by profiled
+   device time) beside the bytes and the operations bounds and the plain
+   backward;
 9. serve: mamba2-2.7b at full width and depth (64 layers, bf16 parameters
    from ``init_params(seed=0)``) through ``greedy_generate`` with phase 7's
    traffic: cold and warm prefill, decode wall per token, peak memory,
@@ -290,6 +300,16 @@ Phases (any failure exits non-zero and prints no result line):
    first). 26c: ``python -m repro_torch.launch.train --arch
    qwen2-moe-a2.7b --smoke --steps 30`` in its own process: the loss
    falls.
+27. train: mamba2-2.7b at full width and depth (64 layers, 2.83 B float32
+   parameters with AdamW's state, 45 GB), phase 26's batches, steps and
+   optimizer; losses and grad_norms finite, launches a step checked
+   (ssd_chunk forward 128 with remat, its backward 64, the others 0), cold
+   and warm step, tokens/s, peak memory, one profiled step with the busy
+   share. 27b: two mamba2 layers at full width in f32, batch 2 x 256, loss
+   and every gradient leaf card against CPU, as 26b. 27c: the launcher,
+   ``--smoke --steps 30``, for mamba2-2.7b and jamba-1.5-large-398b (its
+   smoke runs ssd_chunk and its backward, attention forward and backward
+   and bsr_spmm with its gradients): the loss falls.
 
 In phases 12-15 every segreduce call of one run is recorded by shape
 (route, dtype, tag, N, D, S); each shape's first call is run again, held
@@ -298,7 +318,8 @@ timed like phase 3's calls, and the calls by route must equal the launches
 the phase counted.
 
 Phases run in the order 1, 2, 2b, 3-5, 10-13, 15, 14, 6, 7, 23, 6b, 6c,
-6d, 7b, 23b, 24, 24b, 25, 25b, 26, 26b, 26c, 8, 9, 9b, 16-22; the script
+6d, 7b, 23b, 24, 24b, 25, 25b, 26, 26b, 26c, 8, 8b, 9, 9b, 27, 27b, 27c,
+16-22; the script
 prints its wall last before the records.
 
 Phases 2-5 and 10-15 fail if a sorted-route launch saw its ids descend (a
@@ -308,7 +329,7 @@ lines before the last are a JSON object with one record per kernel
 and bound, phases 10-15's launches by route, each rank's launches on
 the 2x2 and the 2x2x2 grids, phase 21's and phase 22's; flash_attention's
 and bsr_spmm's a ``backward`` record of the same keys, its launches phase
-26's run) and the card's
+26's run; ssd_chunk's likewise, its launches phase 27's run) and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 The script imports nothing of JAX.
 """
@@ -372,8 +393,10 @@ TRAIN_E2E_BATCH, TRAIN_E2E_SEQ = 2, 256
 TRAIN_E2E_TOL = 1e-4
 # phase 8: (G, q, H, P, N) of phase 9's prefill (batch 4 x 2048 / 128 chunks)
 SSD_MAIN = (64, 128, 80, 64, 128)
-# phase 9: the mamba2 serving cell (phase 7's traffic)
+# phase 9: the mamba2 serving cell (phase 7's traffic); phase 27 trains it
+# at full width and depth with phase 26's batches and steps
 MAMBA_ARCH = "mamba2-2.7b"
+HYBRID_ARCH = "jamba-1.5-large-398b"      # phase 27c, the launcher's smoke
 # phase 9b: the kernel against plain versions end to end, float32
 MAMBA_E2E_LAYERS, MAMBA_E2E_BATCH, MAMBA_E2E_PROMPT, MAMBA_E2E_TOKENS = \
     2, 2, 300, 4
@@ -394,7 +417,7 @@ HIPMCL_PROTEINS, HIPMCL_FAMILY, HIPMCL_P_IN, HIPMCL_CROSS = \
 SPMM_K = 16
 
 KERNELS = ("segreduce", "semiring_matmul", "flash_attention", "bsr_spmm",
-           "ssd_chunk", "flash_attention_bwd")
+           "ssd_chunk", "flash_attention_bwd", "ssd_chunk_bwd")
 
 # phases 16-19: the 2x2 grid, four ranks (one process a grid position).
 # They read phase 3's and phase 10's graphs from GRID_DIR and are held
@@ -5776,6 +5799,197 @@ def check_ssd_chunk() -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 8b: ssd_chunk's backward kernel vs the plain backward
+# --------------------------------------------------------------------------
+
+SSD_BWD_KERNELS = ("ssd_chunk_bwd_head", "ssd_chunk_bwd_sum",
+                   "ssd_chunk_bwd_bc", "ssd_chunk_bwd_da")
+
+
+def ssd_bwd_bounds(x, dt, A, B, C, dy, dst):
+    """Per gradient (dx, ddt, dA, dB, dC), the sum of its terms' magnitudes
+    in float64: ``ssd_chunk_backward_plain``'s formula on |x|, |B|, |C|,
+    |dy|, |dst| and |A|, dcA's differences taken as sums. Two summation
+    orders of the same terms part by a small multiple of it."""
+    f = torch.float64
+    xa, Ba, Ca, dya, dsta = (t.to(f).abs() for t in (x, B, C, dy, dst))
+    dt64, a = dt.to(f), A.to(f)
+    q = x.shape[1]
+    cA = torch.cumsum(dt64 * a, dim=1)
+    seg = cA[:, :, None, :] - cA[:, None, :, :]
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(causal[None, :, :, None], seg, -math.inf))
+    SL = (Ca @ Ba.transpose(1, 2))[..., None] * L
+    W = SL * dt64[:, None]
+    E = torch.exp(cA[:, -1:] - cA)
+    dec = E * dt64
+    dW = torch.einsum("gihp,gkhp->gikh", dya, xa)
+    U = torch.einsum("gkn,ghpn->gkhp", Ba, dsta)
+    dx = torch.einsum("gikh,gihp->gkhp", W, dya) + dec[..., None] * U
+    ddec = (xa * U).sum(-1)
+    dS = (dW * L * dt64[:, None]).sum(-1)
+    dB = dS.transpose(1, 2) @ Ca + torch.einsum("gkh,gkhp,ghpn->gkn", dec,
+                                                xa, dsta)
+    dC = dS @ Ba
+    M = dW * W
+    dcA = M.sum(2) + M.sum(1) + ddec * dec
+    dcA[:, -1] += (ddec * dec).sum(1)
+    R = torch.flip(torch.cumsum(torch.flip(dcA, [1]), dim=1), [1])
+    ddt = (dW * SL).sum(1) + ddec * E + a.abs() * R
+    return dx, ddt, (dt64 * R).sum((0, 1)), dB, dC
+
+
+def ssd_bwd_close(got, want, bounds, what):
+    """(max abs error, its largest share of the limit) of the five
+    gradients; raises unless each is finite, of the input's type and shape,
+    and within 2^-10 of its terms' magnitudes plus 1e-6, plus one rounding
+    2^-7 |want| where the type is bf16 (both sides round once). The
+    kernel's cumsum parts from torch.cumsum's by a few ulps of |cA| (phase
+    8's ``_ssd_close``)."""
+    err = share = 0.0
+    for name, g, w, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                             bounds):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"ssd_chunk backward {what} {name}: "
+                                 f"{tuple(g.shape)}/{g.dtype} vs "
+                                 f"{tuple(w.shape)}/{w.dtype}")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ssd_chunk backward {what} {name}: "
+                                 f"non-finite")
+        wd = w.double()
+        e = (g.double() - wd).abs()
+        limit = 2.0 ** -10 * b + 1e-6
+        if g.dtype == torch.bfloat16:
+            limit = limit + 2.0 ** -7 * wd.abs()
+        if not bool((e <= limit).all()):
+            raise AssertionError(f"ssd_chunk backward {what} {name}: max err "
+                                 f"{float(e.max())} beyond its limit (max "
+                                 f"share {float((e / limit).max()):.3g})")
+        err = max(err, float(e.max()))
+        share = max(share, float((e / limit).max()))
+    return err, share
+
+
+def _ssd_bwd_bound(x, dt, A, B, C):
+    """Least time of the backward on these inputs: the float32 products
+    the data needs (dW and W^T dy over the causal pairs, U and the states'
+    dB term over every (k, p, n), a head; S, dC and dB over the pairs once
+    a g) at the CUDA cores' peak, or x, dt, A, B, C, dy and dst (float32)
+    read once and the five gradients written once at 3.35 TB/s. Returns
+    (ms of operations, ms of bytes, FLOP, bytes)."""
+    G, q, H, P = x.shape
+    N = B.shape[2]
+    pairs = q * (q + 1) // 2
+    flops = 2 * G * H * (2 * pairs * P + 2 * q * N * P) + 6 * G * pairs * N
+    ins = sum(t.numel() * t.element_size() for t in (x, dt, A, B, C))
+    nbytes = 2 * ins + 4 * (x.numel() + G * H * P * N)
+    return (flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3, flops,
+            nbytes)
+
+
+def check_ssd_backward() -> dict:
+    """Phase 8b: the backward kernel against ``ssd_chunk_backward_plain``
+    on the same inputs and float32 cotangents ~ N(0, 1), over the main
+    shape (bf16 x/B/C with f32 dt/A, and f32), the smoke widths, a 40- and
+    a 256-token chunk, (2, 1, 3, 4, 5) and the model-like overflow chunk;
+    two calls bitwise equal; times at the main shape."""
+    from repro_torch.kernels import ssd_chunk as sc
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    G, q, H, P, N = SSD_MAIN
+    cases = [(G, q, H, P, N, bf16, f32),          # as training passes them
+             (G, q, H, P, N, f32, f32),
+             (6, 16, 16, 8, 16, bf16, f32),       # mamba2's, jamba's smoke
+             (6, 16, 16, 8, 16, f32, f32),
+             (8, 40, H, P, N, bf16, f32),         # a 40-token prompt
+             (4, 256, H, P, N, bf16, bf16),       # the longest chunk
+             (2, 1, 3, 4, 5, f32, bf16),
+             (3, 77, 5, 72, 200, f32, f32),       # P and N past one tile
+             (2, 128, 8, 16, 32, f32, f32)]       # the overflow chunk
+    max_err = max_share = 0.0
+    overflowed = 0
+    for i, (G_, q_, H_, P_, N_, xdt, ddt) in enumerate(cases):
+        x, dt, A, B, C = _ssd_inputs(G_, q_, H_, P_, N_, xdt, ddt, 700 + i)
+        g = torch.Generator(device="cuda").manual_seed(800 + i)
+        dy = torch.randn(G_, q_, H_, P_, generator=g, device="cuda")
+        dst = torch.randn(G_, H_, P_, N_, generator=g, device="cuda")
+        cA = torch.cumsum(dt.float() * A.float(), dim=1)
+        over = bool(((cA[:, :1] - cA[:, -1:]) > 88.8).any())
+        overflowed += over
+        what = (f"G={G_} q={q_} H={H_} P={P_} N={N_} x {xdt} dt {ddt}"
+                + (" (exp overflows above the diagonal)" if over else ""))
+        route = sc.backward_route(x, dt, A, B, C)
+        if route != "fma":
+            raise AssertionError(f"ssd_chunk backward {what}: route {route}")
+        got = sc.ssd_chunk_backward(x, dt, A, B, C, dy, dst)
+        again = sc.ssd_chunk_backward(x, dt, A, B, C, dy, dst)
+        want = sc.ssd_chunk_backward_plain(x, dt, A, B, C, dy, dst)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"ssd_chunk backward {what}: two calls "
+                                 f"differ")
+        err, share = ssd_bwd_close(got, want,
+                                   ssd_bwd_bounds(x, dt, A, B, C, dy, dst),
+                                   what)
+        log(f"  ssd_chunk backward {what}: {route}, max abs err {err:.3g} "
+            f"({share:.3g} of its limit), two calls bitwise equal")
+        max_err, max_share = max(max_err, err), max(max_share, share)
+        del got, again, want
+    if not overflowed:
+        raise AssertionError("no backward case overflows exp above the "
+                             "diagonal")
+    log(f"ssd_chunk backward: {len(cases)} cases match the plain backward "
+        f"(max abs err {max_err:.3g}, at most {max_share:.3g} of the limit; "
+        f"{overflowed} cases overflow exp(cA_i - cA_k) above the diagonal, "
+        f"every gradient finite; each case twice, bitwise equal)")
+
+    out = {}
+    for xdt in (bf16, f32):
+        x, dt, A, B, C = _ssd_inputs(G, q, H, P, N, xdt, f32, 7)
+        g = torch.Generator(device="cuda").manual_seed(8)
+        dy = torch.randn(G, q, H, P, generator=g, device="cuda")
+        dst = torch.randn(G, H, P, N, generator=g, device="cuda")
+        run = lambda: sc.ssd_chunk_backward(x, dt, A, B, C, dy, dst)
+        ms = cuda_time_ms(run, iters=20)
+        parts = [kernel_device_ms(run, name, iters=5)
+                 for name in SSD_BWD_KERNELS]
+        t_ops, t_bytes, flops, nbytes = _ssd_bwd_bound(x, dt, A, B, C)
+        out[xdt] = (ms, parts, t_ops, t_bytes, flops, nbytes)
+        if xdt == bf16:
+            plain_ms = cuda_time_ms(lambda: sc.ssd_chunk_backward_plain(
+                x, dt, A, B, C, dy, dst), iters=3, warmup=1)
+    ms, parts, t_ops, t_bytes, flops, nbytes = out[bf16]
+    bound = max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"ssd_chunk backward {SSD_MAIN} (G, q, H, P, N), bf16 x/B/C and "
+        f"f32 dt/A (fma route): kernel {ms:.4f} ms (device time of its "
+        f"launches: " + ", ".join(f"{n[14:]} {t:.4f}" for n, t in
+                                  zip(SSD_BWD_KERNELS, parts))
+        + f" ms), plain backward {plain_ms:.4f} ms, no one "
+        f"PyTorch call computes it; bound {bound:.4f} ms by {by}, "
+        f"{100 * bound / ms:.1f}% of it ({flops / 1e9:.2f} GFLOP of f32 "
+        f"products at {F32_FLOPS / 1e12:.0f} TFLOP/s: {t_ops:.4f} ms; "
+        f"{nbytes / 1e6:.1f} MB: {t_bytes:.4f} ms, the bound a tensor-core "
+        f"route would face)")
+    ms32, parts32, t_ops32, t_bytes32, _, nbytes32 = out[f32]
+    log(f"ssd_chunk backward {SSD_MAIN} f32 inputs (fma route): kernel "
+        f"{ms32:.4f} ms (" + ", ".join(f"{n[14:]} {t:.4f}" for n, t in
+                                       zip(SSD_BWD_KERNELS, parts32))
+        + f" ms); bound {max(t_ops32, t_bytes32):.4f} ms by operations "
+        f"({nbytes32 / 1e6:.1f} MB: {t_bytes32:.4f} ms), "
+        f"{100 * max(t_ops32, t_bytes32) / ms32:.1f}% of it")
+    return {"name": "ssd_chunk_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_chunk.py:51 (its gradient: "
+                        "the JAX package differentiates the pure twin)",
+            "launches": None, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "bytes_bound_ms": t_bytes, "library_ms": None,
+            "launch_ms": dict(zip(SSD_BWD_KERNELS, parts)),
+            "f32_ms": ms32}
+
+
+# --------------------------------------------------------------------------
 # phase 9: mamba2-2.7b serving at full width and depth
 # --------------------------------------------------------------------------
 
@@ -5890,40 +6104,53 @@ def mamba_vs_plain_e2e() -> None:
 
 def _train_launches():
     """(flash forward, flash backward, bsr_spmm forward products, bsr_spmm
-    backward products, ssd_chunk, segreduce, semiring_matmul) launches since
-    the last ``_zero_launches``."""
+    backward products, ssd_chunk forward, ssd_chunk backward, segreduce,
+    semiring_matmul) launches since the last ``_zero_train_launches``."""
     from repro_torch.kernels import (bsr_spmm, flash_attention, segreduce,
                                      semiring_matmul, ssd_chunk)
     return (flash_attention.launches, flash_attention.backward_launches,
             bsr_spmm.launches - bsr_spmm.backward_launches,
             bsr_spmm.backward_launches, ssd_chunk.launches,
-            segreduce.launches, semiring_matmul.launches)
+            ssd_chunk.backward_launches, segreduce.launches,
+            semiring_matmul.launches)
+
+
+TRAIN_LAUNCH_NAMES = ("flash fwd", "flash bwd", "bsr fwd", "bsr bwd",
+                      "ssd fwd", "ssd bwd", "segreduce", "semiring_matmul")
 
 
 def _zero_train_launches():
-    from repro_torch.kernels import bsr_spmm, flash_attention
+    from repro_torch.kernels import bsr_spmm, flash_attention, ssd_chunk
     _zero_launches()
     flash_attention.backward_launches = bsr_spmm.backward_launches = 0
+    ssd_chunk.backward_launches = 0
 
 
-def train_path() -> dict:
-    """Phase 26: qwen2-moe-a2.7b at full width, TRAIN_LAYERS of its 24
-    layers, float32 parameters from ``init_params(seed=0)`` and AdamW's
-    float32 state on the card; ``SyntheticLM(seed=11)`` batches of
+def _want_train_launches(cfg) -> tuple:
+    """``_train_launches`` of one training step (remat on: each period's
+    forward runs twice, each backward kernel once): flash 2 and 1 an
+    attention layer, bsr_spmm 6 and 6 a MoE layer (three products, each
+    with two gradient products), ssd_chunk 2 and 1 a mamba layer."""
+    kinds = cfg.layer_kinds()
+    a, s, m = kinds.count("attn"), kinds.count("mamba"), sum(cfg.layer_moe())
+    return (2 * a, a, 6 * m, 6 * m, 2 * s, s, 0, 0)
+
+
+def _train_run(cfg, describe, phase) -> dict:
+    """``cfg`` with float32 parameters from ``init_params(seed=0)`` and
+    AdamW's float32 state on the card; ``SyntheticLM(seed=11)`` batches of
     TRAIN_BATCH x TRAIN_SEQ through a ``Prefetcher``; TRAIN_STEPS steps of
-    ``make_train_step`` with the launcher's ``AdamWConfig``. Prints each
-    step's loss, grad_norm and lr (finite, or the phase fails), the cold and
-    warm step wall, tokens/s, the peak memory, the launches of each kernel
-    a step (every step the same, every kernel of the path launched), then
-    one more step profiled by operator with the device's busy share.
-    Returns the launches of the measured run, by kernel."""
-    from repro_torch.configs import get_config
+    ``make_train_step`` with the launcher's ``AdamWConfig``. Prints
+    ``describe(params, nparam)``, each step's loss, grad_norm and lr
+    (finite, or the phase fails), the cold and warm step wall, tokens/s,
+    the peak memory, the launches of each kernel a step (every step
+    ``_want_train_launches``), then one more step profiled by operator
+    with the device's busy share. Returns the launches of the measured run
+    by kernel, the warm step's ms and the peak GiB."""
     from repro_torch.models import Model, init_params
-    from repro_torch.models.model import vocab_padded
     from repro_torch.train import (AdamWConfig, Prefetcher, SyntheticLM,
                                    init_opt_state, make_train_step)
 
-    cfg = get_config(TRAIN_ARCH).scaled(n_layers=TRAIN_LAYERS)
     model = Model(cfg)
     B, S = TRAIN_BATCH, TRAIN_SEQ
     t0 = time.perf_counter()
@@ -5931,17 +6158,8 @@ def train_path() -> dict:
     opt = init_opt_state(params)
     torch.cuda.synchronize()
     nparam = sum(v.numel() for v in _leaves(params))
-    E = params["blocks"]["pos0"]["router"].shape[-1]
-    cap = max(8, min(int(cfg.capacity_factor * B * S * cfg.top_k / E
-                         + 0.999), B * S))
-    log(f"{cfg.name} training, {cfg.n_layers} of 24 layers, every width "
-        f"kept (d_model {cfg.d_model}, {cfg.n_heads}x{cfg.hd} heads, "
-        f"{cfg.n_experts} experts padded to {E} of d_ff {cfg.d_ff}, top-"
-        f"{cfg.top_k} + {cfg.n_shared_experts} shared, vocab "
-        f"{vocab_padded(cfg)}): {nparam / 1e9:.3f} B float32 parameters, "
-        f"{16 * nparam / 1e9:.1f} GB with gradients and AdamW's m and v; "
-        f"batch {B} x {S} ({B * S} tokens a step, C = {cap} an expert); "
-        f"init {time.perf_counter() - t0:.2f} s")
+    log(f"{describe(params, nparam)}; batch {B} x {S} ({B * S} tokens a "
+        f"step); init {time.perf_counter() - t0:.2f} s")
     step_fn = make_train_step(model, AdamWConfig(warmup_steps=20,
                                                  decay_steps=100))
     pf = Prefetcher(SyntheticLM(cfg.vocab, S, B, seed=11))
@@ -5970,18 +6188,15 @@ def train_path() -> dict:
             raise AssertionError("a non-finite loss, grad_norm or lr")
         warm = sorted(walls[2:])
         med = warm[len(warm) // 2]
-        log(f"phase 26: cold step {walls[0] * 1e3:.1f} ms, warm step "
+        log(f"phase {phase}: cold step {walls[0] * 1e3:.1f} ms, warm step "
             f"{med * 1e3:.1f} ms (median of the last {len(warm)}; min "
             f"{warm[0] * 1e3:.1f}, max {warm[-1] * 1e3:.1f}), "
             f"{B * S / med:.1f} tokens/s; peak device memory "
             f"{peak / 2**30:.3f} GiB; loss {rows[0][0]:.4f} -> "
             f"{rows[-1][0]:.4f}")
-        names = ("flash fwd", "flash bwd", "bsr fwd", "bsr bwd", "ssd_chunk",
-                 "segreduce", "semiring_matmul")
-        log(f"launches a step ({', '.join(names)}): "
+        log(f"launches a step ({', '.join(TRAIN_LAUNCH_NAMES)}): "
             f"{sorted(set(per_step))}; the run: {launches}")
-        want = (2 * TRAIN_LAYERS, TRAIN_LAYERS, 6 * TRAIN_LAYERS,
-                6 * TRAIN_LAYERS, 0, 0, 0)
+        want = _want_train_launches(cfg)
         if set(per_step) != {want}:
             raise AssertionError(f"launches a step {set(per_step)}, not "
                                  f"{want}")
@@ -5992,10 +6207,59 @@ def train_path() -> dict:
         pf.close()
     del params, opt, step_fn
     torch.cuda.empty_cache()
-    return {"flash_attention": launches[0],
-            "flash_attention_backward": launches[1],
-            "bsr_spmm": launches[2], "bsr_spmm_backward": launches[3],
-            "step_ms": med * 1e3, "peak_gib": peak / 2**30}
+    names = ("flash_attention", "flash_attention_backward", "bsr_spmm",
+             "bsr_spmm_backward", "ssd_chunk", "ssd_chunk_backward",
+             "segreduce", "semiring_matmul")
+    return dict(zip(names, launches), step_ms=med * 1e3,
+                peak_gib=peak / 2**30)
+
+
+def train_path() -> dict:
+    """Phase 26: qwen2-moe-a2.7b at full width, TRAIN_LAYERS of its 24
+    layers, through ``_train_run``: flash forward 8 (remat) and backward 4
+    a step, bsr_spmm 24 forward and 24 backward products."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import experts_padded, vocab_padded
+
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=TRAIN_LAYERS)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    E = experts_padded(cfg)
+    cap = max(8, min(int(cfg.capacity_factor * B * S * cfg.top_k / E
+                         + 0.999), B * S))
+
+    def describe(params, nparam):
+        return (f"{cfg.name} training, {cfg.n_layers} of 24 layers, every "
+                f"width kept (d_model {cfg.d_model}, {cfg.n_heads}x{cfg.hd} "
+                f"heads, {cfg.n_experts} experts padded to {E} of d_ff "
+                f"{cfg.d_ff}, top-{cfg.top_k} + {cfg.n_shared_experts} "
+                f"shared, vocab {vocab_padded(cfg)}): {nparam / 1e9:.3f} B "
+                f"float32 parameters, {16 * nparam / 1e9:.1f} GB with "
+                f"gradients and AdamW's m and v; C = {cap} an expert")
+    return _train_run(cfg, describe, "26")
+
+
+def mamba_train_path() -> dict:
+    """Phase 27: mamba2-2.7b at full width and depth through ``_train_run``
+    (phase 26's batches, steps and optimizer): ssd_chunk's forward 128
+    (remat) and its backward kernel 64 a step, the other kernels 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import vocab_padded
+
+    cfg = get_config(MAMBA_ARCH)
+    G = TRAIN_BATCH * TRAIN_SEQ // cfg.ssm_chunk
+
+    def describe(params, nparam):
+        return (f"{cfg.name} training at full width and depth ({cfg.n_layers} "
+                f"layers, d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+                f"{cfg.ssm_heads}x{cfg.ssm_headdim} heads, state "
+                f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab "
+                f"{vocab_padded(cfg)}, compute {cfg.dtype}): "
+                f"{nparam / 1e9:.3f} B float32 parameters, "
+                f"{16 * nparam / 1e9:.1f} GB with gradients and AdamW's m "
+                f"and v; ssd_chunk at (G, q, H, P, N) = ({G}, "
+                f"{cfg.ssm_chunk}, "
+                f"{cfg.ssm_heads}, {cfg.ssm_headdim}, {cfg.ssm_state})")
+    return _train_run(cfg, describe, "27")
 
 
 @contextlib.contextmanager
@@ -6023,24 +6287,25 @@ def _routes(replay=None):
         L.router_top_k = wrapped
 
 
-def train_vs_plain_e2e() -> None:
-    """Phase 26b: qwen2-moe-a2.7b cut to E2E_LAYERS layers (every width
-    kept) in float32, batch TRAIN_E2E_BATCH x TRAIN_E2E_SEQ: the loss and
-    every gradient leaf (``value_and_grad``, remat on) on the card, where
-    the kernels and their backward kernels run, against the CPU, where the
-    plain versions run, from the same parameters (made on the card and
-    copied). The card's recomputed periods must route as its forward did;
-    the CPU run takes the card's routing choices, call for call (the ones
-    that differ are counted first); loss and aux within 1e-5 relative,
-    each leaf within TRAIN_E2E_TOL of its largest |g| on the CPU (two
-    float32 summation orders, through softmax, the router and 2 layers)."""
+def train_vs_plain_e2e(arch=TRAIN_ARCH, phase="26b") -> None:
+    """Phases 26b (qwen2-moe-a2.7b) and 27b (mamba2-2.7b): ``arch`` cut to
+    E2E_LAYERS layers (every width kept) in float32, batch TRAIN_E2E_BATCH x
+    TRAIN_E2E_SEQ: the loss and every gradient leaf (``value_and_grad``,
+    remat on) on the card, where the kernels and their backward kernels
+    run, against the CPU, where the plain versions run, from the same
+    parameters (made on the card and copied). The card's recomputed periods
+    must route as its forward did; the CPU run takes the card's routing
+    choices, call for call (the ones that differ are counted first); loss
+    and aux within 1e-5 relative, each leaf within TRAIN_E2E_TOL of its
+    largest |g| on the CPU (two float32 summation orders, through softmax,
+    the router, the SSD scan and 2 layers)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.train import SyntheticLM, value_and_grad
     from repro_torch.dist.compression import _flatten
 
-    cfg = get_config(TRAIN_ARCH).scaled(n_layers=E2E_LAYERS, dtype="float32",
-                                        param_dtype="float32")
+    cfg = get_config(arch).scaled(n_layers=E2E_LAYERS, dtype="float32",
+                                  param_dtype="float32")
     model = Model(cfg)
     gpu_params, cpu_params = _e2e_params(cfg)
     batch = SyntheticLM(cfg.vocab, TRAIN_E2E_SEQ, TRAIN_E2E_BATCH,
@@ -6059,64 +6324,66 @@ def train_vs_plain_e2e() -> None:
     with _routes(replay=card_routes) as cpu_routes:
         lc, mc, gc = value_and_grad(model, cpu_params, batch)
     t_cpu = time.perf_counter() - t0
+    moe = sum(cfg.layer_moe())
     L = len(card_routes) // 2           # forward, then remat in reverse
-    if len(card_routes) != 2 * E2E_LAYERS or not all(
+    if len(card_routes) != 2 * moe or not all(
             torch.equal(card_routes[i], card_routes[2 * L - 1 - i])
             for i in range(L)):
-        raise AssertionError("26b: the card's recomputed periods routed "
-                             "otherwise than its forward")
+        raise AssertionError(f"{phase}: the card's recomputed periods routed "
+                             f"otherwise than its forward")
     differ = sum(int((a != b).sum()) for a, b in zip(cpu_routes, card_routes))
     total = sum(a.numel() for a in card_routes)
-    log(f"26b: {cfg.name} with {cfg.n_layers} layers in f32, batch "
+    log(f"{phase}: {cfg.name} with {cfg.n_layers} layers in f32, batch "
         f"{TRAIN_E2E_BATCH} x {TRAIN_E2E_SEQ}: card {t_gpu:.2f} s, CPU "
-        f"{t_cpu:.2f} s; launches on the card (flash fwd, flash bwd, bsr "
-        f"fwd, bsr bwd, ssd, segreduce, smm) {n}; routing choices that "
+        f"{t_cpu:.2f} s; launches on the card "
+        f"({', '.join(TRAIN_LAUNCH_NAMES)}) {n}; routing choices that "
         f"differ {differ} of {total} (forward and recompute; the CPU run "
         f"takes the card's, and the card's recompute routed as its forward)")
-    if n[:4] != (2 * E2E_LAYERS, E2E_LAYERS, 6 * E2E_LAYERS,
-                 6 * E2E_LAYERS) or any(n[4:]):
-        raise AssertionError(f"26b launched {n}")
+    if n != _want_train_launches(cfg):
+        raise AssertionError(f"{phase} launched {n}, not "
+                             f"{_want_train_launches(cfg)}")
     for name, a, b in (("loss", lg, lc), ("aux", mg["aux"], mc["aux"])):
         a, b = float(a), float(b)
         if not abs(a - b) <= 1e-5 * abs(b):
-            raise AssertionError(f"26b: {name} {a} on the card, {b} on the "
-                                 f"CPU")
+            raise AssertionError(f"{phase}: {name} {a} on the card, {b} on "
+                                 f"the CPU")
     worst = 0.0
     for i, (a, b) in enumerate(zip(gg, _flatten(gc))):
         scale = float(b.abs().max())
         err = float((a - b).abs().max())
         if not err <= TRAIN_E2E_TOL * scale:
-            raise AssertionError(f"26b: gradient leaf {i} {tuple(b.shape)} "
-                                 f"differs by {err} (its max |g| {scale})")
+            raise AssertionError(f"{phase}: gradient leaf {i} "
+                                 f"{tuple(b.shape)} differs by {err} (its "
+                                 f"max |g| {scale})")
         worst = max(worst, err / max(scale, 1e-30))
-    log(f"26b: loss {float(lg):.6f} (card) vs {float(lc):.6f} (CPU), aux "
+    log(f"{phase}: loss {float(lg):.6f} (card) vs {float(lc):.6f} (CPU), aux "
         f"{float(mg['aux']):.6f} vs {float(mc['aux']):.6f}; all {len(gg)} "
         f"gradient leaves within {worst:.3g} of their largest |g| "
         f"(tolerance {TRAIN_E2E_TOL})")
 
 
-def launcher_train() -> None:
-    """Phase 26c: ``python -m repro_torch.launch.train --arch
-    qwen2-moe-a2.7b --smoke --steps 30`` on the card, in its own process;
-    the last step's loss must be below the first step's."""
+def launcher_train(arch=TRAIN_ARCH, phase="26c") -> None:
+    """Phases 26c and 27c: ``python -m repro_torch.launch.train --arch
+    <arch> --smoke --steps 30`` on the card, in its own process; the last
+    step's loss must be below the first step's."""
     import os
     import re
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         TRAIN_ARCH, "--smoke", "--steps", "30"], cwd=ROOT, env=env,
+         arch, "--smoke", "--steps", "30"], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise AssertionError(f"the training launcher exited "
                              f"{proc.returncode}:\n{proc.stderr[-4000:]}")
     losses = [float(x) for x in
               re.findall(r"^step\s+\d+ loss (\S+)", proc.stdout, re.M)]
-    log(f"26c: the launcher, {TRAIN_ARCH} --smoke --steps 30, in "
+    log(f"{phase}: the launcher, {arch} --smoke --steps 30, in "
         f"{time.perf_counter() - t0:.1f} s (the process's start included): "
         f"losses {losses}")
     if len(losses) < 2 or not losses[-1] < losses[0]:
-        raise AssertionError(f"26c: the loss did not fall: {losses}")
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
 
 
 def main() -> int:
@@ -6197,8 +6464,18 @@ def main() -> int:
     log(f"device memory before phase 8: "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     ssd_record = check_ssd_chunk()
+    ssd_record["backward"] = check_ssd_backward()
     ssd_record["launches"] = serve_mamba()
     mamba_vs_plain_e2e()
+    torch.cuda.empty_cache()
+    mamba_train = mamba_train_path()
+    train_vs_plain_e2e(MAMBA_ARCH, "27b")
+    launcher_train(MAMBA_ARCH, "27c")
+    launcher_train(HYBRID_ARCH, "27c")
+    ssd_record["backward"]["launches"] = mamba_train["ssd_chunk_backward"]
+    ssd_record["launches_by_path"] = {
+        f"{MAMBA_ARCH} serving": ssd_record["launches"],
+        f"{MAMBA_ARCH} training": mamba_train["ssd_chunk"]}
     seg_record["grid_2x2_launches_by_route"], errs = grid_phases()
     seg_record["grid_2x2x2_launches_by_route"], errs3 = grid3_phase()
     _routes_zero()

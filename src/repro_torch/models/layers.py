@@ -7,9 +7,9 @@ MLA's) runs on the ``flash_attention`` kernel, the routed experts on the
 ``bsr_spmm`` kernel and the SSD scan's intra-chunk part on the ``ssd_chunk``
 kernel (each wrapper takes its plain version for CPU tensors); the rest is
 torch ops, as it is plain XLA in JAX. On the card a call that needs a
-gradient goes through the kernels' autograd Functions (``flash_attention``
-and ``bsr_spmm`` have backward kernels); ``ssd_chunk`` has none yet and
-refuses it, so mamba2 and jamba train on the CPU only.
+gradient goes through the kernels' autograd Functions, whose backwards are
+kernels too (``flash_attention``, ``bsr_spmm`` and ``ssd_chunk``), so every
+family trains on the card.
 
 MoE dispatch is the reference's sort-based, capacity-bounded bucketing: the
 router's top-k choices form a block-sparse tokens -> (expert, slot) matrix,

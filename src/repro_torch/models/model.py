@@ -295,8 +295,15 @@ class Model(nn.Module):
                 total = total + a
             return x, total
 
+        # each stacked leaf split into its repeats once: the backward pass
+        # then stacks their gradients once, where taking v[r] a repeat at a
+        # time would zero-fill a full-size gradient and add it up, a repeat
+        # at a time (work quadratic in depth; PERF.md §5, mamba2 training)
+        stacks = [{k: v.unbind(0) for k, v in
+                   params["blocks"][f"pos{i}"].items()}
+                  for i in range(period)]
         for r in range(reps):
-            blks = [{k: v[r] for k, v in params["blocks"][f"pos{i}"].items()}
+            blks = [{k: v[r] for k, v in stacks[i].items()}
                     for i in range(period)]
             if caches is None:
                 if remat and torch.is_grad_enabled():

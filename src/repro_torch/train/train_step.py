@@ -5,10 +5,10 @@ The gradients come from ``torch.autograd.grad`` of ``Model.loss`` with
 respect to detached copies of the parameter leaves (views of the same
 storage), so the caller's tree never carries ``requires_grad``. On the card
 the model's forward runs the kernels, and their autograd Functions run the
-backward kernels (``flash_attention``, ``bsr_spmm``); a kernel that has no
-backward refuses a call that needs one. A leaf the loss never reads (an
-encoder's ``embed``) gets zeros, as ``jax.grad`` gives, so AdamW still
-decays it.
+backward kernels (``flash_attention``, ``bsr_spmm``, ``ssd_chunk``); a
+kernel that has no backward refuses a call that needs one. A leaf the loss
+never reads (an encoder's ``embed``) gets zeros, as ``jax.grad`` gives, so
+AdamW still decays it.
 
 ``accum > 1`` splits axis 0 of every batch leaf into that many microbatches
 and sums their gradients in float32, as the reference's scan does; the

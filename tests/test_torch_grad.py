@@ -7,12 +7,19 @@ the JAX package's own parameters carried across, on the same batch
 (``synthetic_batch`` draws it the same in both packages), in float32 at each
 architecture's smoke config: granite (GQA), qwen2-moe (MoE), deepseek-v2-lite
 (MLA, d != dv), hubert (the encoder branch; its ``embed`` leaf gets zeros in
-both), qwen2-vl (``pos3``) and mamba2 (its SSD backward on the CPU's plain
-path, ahead of the kernel's backward slice).
+both), qwen2-vl (``pos3``), mamba2 (the SSD scan: autograd through
+``ssd_chunk``'s plain version on the CPU, its backward kernel on the card)
+and jamba (the hybrid: mamba and attention layers, MoE every other layer).
 
 Tolerances: the loss within 1e-6 relative; each gradient leaf within 1e-5 of
 its own largest |g| (two float32 summation orders through softmax, the
-router and two layers; the largest deviation seen is 3.9e-6).
+router and two layers; the largest deviation seen is 3.9e-6). jamba's smoke
+config has eight layers, and through them the float32 gradients of its SSD
+decay leaves are noisier than 1e-5 in both packages: against the JAX
+package's own float64 gradients, its float32 ones part by up to 2.5e-5 of
+the leaf's largest |g| (``A_log`` of the last mamba layer) and the port's
+by up to 2.2e-5; the two float32 runs part by up to 3.8e-5. jamba's leaves
+are held within 1e-4.
 
 The kernels' refusals on the card (a CUDA kernel with no backward raises on
 a call that needs a gradient) are ``gpu`` tests and skip here.
@@ -35,8 +42,10 @@ from repro_torch.models.weights import params_from_numpy
 from repro_torch.train import synthetic_batch, value_and_grad
 
 ARCHS = ("granite-3-2b", "qwen2-moe-a2.7b", "deepseek-v2-lite-16b",
-         "hubert-xlarge", "qwen2-vl-7b", "mamba2-2.7b")
+         "hubert-xlarge", "qwen2-vl-7b", "mamba2-2.7b",
+         "jamba-1.5-large-398b")
 SHAPE = dict(batch=2, seq=16)
+LEAF_TOL = {"jamba-1.5-large-398b": 1e-4}     # else 1e-5 (the docstring)
 CPU = torch.device("cpu")
 
 
@@ -70,7 +79,8 @@ def test_loss_and_grads_vs_jax(arch):
     for k in ("nll", "aux", "ntok"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-6,
                                    atol=1e-7)
-    assert_leaves_close(_flatten(tg), jax.tree.leaves(jg))
+    assert_leaves_close(_flatten(tg), jax.tree.leaves(jg),
+                        LEAF_TOL.get(arch, 1e-5))
     if tcfg.kind == "encoder":           # the frontend never reads embed
         assert not bool(tg["embed"].any())
         assert not np.asarray(jg["embed"]).any()
@@ -121,26 +131,22 @@ def cuda():
 
 @pytest.mark.gpu
 def test_kernels_without_backward_refuse_on_gpu(cuda):
-    """On the card ``ssd_chunk``, ``segment_reduce`` and ``semiring_matmul``
-    raise on a call that needs a gradient, and run under no_grad."""
-    from repro_torch.kernels import segreduce, semiring_matmul, ssd_chunk
+    """On the card ``segment_reduce`` and ``semiring_matmul`` raise on a
+    call that needs a gradient, and run under no_grad. (``ssd_chunk``
+    carries its gradient since its backward kernel:
+    ``tests/test_torch_ssd_chunk.py``'s gpu tests.)"""
+    from repro_torch.kernels import segreduce, semiring_matmul
     g = torch.Generator(device=cuda).manual_seed(0)
-    G, q, H, P, N = 2, 16, 2, 8, 8
-    xc = torch.randn(G, q, H, P, generator=g, device=cuda)
-    dtc = torch.rand(G, q, H, generator=g, device=cuda)
-    A = -torch.rand(H, generator=g, device=cuda)
-    Bc, Cc = (torch.randn(G, q, N, generator=g, device=cuda)
-              for _ in range(2))
-    with pytest.raises(RuntimeError, match="SSD backward slice"):
-        ssd_chunk.ssd_chunk(xc.requires_grad_(), dtc, A, Bc, Cc)
-    with torch.no_grad():
-        ssd_chunk.ssd_chunk(xc, dtc, A, Bc, Cc)
     vals = torch.randn(64, generator=g, device=cuda).requires_grad_()
     ids = torch.arange(64, device=cuda) // 8
     with pytest.raises(RuntimeError, match="segreduce"):
         segreduce.segment_reduce(vals, ids, 8, "sum")
+    with torch.no_grad():
+        segreduce.segment_reduce(vals, ids, 8, "sum")
     a = torch.randn(8, 8, generator=g, device=cuda).requires_grad_()
     with pytest.raises(RuntimeError, match="semiring_matmul"):
+        semiring_matmul.semiring_matmul(a, a.detach())
+    with torch.no_grad():
         semiring_matmul.semiring_matmul(a, a.detach())
 
 

@@ -134,6 +134,40 @@ def test_ssd_chunked_multi_chunk(with_state):
         close(g, w)
 
 
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_chunked_gradients_vs_jax(with_state):
+    """Every input's gradient of ``ssd_chunked`` over three chunks (the
+    intra-chunk part through ``ssd_chunk``'s plain version, the float32
+    inter-chunk loop and ``y_off``), from a starting state or none, against
+    ``jax.grad`` of the JAX package's ``ssd_chunked`` for the same random
+    weighting of y and the final state; each within 1e-5 of its own largest
+    |g| (float32 sums in other orders)."""
+    x, dt, A, Bm, Cm = ssd_inputs(2, 48, 3, 4, 8, seed=5)
+    rng = np.random.default_rng(6)
+    init = rng.standard_normal((2, 3, 4, 8)).astype(np.float32)
+    wy = rng.standard_normal(x.shape).astype(np.float32)
+    ws = rng.standard_normal((2, 3, 4, 8)).astype(np.float32)
+    ins = [x, dt, A, Bm, Cm] + ([init] if with_state else [])
+
+    def jloss(*a):
+        y, st = jlayers.ssd_chunked(*a[:5], chunk=16,
+                                    init_state=a[5] if with_state else None)
+        return (y * wy).sum() + (st * ws).sum()
+
+    want = jax.jit(jax.grad(jloss, argnums=tuple(range(len(ins)))))(
+        *(jnp.asarray(a) for a in ins))
+    live = [torch.as_tensor(a).requires_grad_() for a in ins]
+    y, st = tlayers.ssd_chunked(*live[:5], 16,
+                                init_state=live[5] if with_state else None)
+    got = torch.autograd.grad((y * torch.as_tensor(wy)).sum()
+                              + (st * torch.as_tensor(ws)).sum(), live)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(np_of(g), w, rtol=0,
+                                   atol=1e-5 * float(np.abs(w).max()))
+
+
 def _jmamba(jcfg):
     return jax.jit(lambda x, p, c: jlayers.mamba_block(x, p, jcfg, cache=c))
 

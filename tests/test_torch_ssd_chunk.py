@@ -11,11 +11,25 @@ Tolerance: 1e-4 absolute and relative, the JAX tests' own for this kernel:
 every version computes in float32 from the same (possibly bf16) inputs, and
 they part only by summation order (the cumsum over up to 256 steps, the
 products over q and N) on outputs of magnitude up to about 30.
+
+The backward: ``ssd_chunk_backward_plain`` (the formula the backward
+kernel computes) against ``jax.vjp`` of ``ref.ssd_chunk_diag`` and against
+torch autograd through ``ssd_chunk_plain``, each gradient within 1e-5 of
+its own largest |g| (float32 sums over q, P, N and the heads in other
+orders; dA sums a reverse cumsum whose terms cancel). Where a segment above
+the diagonal overflows, the reference's gradients of dt and A are NaN
+(ROADMAP §3, reference defect 8); the port's are finite and held against
+float64 autograd of a twin that selects before the exp.
 """
+import math
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ref
@@ -23,6 +37,9 @@ from repro.kernels.ssd_chunk import ssd_chunk as pallas_ssd
 from repro_torch.kernels import ssd_chunk as sc
 
 from torch_parity import np_of
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (phase 8b's magnitude bounds, for gpu tests)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -119,6 +136,152 @@ def test_masked_overflow_gives_no_nan():
     check(got, oracle(x, dt, A, B, C))
 
 
+def cotangents(G, q, H, P, N, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((G, q, H, P)).astype(np.float32),
+            rng.standard_normal((G, H, P, N)).astype(np.float32))
+
+
+def jax_vjp(x, dt, A, B, C, dy, dst):
+    """(dx, ddt, dA, dB, dC) of ``ref.ssd_chunk_diag``, one chunk at a time
+    (``jax.vjp``), stacked over G; dA summed over G."""
+    grads = []
+    for g in range(x.shape[0]):
+        _, vjp = jax.vjp(ref.ssd_chunk_diag, *(jnp.asarray(a) for a in
+                                               (x[g], dt[g], A, B[g], C[g])))
+        grads.append([np.asarray(v) for v in vjp((jnp.asarray(dy[g]),
+                                                  jnp.asarray(dst[g])))])
+    dx, ddt, dA, dB, dC = zip(*grads)
+    return (np.stack(dx), np.stack(ddt), np.sum(dA, axis=0), np.stack(dB),
+            np.stack(dC))
+
+
+def autograd_plain(x, dt, A, B, C, dy, dst, dtype=torch.float32):
+    """The five gradients by torch autograd through ``ssd_chunk_plain``."""
+    ins = [torch.as_tensor(a).to(dtype).requires_grad_()
+           for a in (x, dt, A, B, C)]
+    y, st = sc.ssd_chunk_plain(*ins)
+    out = (y * torch.as_tensor(dy)).sum() + (st * torch.as_tensor(dst)).sum()
+    return torch.autograd.grad(out, ins)
+
+
+def grads_close(got, want, frac=1e-5):
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        g = np_of(g).astype(np.float64) if isinstance(g, torch.Tensor) \
+            else np.asarray(g, np.float64)
+        assert g.shape == w.shape and np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=frac * float(np.abs(w).max()))
+
+
+BACKWARD_SHAPES = [(3, 1, 3, 8, 16), (3, 40, 3, 8, 16), (2, 128, 4, 16, 8)]
+
+
+@pytest.mark.parametrize("G,q,H,P,N", BACKWARD_SHAPES)
+def test_backward_plain_vs_jax_vjp(G, q, H, P, N):
+    x, dt, A, B, C = inputs(G, q, H, P, N, seed=20 + q)
+    dy, dst = cotangents(G, q, H, P, N, seed=30 + q)
+    got = sc.ssd_chunk_backward_plain(
+        *(torch.as_tensor(a) for a in (x, dt, A, B, C, dy, dst)))
+    assert [t.dtype for t in got] == [torch.float32] * 5
+    grads_close(got, jax_vjp(x, dt, A, B, C, dy, dst))
+
+
+@pytest.mark.parametrize("G,q,H,P,N", BACKWARD_SHAPES)
+def test_backward_plain_vs_autograd(G, q, H, P, N):
+    x, dt, A, B, C = inputs(G, q, H, P, N, seed=40 + q)
+    dy, dst = cotangents(G, q, H, P, N, seed=50 + q)
+    got = sc.ssd_chunk_backward_plain(
+        *(torch.as_tensor(a) for a in (x, dt, A, B, C, dy, dst)))
+    grads_close(got, autograd_plain(x, dt, A, B, C, dy, dst))
+
+
+def test_backward_plain_gives_each_gradient_in_its_input_type():
+    x, dt, A, B, C = inputs(2, 16, 2, 4, 8, seed=3)
+    dy, dst = cotangents(2, 16, 2, 4, 8, seed=4)
+    bf = torch.bfloat16
+    t = [torch.as_tensor(a) for a in (x, dt, A, B, C)]
+    got = sc.ssd_chunk_backward_plain(t[0].to(bf), t[1], t[2].to(bf),
+                                      t[3].to(bf), t[4].to(bf),
+                                      torch.as_tensor(dy),
+                                      torch.as_tensor(dst))
+    assert [g.dtype for g in got] == [bf, torch.float32, bf, bf, bf]
+
+
+def test_backward_route_on_the_cpu_is_the_plain_version():
+    t = [torch.as_tensor(a) for a in inputs(1, 8, 2, 64, 16, seed=5)]
+    assert sc.backward_route(*t) == "plain"
+
+
+def _safe_twin64(x, dt, A, B, C, dy, dst):
+    """float64 autograd of the SSD chunk with the diagonal selected before
+    the exp (no inf reaches the graph)."""
+    ins = [torch.as_tensor(a).double().requires_grad_()
+           for a in (x, dt, A, B, C)]
+    x_, dt_, A_, B_, C_ = ins
+    q = x.shape[1]
+    cA = torch.cumsum(dt_ * A_, dim=1)
+    seg = cA[:, :, None, :] - cA[:, None, :, :]
+    causal = torch.ones(q, q, dtype=torch.bool).tril()[None, :, :, None]
+    L = torch.exp(torch.where(causal, seg, -math.inf))
+    w = (C_ @ B_.transpose(1, 2))[..., None] * L * dt_[:, None]
+    y = torch.einsum("gqkh,gkhp->gqhp", w, x_)
+    dec = torch.exp(cA[:, -1:] - cA) * dt_
+    st = torch.einsum("gkhp,gkn->ghpn", x_ * dec[..., None], B_)
+    out = (y * torch.as_tensor(dy).double()).sum() + \
+        (st * torch.as_tensor(dst).double()).sum()
+    return torch.autograd.grad(out, ins)
+
+
+def test_overflow_gradients_are_finite_where_the_reference_gives_nan():
+    """Reference defect 8: the model-like 128-step chunk of
+    ``test_masked_overflow_gives_no_nan``. ``jax.vjp`` of
+    ``ref.ssd_chunk_diag`` gives NaN gradients of dt and A (its
+    ``where(causal, exp(seg), 0)`` multiplies the where's zero cotangent by
+    exp(seg) = inf), finite ones of x, B and C. The port's plain backward
+    and autograd through the repaired plain version are finite, within
+    5e-5 of each gradient's largest |g| of float64 autograd (float32
+    cumsums of dt A reaching -300 move exp(cA_i - cA_k) by some 1e-5
+    relative)."""
+    x, dt, A, B, C = inputs(2, 128, 8, 16, 32, seed=12, model_like=True)
+    dy, dst = cotangents(2, 128, 8, 16, 32, seed=13)
+    cA = np.cumsum(dt.astype(np.float64) * A, axis=1)
+    assert (cA[:, :1] - cA[:, -1:]).max() > 89.0          # exp(seg) = inf
+    jdx, jddt, jdA, jdB, jdC = jax_vjp(x, dt, A, B, C, dy, dst)
+    assert np.isnan(jddt).any() and np.isnan(jdA).any()
+    assert all(np.isfinite(g).all() for g in (jdx, jdB, jdC))
+    want = _safe_twin64(x, dt, A, B, C, dy, dst)
+    got = sc.ssd_chunk_backward_plain(
+        *(torch.as_tensor(a) for a in (x, dt, A, B, C, dy, dst)))
+    grads_close(got, want, frac=5e-5)
+    grads_close(autograd_plain(x, dt, A, B, C, dy, dst), want, frac=5e-5)
+    # x, B and C's gradients do not pass through the overflow: the
+    # reference's agree with the port's there
+    grads_close([got[0], got[3], got[4]], [jdx, jdB, jdC])
+
+
+@pytest.mark.parametrize("model_like", [False, True])
+def test_repaired_plain_forward_is_bitwise_the_old_one(model_like):
+    """``exp(where(causal, seg, -inf))`` gives the forward of the old
+    ``where(causal, exp(seg), 0)``, bitwise (the repair changes only the
+    gradient)."""
+    x, dt, A, B, C = (torch.as_tensor(a) for a in
+                      inputs(2, 128, 8, 16, 32, seed=12,
+                             model_like=model_like))
+    q = x.shape[1]
+    cA = torch.cumsum(dt * A, dim=1)
+    seg = cA[:, :, None, :] - cA[:, None, :, :]
+    causal = torch.ones(q, q, dtype=torch.bool).tril()
+    L = torch.where(causal[None, :, :, None], torch.exp(seg), 0.0)
+    w = (C @ B.transpose(1, 2))[..., None] * L * dt[:, None, :, :]
+    y = torch.einsum("gqkh,gkhp->gqhp", w, x)
+    st = torch.einsum("gkhp,gkn->ghpn",
+                      x * (torch.exp(cA[:, -1:, :] - cA) * dt)[..., None], B)
+    got = sc.ssd_chunk_plain(x, dt, A, B, C)
+    assert torch.equal(got[0], y) and torch.equal(got[1], st)
+
+
 def test_types_and_shapes_refused():
     x, dt, A, B, C = (torch.as_tensor(a) for a in inputs(1, 4, 2, 3, 5, 0))
     with pytest.raises(TypeError):                 # x, B, C not alike
@@ -196,3 +359,76 @@ def test_route_on_gpu(cuda, xdt, q, P, N, want):
 def test_route_on_the_cpu_is_the_plain_version():
     t = [torch.as_tensor(a) for a in inputs(1, 8, 2, 64, 16, seed=5)]
     assert sc.route(*t) == "plain"
+
+
+# phase 8b's small cases: (G, q, H, P, N), x/B/C type, dt/A type
+BACKWARD_GPU_CASES = [(6, 16, 16, 8, 16, torch.bfloat16, torch.float32),
+                      (6, 16, 16, 8, 16, torch.float32, torch.float32),
+                      (3, 40, 5, 64, 128, torch.bfloat16, torch.float32),
+                      (2, 256, 3, 64, 128, torch.bfloat16, torch.bfloat16),
+                      (2, 1, 3, 4, 5, torch.float32, torch.bfloat16),
+                      (3, 77, 5, 72, 200, torch.float32, torch.float32),
+                      (2, 128, 8, 16, 32, torch.float32, torch.float32)]
+
+
+def _gpu_operands(cuda, G, q, H, P, N, xdt, ddt, seed):
+    x, dt, A, B, C = inputs(G, q, H, P, N, seed=seed, model_like=True)
+    dy, dst = cotangents(G, q, H, P, N, seed=seed + 1)
+    t = [torch.as_tensor(a, device=cuda) for a in (x, dt, A, B, C, dy, dst)]
+    return [t[0].to(xdt), t[1].to(ddt), t[2].to(ddt), t[3].to(xdt),
+            t[4].to(xdt), t[5], t[6]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,q,H,P,N,xdt,ddt", BACKWARD_GPU_CASES)
+def test_backward_kernel_vs_plain_on_gpu(cuda, G, q, H, P, N, xdt, ddt):
+    """The backward kernel against ``ssd_chunk_backward_plain`` on the same
+    inputs, within phase 8b's limit (2^-10 of each gradient's terms'
+    magnitudes plus 1e-6, plus one bf16 rounding where the type is bf16),
+    every gradient finite; two calls bitwise equal; one launch a call."""
+    t = _gpu_operands(cuda, G, q, H, P, N, xdt, ddt, seed=q)
+    before = sc.backward_launches
+    got = sc.ssd_chunk_backward(*t)
+    again = sc.ssd_chunk_backward(*t)
+    torch.cuda.synchronize()
+    assert sc.backward_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    chip_smoke.ssd_bwd_close(got, sc.ssd_chunk_backward_plain(*t),
+                             chip_smoke.ssd_bwd_bounds(*t), "gpu test")
+
+
+@pytest.mark.gpu
+def test_backward_route_on_gpu(cuda):
+    for xdt in (torch.bfloat16, torch.float32):
+        t = _gpu_operands(cuda, 1, 128, 2, 64, 128, xdt, torch.float32, 5)
+        assert sc.backward_route(*t[:5]) == "fma"
+
+
+@pytest.mark.gpu
+def test_ssd_chunked_backward_on_gpu_matches_cpu(cuda):
+    """``.backward()`` through ``layers.ssd_chunked`` (three chunks from a
+    starting state) on the card, where ``SsdChunk`` launches both kernels,
+    against the CPU, where autograd runs through the plain version: every
+    input's gradient within 1e-4 of its largest |g| (float32 sums in other
+    orders through the inter-chunk loop)."""
+    from repro_torch.models import layers as tlayers
+    x, dt, A, B, C = inputs(2, 48, 3, 4, 8, seed=7, model_like=True)
+    rng = np.random.default_rng(8)
+    init, wy, ws = (rng.standard_normal(s).astype(np.float32)
+                    for s in ((2, 3, 4, 8), (2, 48, 3, 4), (2, 3, 4, 8)))
+    grads = {}
+    for dev in ("cpu", cuda):
+        live = [torch.as_tensor(a, device=dev).requires_grad_()
+                for a in (x, dt, A, B, C, init)]
+        before = (sc.launches, sc.backward_launches)
+        y, st = tlayers.ssd_chunked(*live[:5], 16, init_state=live[5])
+        ((y * torch.as_tensor(wy, device=dev)).sum()
+         + (st * torch.as_tensor(ws, device=dev)).sum()).backward()
+        grads[str(dev)] = [t.grad.cpu() for t in live]
+        if dev != "cpu":
+            assert (sc.launches, sc.backward_launches) == (
+                before[0] + 1, before[1] + 1)
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))

@@ -195,7 +195,8 @@ def assert_step_close(jax_state, port_state, metrics):
 
 @pytest.mark.parametrize("arch,steps", [("granite-3-2b", 1),
                                         ("granite-3-2b", 2),
-                                        ("qwen2-moe-a2.7b", 2)])
+                                        ("qwen2-moe-a2.7b", 2),
+                                        ("mamba2-2.7b", 1)])
 def test_train_steps_vs_jax(arch, steps):
     j, t, metrics = run_both(arch, steps)
     assert_step_close(j, t, metrics)
