@@ -8,9 +8,11 @@ Phases (any failure exits non-zero and prints no result line):
    kernels' build times (one nvcc per source, all started together, from
    the sources in this checkout) and ptxas' registers and spills; then
    ``cuobjdump -sass`` of the flash_attention, flash_attention_bwd,
-   bsr_spmm and ssd_chunk libraries, which fails unless each wgmma kernel
-   holds HGMMA and UTMALDG and both attention libraries hold each of their
-   wgmma kernels (ptxas' registers and spills of each printed);
+   bsr_spmm, ssd_chunk and ssd_chunk_bwd libraries, which fails unless
+   each wgmma kernel holds HGMMA and UTMALDG and both attention libraries
+   and the SSD backward's hold each of their wgmma kernels (ptxas'
+   registers and spills of each printed, and any warning, C7512 among
+   them);
 2. segreduce vs plain: the segmented-reduce kernel against its plain
    PyTorch version on the card. The atomic route over tags, dtypes, id
    orders, sizes and vector values; the sorted route (``sorted_ids=True``)
@@ -117,16 +119,20 @@ Phases (any failure exits non-zero and prints no result line):
    with the model's dt and A (exp overflows above the diagonal), each
    case's route printed and checked; times at the main shape beside both
    routes' bounds;
-8b. ssd_chunk's backward kernel (``csrc/ssd_chunk_bwd.cu``) against
+8b. ssd_chunk's backward kernels (``csrc/ssd_chunk_bwd.cu``) against
    ``ssd_chunk_backward_plain`` on the same inputs and cotangents: the main
-   shape with bf16 x/B/C and f32 dt/A (as training passes them) and in f32,
-   the smoke widths (q 16, P 8, N 16), a 40-token and a 256-token chunk,
-   (2, 1, 3, 4, 5) and the model-like overflow chunk; each case's
-   ``backward_route()`` printed and checked, every gradient finite and
-   within 2^-10 of the sum of its terms' magnitudes, two calls bitwise
-   equal; times at the main shape (each of its four launches by profiled
-   device time) beside the bytes and the operations bounds and the plain
-   backward;
+   shape with bf16 x/B/C and f32 dt/A (as training passes them: the wgmma
+   route) and in f32 (the FMA route), the smoke widths (q 16, P 8, N 16), a
+   40-token and a 256-token chunk, (2, 1, 3, 4, 5), the model-like overflow
+   chunk on both routes, and the wgmma route's edges (q = 1, 64, 77, 100;
+   N = 8, 32, 40, 72; a last group of one head); each case's
+   ``backward_route()`` printed and checked (wgmma for every case in the
+   forward's tensor-core domain, fma for the rest), every gradient finite
+   and within 2^-10 of the sum of its terms' magnitudes, two calls bitwise
+   equal; times of both routes at the main shape (each route's four
+   launches by profiled device time) beside their bounds (the wgmma
+   route's bytes, with its bf16 wgmma GFLOP at 989 TFLOP/s; the FMA
+   route's float32 operations) and the plain backward;
 9. serve: mamba2-2.7b at full width and depth (64 layers, bf16 parameters
    from ``init_params(seed=0)``) through ``greedy_generate`` with phase 7's
    traffic: cold and warm prefill, decode wall per token, peak memory,
@@ -527,8 +533,8 @@ def setup() -> str:
         info = _build.build_info[name]
         log(f"  {name}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "warning" in line or (
-                    "spill" in line and " 0 bytes spill" not in line):
+            if "registers" in line or "warning" in line or "(C75" in line \
+                    or ("spill" in line and " 0 bytes spill" not in line):
                 log("    ptxas:", line.strip())
         for fname, regs, spills in _ptxas_by_function(info["log"]):
             if "wgmma" in fname:
@@ -560,11 +566,12 @@ def _ptxas_by_function(text: str) -> list:
 # "wgmma" must contain both instructions in its SASS, and a library must
 # hold each wgmma kernel named here
 HOPPER_KERNELS = ("flash_attention", "bsr_spmm", "ssd_chunk",
-                  "flash_attention_bwd")
+                  "flash_attention_bwd", "ssd_chunk_bwd")
 HOPPER_NAMES = {
     "flash_attention": ("flash_attention_wgmma_kernel",),
     "flash_attention_bwd": ("flash_attention_bwd_dkdv_wgmma_kernel",
                             "flash_attention_bwd_dq_wgmma_kernel"),
+    "ssd_chunk_bwd": ("ssd_chunk_bwd_wgmma_kernel",),
 }
 
 
@@ -5802,8 +5809,12 @@ def check_ssd_chunk() -> dict:
 # phase 8b: ssd_chunk's backward kernel vs the plain backward
 # --------------------------------------------------------------------------
 
-SSD_BWD_KERNELS = ("ssd_chunk_bwd_head", "ssd_chunk_bwd_sum",
-                   "ssd_chunk_bwd_bc", "ssd_chunk_bwd_da")
+# each route's four launches, as the profiler names them
+SSD_BWD_KERNELS = {
+    "wgmma": ("ssd_chunk_bwd_wgmma", "ssd_chunk_bwd_reduce",
+              "ssd_chunk_bwd_bc", "ssd_chunk_bwd_da"),
+    "fma": ("ssd_chunk_bwd_head", "ssd_chunk_bwd_sum", "ssd_chunk_bwd_bc",
+            "ssd_chunk_bwd_da")}
 
 
 def ssd_bwd_bounds(x, dt, A, B, C, dy, dst):
@@ -5887,61 +5898,92 @@ def _ssd_bwd_bound(x, dt, A, B, C):
             nbytes)
 
 
+def _ssd_bwd_wgmma_flops(G, q, H, P, N) -> int:
+    """The bf16 wgmma work of the tensor-core route (csrc/ssd_chunk_bwd.cu):
+    a head, for each active 64-key half, U = B dst^T and V = x dst (hi and
+    lo of dst, V over 128 n), and for each 32-query half at or below the
+    key half's diagonal block and below q, S^T, dW^T (two) and W^T dy
+    (three); the products over n run over N rounded up to 64."""
+    kn = 64 * ((N + 63) // 64)
+    flops = 0
+    for kh in range((q + 63) // 64):
+        flops += 2 * 64 * 64 * kn * 2 + 2 * 64 * 128 * P * 2
+        for ih in range(2 * kh, 4):
+            if 32 * ih < q:
+                flops += (2 * 64 * 32 * kn + 2 * 64 * 32 * P * 2
+                          + 2 * 64 * P * 32 * 3)
+    return G * H * flops
+
+
 def check_ssd_backward() -> dict:
-    """Phase 8b: the backward kernel against ``ssd_chunk_backward_plain``
-    on the same inputs and float32 cotangents ~ N(0, 1), over the main
-    shape (bf16 x/B/C with f32 dt/A, and f32), the smoke widths, a 40- and
-    a 256-token chunk, (2, 1, 3, 4, 5) and the model-like overflow chunk;
-    two calls bitwise equal; times at the main shape."""
+    """Phase 8b: the backward kernels against ``ssd_chunk_backward_plain``
+    on the same inputs and float32 cotangents ~ N(0, 1): each case on the
+    route its inputs select (wgmma in the forward's tensor-core domain, fma
+    elsewhere), two calls bitwise equal; both routes timed at the main
+    shape."""
     from repro_torch.kernels import ssd_chunk as sc
 
     f32, bf16 = torch.float32, torch.bfloat16
     G, q, H, P, N = SSD_MAIN
-    cases = [(G, q, H, P, N, bf16, f32),          # as training passes them
-             (G, q, H, P, N, f32, f32),
-             (6, 16, 16, 8, 16, bf16, f32),       # mamba2's, jamba's smoke
-             (6, 16, 16, 8, 16, f32, f32),
-             (8, 40, H, P, N, bf16, f32),         # a 40-token prompt
-             (4, 256, H, P, N, bf16, bf16),       # the longest chunk
-             (2, 1, 3, 4, 5, f32, bf16),
-             (3, 77, 5, 72, 200, f32, f32),       # P and N past one tile
-             (2, 128, 8, 16, 32, f32, f32)]       # the overflow chunk
+    # (case, the route it must take)
+    cases = [((G, q, H, P, N, bf16, f32), "wgmma"),   # as training passes
+             ((G, q, H, P, N, f32, f32), "fma"),
+             ((6, 16, 16, 8, 16, bf16, f32), "fma"),  # mamba2's, jamba's
+             ((6, 16, 16, 8, 16, f32, f32), "fma"),   # smoke widths
+             ((8, 40, H, P, N, bf16, f32), "wgmma"),  # a 40-token prompt
+             ((4, 256, H, P, N, bf16, bf16), "fma"),  # the longest chunk
+             ((2, 1, 3, 4, 5, f32, bf16), "fma"),
+             ((3, 77, 5, 72, 200, f32, f32), "fma"),  # P and N past a tile
+             ((2, 128, 8, 16, 32, f32, f32), "fma"),  # the overflow chunk
+             # the tensor-core route: the overflow chunk, dt bf16, q = 1, 64
+             # (no second key half), 77 and 100 (ragged), N of 8, 32, 40
+             # and 72 (float32 boxes of dst not loaded, or partly), a last
+             # group of one head
+             ((2, 128, 8, 64, 32, bf16, f32), "wgmma"),
+             ((4, 128, 16, 64, 128, bf16, bf16), "wgmma"),
+             ((3, 1, 9, 64, 8, bf16, bf16), "wgmma"),
+             ((4, 64, 16, 64, 128, bf16, f32), "wgmma"),
+             ((2, 77, 12, 64, 40, bf16, f32), "wgmma"),
+             ((2, 100, 8, 64, 72, bf16, bf16), "wgmma"),
+             ((2, 128, 5, 64, 8, bf16, f32), "wgmma")]
     max_err = max_share = 0.0
-    overflowed = 0
-    for i, (G_, q_, H_, P_, N_, xdt, ddt) in enumerate(cases):
+    overflowed = {"wgmma": 0, "fma": 0}
+    for i, ((G_, q_, H_, P_, N_, xdt, ddt), want) in enumerate(cases):
         x, dt, A, B, C = _ssd_inputs(G_, q_, H_, P_, N_, xdt, ddt, 700 + i)
         g = torch.Generator(device="cuda").manual_seed(800 + i)
         dy = torch.randn(G_, q_, H_, P_, generator=g, device="cuda")
         dst = torch.randn(G_, H_, P_, N_, generator=g, device="cuda")
         cA = torch.cumsum(dt.float() * A.float(), dim=1)
         over = bool(((cA[:, :1] - cA[:, -1:]) > 88.8).any())
-        overflowed += over
+        overflowed[want] += over
         what = (f"G={G_} q={q_} H={H_} P={P_} N={N_} x {xdt} dt {ddt}"
                 + (" (exp overflows above the diagonal)" if over else ""))
         route = sc.backward_route(x, dt, A, B, C)
-        if route != "fma":
-            raise AssertionError(f"ssd_chunk backward {what}: route {route}")
+        if route != want:
+            raise AssertionError(f"ssd_chunk backward {what}: route {route}, "
+                                 f"not {want}")
         got = sc.ssd_chunk_backward(x, dt, A, B, C, dy, dst)
         again = sc.ssd_chunk_backward(x, dt, A, B, C, dy, dst)
-        want = sc.ssd_chunk_backward_plain(x, dt, A, B, C, dy, dst)
+        want_g = sc.ssd_chunk_backward_plain(x, dt, A, B, C, dy, dst)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"ssd_chunk backward {what}: two calls "
                                  f"differ")
-        err, share = ssd_bwd_close(got, want,
+        err, share = ssd_bwd_close(got, want_g,
                                    ssd_bwd_bounds(x, dt, A, B, C, dy, dst),
                                    what)
         log(f"  ssd_chunk backward {what}: {route}, max abs err {err:.3g} "
             f"({share:.3g} of its limit), two calls bitwise equal")
         max_err, max_share = max(max_err, err), max(max_share, share)
-        del got, again, want
-    if not overflowed:
-        raise AssertionError("no backward case overflows exp above the "
-                             "diagonal")
+        del got, again, want_g
+    if not all(overflowed.values()):
+        raise AssertionError(f"a route with no case that overflows exp above "
+                             f"the diagonal: {overflowed}")
     log(f"ssd_chunk backward: {len(cases)} cases match the plain backward "
         f"(max abs err {max_err:.3g}, at most {max_share:.3g} of the limit; "
-        f"{overflowed} cases overflow exp(cA_i - cA_k) above the diagonal, "
-        f"every gradient finite; each case twice, bitwise equal)")
+        f"cases that overflow exp(cA_i - cA_k) above the diagonal by route "
+        f"{overflowed}, every gradient finite; each case twice, bitwise "
+        f"equal)")
 
     out = {}
     for xdt in (bf16, f32):
@@ -5949,44 +5991,51 @@ def check_ssd_backward() -> dict:
         g = torch.Generator(device="cuda").manual_seed(8)
         dy = torch.randn(G, q, H, P, generator=g, device="cuda")
         dst = torch.randn(G, H, P, N, generator=g, device="cuda")
+        route = sc.backward_route(x, dt, A, B, C)
         run = lambda: sc.ssd_chunk_backward(x, dt, A, B, C, dy, dst)
         ms = cuda_time_ms(run, iters=20)
         parts = [kernel_device_ms(run, name, iters=5)
-                 for name in SSD_BWD_KERNELS]
-        t_ops, t_bytes, flops, nbytes = _ssd_bwd_bound(x, dt, A, B, C)
-        out[xdt] = (ms, parts, t_ops, t_bytes, flops, nbytes)
+                 for name in SSD_BWD_KERNELS[route]]
+        out[route] = (ms, parts, *_ssd_bwd_bound(x, dt, A, B, C))
         if xdt == bf16:
             plain_ms = cuda_time_ms(lambda: sc.ssd_chunk_backward_plain(
                 x, dt, A, B, C, dy, dst), iters=3, warmup=1)
-    ms, parts, t_ops, t_bytes, flops, nbytes = out[bf16]
-    bound = max(t_ops, t_bytes)
-    by = "operations" if t_ops >= t_bytes else "bytes"
+
+    def launches(route, parts):
+        return ", ".join(f"{n[14:]} {t:.4f}" for n, t in
+                         zip(SSD_BWD_KERNELS[route], parts))
+
+    ms, parts, t_f32, t_bytes, flops, nbytes = out["wgmma"]
+    tc_flops = _ssd_bwd_wgmma_flops(G, q, H, P, N)
+    t_tc = tc_flops / BF16_FLOPS * 1e3
+    bound = max(t_tc, t_bytes)
+    by = "operations" if t_tc >= t_bytes else "bytes"
+    ms32, parts32, t_f32_32, t_bytes32, _, nbytes32 = out["fma"]
     log(f"ssd_chunk backward {SSD_MAIN} (G, q, H, P, N), bf16 x/B/C and "
-        f"f32 dt/A (fma route): kernel {ms:.4f} ms (device time of its "
-        f"launches: " + ", ".join(f"{n[14:]} {t:.4f}" for n, t in
-                                  zip(SSD_BWD_KERNELS, parts))
-        + f" ms), plain backward {plain_ms:.4f} ms, no one "
-        f"PyTorch call computes it; bound {bound:.4f} ms by {by}, "
-        f"{100 * bound / ms:.1f}% of it ({flops / 1e9:.2f} GFLOP of f32 "
-        f"products at {F32_FLOPS / 1e12:.0f} TFLOP/s: {t_ops:.4f} ms; "
-        f"{nbytes / 1e6:.1f} MB: {t_bytes:.4f} ms, the bound a tensor-core "
-        f"route would face)")
-    ms32, parts32, t_ops32, t_bytes32, _, nbytes32 = out[f32]
+        f"f32 dt/A (wgmma route): kernel {ms:.4f} ms (device time of its "
+        f"launches: {launches('wgmma', parts)} ms), plain backward "
+        f"{plain_ms:.4f} ms, no one PyTorch call computes it; bound "
+        f"{bound:.4f} ms by {by}, {100 * bound / ms:.1f}% of it "
+        f"({nbytes / 1e6:.1f} MB: {t_bytes:.4f} ms; its "
+        f"{tc_flops / 1e9:.2f} GFLOP of bf16 wgmma at "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s: {t_tc:.4f} ms)")
     log(f"ssd_chunk backward {SSD_MAIN} f32 inputs (fma route): kernel "
-        f"{ms32:.4f} ms (" + ", ".join(f"{n[14:]} {t:.4f}" for n, t in
-                                       zip(SSD_BWD_KERNELS, parts32))
-        + f" ms); bound {max(t_ops32, t_bytes32):.4f} ms by operations "
-        f"({nbytes32 / 1e6:.1f} MB: {t_bytes32:.4f} ms), "
-        f"{100 * max(t_ops32, t_bytes32) / ms32:.1f}% of it")
+        f"{ms32:.4f} ms ({launches('fma', parts32)} ms); bound "
+        f"{max(t_f32_32, t_bytes32):.4f} ms by operations ({flops / 1e9:.2f} "
+        f"GFLOP of f32 products at {F32_FLOPS / 1e12:.0f} TFLOP/s; "
+        f"{nbytes32 / 1e6:.1f} MB: {t_bytes32:.4f} ms), "
+        f"{100 * max(t_f32_32, t_bytes32) / ms32:.1f}% of it; "
+        f"{ms32 / ms:.2f}x the wgmma route's time")
     return {"name": "ssd_chunk_backward", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
             "replaces": "src/repro/kernels/ssd_chunk.py:51 (its gradient: "
                         "the JAX package differentiates the pure twin)",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "bytes_bound_ms": t_bytes, "library_ms": None,
-            "launch_ms": dict(zip(SSD_BWD_KERNELS, parts)),
-            "f32_ms": ms32}
+            "library_ms": None, "bf16_wgmma_gflop": tc_flops / 1e9,
+            "launch_ms": dict(zip(SSD_BWD_KERNELS["wgmma"], parts)),
+            "fma_ms": ms32, "fma_bound_ms": max(t_f32_32, t_bytes32),
+            "fma_launch_ms": dict(zip(SSD_BWD_KERNELS["fma"], parts32))}
 
 
 # --------------------------------------------------------------------------
@@ -6124,6 +6173,8 @@ def _zero_train_launches():
     _zero_launches()
     flash_attention.backward_launches = bsr_spmm.backward_launches = 0
     ssd_chunk.backward_launches = 0
+    for route in ssd_chunk.backward_route_launches:
+        ssd_chunk.backward_route_launches[route] = 0
 
 
 def _want_train_launches(cfg) -> tuple:
@@ -6241,8 +6292,10 @@ def train_path() -> dict:
 def mamba_train_path() -> dict:
     """Phase 27: mamba2-2.7b at full width and depth through ``_train_run``
     (phase 26's batches, steps and optimizer): ssd_chunk's forward 128
-    (remat) and its backward kernel 64 a step, the other kernels 0."""
+    (remat) and its backward kernel 64 a step, every backward launch on
+    the tensor-core route ("wgmma"), the other kernels 0."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.models.model import vocab_padded
 
     cfg = get_config(MAMBA_ARCH)
@@ -6259,7 +6312,13 @@ def mamba_train_path() -> dict:
                 f"and v; ssd_chunk at (G, q, H, P, N) = ({G}, "
                 f"{cfg.ssm_chunk}, "
                 f"{cfg.ssm_heads}, {cfg.ssm_headdim}, {cfg.ssm_state})")
-    return _train_run(cfg, describe, "27")
+    rec = _train_run(cfg, describe, "27")
+    routes = dict(sc.backward_route_launches)  # the profiled step's too
+    log(f"phase 27: the SSD backward's launches by route {routes}")
+    if routes["fma"] or routes["wgmma"] < rec["ssd_chunk_backward"]:
+        raise AssertionError(f"the training shape's SSD backward left the "
+                             f"wgmma route: {routes}")
+    return rec
 
 
 @contextlib.contextmanager

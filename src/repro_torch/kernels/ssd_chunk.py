@@ -27,10 +27,15 @@ Gradients: on a CUDA tensor that needs one (grad mode on, an input that
 requires grad) the wrapper goes through ``SsdChunk``, an autograd Function
 whose forward launches the same kernel and whose backward launches
 ``csrc/ssd_chunk_bwd.cu`` (dx, ddt, dA, dB, dC, each in its input's type;
-``backward_launches`` counts its calls, ``backward_route`` names its
-kernel). The TPU kernel has none: the JAX package differentiates its pure
-twin. ``ssd_chunk_backward_plain`` is the formula written out, which the
-kernel is held against; on the CPU autograd runs through the plain version.
+``backward_launches`` counts its calls, ``backward_route_launches`` them by
+route). The backward has the forward's two routes, and ``backward_route``
+names the one an input takes: "wgmma" for the forward's tensor-core domain
+(bf16 x, B, C with P = 64, N a multiple of 8 up to 128, q up to 128: mamba2's
+and jamba's training), wgmma fed by TMA with the float32 operands split into
+two bf16 terms; "fma" for the rest (float32 FMA on the CUDA cores). The TPU
+kernel has none: the JAX package differentiates its pure twin.
+``ssd_chunk_backward_plain`` is the formula written out, which the kernels
+are held against; on the CPU autograd runs through the plain version.
 
 Numerics follow the Pallas kernel, which casts every input to float32: the
 cumsum, the scores C . B, the decay and both products in float32. On the
@@ -58,9 +63,11 @@ MAX_CHUNK = 256
 MAX_DIM = 256
 
 # kernel launches since the last reset (the plain path never counts): the
-# forward kernel's, and the backward's (one a call of its four launches)
+# forward kernel's, and the backward's (one a call of its four launches),
+# also by the backward's route
 launches = 0
 backward_launches = 0
+backward_route_launches = {"wgmma": 0, "fma": 0}
 
 _fn = _route_fn = None
 _bwd_fn = _bwd_route_fn = _bwd_scratch_fn = None
@@ -181,7 +188,7 @@ def _bwd_lib():
         route_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
         route_fn.restype = ctypes.c_int
         scratch_fn = lib.ssd_chunk_bwd_scratch
-        scratch_fn.argtypes = [ctypes.c_int] * 4
+        scratch_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
         scratch_fn.restype = ctypes.c_longlong
         _bwd_fn, _bwd_route_fn, _bwd_scratch_fn = fn, route_fn, scratch_fn
     return _bwd_fn
@@ -208,8 +215,8 @@ def route(xc, dtc, A, Bc, Cc) -> str:
 def backward_route(xc, dtc, A, Bc, Cc) -> str:
     """Which version the gradient of ``ssd_chunk`` runs for these inputs:
     "plain" on the CPU (autograd through the plain version); on the GPU
-    "fma" (the float32 FMA kernel, the only one of
-    ``csrc/ssd_chunk_bwd.cu``), as that file decides."""
+    "wgmma" (the tensor-core kernel, in the forward's wgmma domain) or
+    "fma" (the float32 FMA kernels), as ``csrc/ssd_chunk_bwd.cu`` decides."""
     _check(xc, dtc, A, Bc, Cc)
     if xc.device.type == "cpu":
         return "plain"
@@ -241,8 +248,10 @@ def _launch_backward(xc, dtc, A, Bc, Cc, dy, dst, grads) -> None:
     fn = _bwd_lib()
     G, q, H, P = xc.shape
     N = Bc.shape[2]
-    scratch = torch.empty(int(_bwd_scratch_fn(G, q, H, N)),
-                          dtype=torch.float32, device=xc.device)
+    which = _ask_route(_bwd_route_fn, xc, Bc, Cc)
+    scratch = torch.empty(int(_bwd_scratch_fn(
+        xc.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), G, q, H, P, N,
+        _DTYPE_CODE[xc.dtype])), dtype=torch.float32, device=xc.device)
     stream = torch.cuda.current_stream(xc.device).cuda_stream
     err = fn(xc.data_ptr(), dtc.data_ptr(), A.data_ptr(), Bc.data_ptr(),
              Cc.data_ptr(), dy.data_ptr(), dst.data_ptr(),
@@ -252,8 +261,9 @@ def _launch_backward(xc, dtc, A, Bc, Cc, dy, dst, grads) -> None:
     if err != 0:
         raise RuntimeError(f"ssd_chunk backward launch failed (x {xc.dtype} "
                            f"{tuple(xc.shape)}, dt {dtc.dtype}, A {A.dtype}, "
-                           f"N {N}): error {err}")
+                           f"N {N}, {which} route): error {err}")
     backward_launches += 1
+    backward_route_launches[which] += 1
 
 
 def ssd_chunk_backward(xc, dtc, A, Bc, Cc, dy, dst):
@@ -270,8 +280,10 @@ def ssd_chunk_backward(xc, dtc, A, Bc, Cc, dy, dst):
         raise ValueError(f"the ssd_chunk backward kernel runs on cuda, not "
                          f"{xc.device}")
     xc, dtc, A, Bc, Cc = (t.contiguous() for t in (xc, dtc, A, Bc, Cc))
+    # TMA takes the cotangents on 16 bytes: a view that is not gets a copy
     dy, dst = (t.to(device=xc.device, dtype=torch.float32).contiguous()
                for t in (dy, dst))
+    dy, dst = (t.clone() if t.data_ptr() % 16 else t for t in (dy, dst))
     grads = tuple(torch.empty_like(t) for t in (xc, dtc, A, Bc, Cc))
     if xc.numel() and N:
         _launch_backward(xc, dtc, A, Bc, Cc, dy, dst, grads)

@@ -20,6 +20,11 @@ orders; dA sums a reverse cumsum whose terms cancel). Where a segment above
 the diagonal overflows, the reference's gradients of dt and A are NaN
 (ROADMAP §3, reference defect 8); the port's are finite and held against
 float64 autograd of a twin that selects before the exp.
+
+The backward's tensor-core route splits each float32 operand into two bf16
+terms; ``test_bf16_split_backward_within_phase_8b_limit`` emulates that
+arithmetic here and holds it to ``chip_smoke.py`` phase 8b's limit against
+float64 gradients, before any card run.
 """
 import math
 import sys
@@ -234,6 +239,77 @@ def _safe_twin64(x, dt, A, B, C, dy, dst):
     return torch.autograd.grad(out, ins)
 
 
+def _split(v):
+    """A float32 tensor's two bf16 terms hi = bf16(v), lo = bf16(v - hi), as
+    float32 (``csrc/ssd_chunk_bwd.cu``'s ``split2``)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def split_backward(x, dt, A, B, C, dy, dst):
+    """The tensor-core backward route's arithmetic in plain PyTorch: x, B,
+    C bf16 (their products exact in float32); each product with one float32
+    operand (dy, dst) takes its hi and lo terms, each product of two (W and
+    dy, x dec and dst) hi hi + hi lo + lo hi; the rest float32, as the
+    FMA route and ``ssd_chunk_backward_plain``."""
+    x, B, C = (t.float() for t in (x, B, C))
+    dt, a = dt.float(), A.float()
+    cA, L = sc._decay(dt, A)                                 # (G, i, k, H)
+    S = C @ B.transpose(1, 2)
+    SL = S[..., None] * L
+    W = SL * dt[:, None, :, :]
+    E = torch.exp(cA[:, -1:, :] - cA)
+    dec = E * dt
+    dyh, dyl = _split(dy)
+    dsth, dstl = _split(dst)
+    dW = sum(torch.einsum("gihp,gkhp->gikh", d, x) for d in (dyh, dyl))
+    U = sum(torch.einsum("gkn,ghpn->gkhp", B, d) for d in (dsth, dstl))
+    Wh, Wl = _split(W)
+    dx = sum(torch.einsum("gikh,gihp->gkhp", w, d)
+             for w, d in ((Wh, dyh), (Wh, dyl), (Wl, dyh))) + dec[..., None] * U
+    xwh, xwl = _split(x * dec[..., None])
+    dBst = sum(torch.einsum("gkhp,ghpn->gkn", w, d)
+               for w, d in ((xwh, dsth), (xwh, dstl), (xwl, dsth)))
+    ddec = (x * U).sum(-1)
+    dS = (dW * L * dt[:, None, :, :]).sum(-1)
+    dC = dS @ B
+    dB = dS.transpose(1, 2) @ C + dBst
+    M = dW * W
+    dcA = M.sum(2) - M.sum(1) - ddec * dec
+    dcA[:, -1] += (ddec * dec).sum(1)
+    R = torch.flip(torch.cumsum(torch.flip(dcA, [1]), dim=1), [1])
+    ddt = (dW * SL).sum(1) + ddec * E + a * R
+    dA = (dt * R).sum((0, 1))
+    return dx, ddt, dA, dB, dC
+
+
+@pytest.mark.parametrize("G,q,H,P,N", [(2, 128, 4, 64, 128),
+                                       (3, 77, 5, 64, 40)])
+def test_bf16_split_backward_within_phase_8b_limit(G, q, H, P, N):
+    """The tensor-core route's two-term split, emulated on the model-like
+    inputs (exp overflows above the diagonal), against float64 gradients of
+    the same bf16 x, B, C: every gradient within phase 8b's limit (2^-10 of
+    its terms' magnitudes plus 1e-6, ``chip_smoke.ssd_bwd_bounds``), before
+    the kernel's own bf16 rounding of dx, dB and dC, which the limit takes
+    on top. The split's own error is ~2^-16 of those magnitudes: the float32
+    cumsum of dt A, as on the card, sets most of what remains."""
+    x, dt, A, B, C = inputs(G, q, H, P, N, seed=60 + q, model_like=True)
+    dy, dst = cotangents(G, q, H, P, N, seed=70 + q)
+    cA = np.cumsum(dt.astype(np.float64) * A, axis=1)
+    assert (cA[:, :1] - cA[:, -1:]).max() > 89.0          # exp(seg) = inf
+    xb, Bb, Cb = (torch.as_tensor(a).bfloat16() for a in (x, B, C))
+    t = [xb, torch.as_tensor(dt), torch.as_tensor(A), Bb, Cb,
+         torch.as_tensor(dy), torch.as_tensor(dst)]
+    got = split_backward(*t)
+    want = _safe_twin64(*(v.float().numpy() for v in t))
+    for name, g, w, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                             chip_smoke.ssd_bwd_bounds(*t)):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        e = (g.double() - w).abs()
+        limit = 2.0 ** -10 * b + 1e-6
+        assert bool((e <= limit).all()), (name, float((e / limit).max()))
+
+
 def test_overflow_gradients_are_finite_where_the_reference_gives_nan():
     """Reference defect 8: the model-like 128-step chunk of
     ``test_masked_overflow_gives_no_nan``. ``jax.vjp`` of
@@ -361,14 +437,23 @@ def test_route_on_the_cpu_is_the_plain_version():
     assert sc.route(*t) == "plain"
 
 
-# phase 8b's small cases: (G, q, H, P, N), x/B/C type, dt/A type
+# phase 8b's small cases: (G, q, H, P, N), x/B/C type, dt/A type; bf16
+# x/B/C with P = 64, N a multiple of 8 up to 128 and q up to 128 take the
+# tensor-core route (the main widths at small G and H, q = 1, 40 and 128, N
+# = 8 and 128, dt bf16 and f32, the model-like overflow chunk, a last group
+# of one head), the rest the FMA kernels
 BACKWARD_GPU_CASES = [(6, 16, 16, 8, 16, torch.bfloat16, torch.float32),
                       (6, 16, 16, 8, 16, torch.float32, torch.float32),
                       (3, 40, 5, 64, 128, torch.bfloat16, torch.float32),
                       (2, 256, 3, 64, 128, torch.bfloat16, torch.bfloat16),
                       (2, 1, 3, 4, 5, torch.float32, torch.bfloat16),
                       (3, 77, 5, 72, 200, torch.float32, torch.float32),
-                      (2, 128, 8, 16, 32, torch.float32, torch.float32)]
+                      (2, 128, 8, 16, 32, torch.float32, torch.float32),
+                      (2, 128, 8, 64, 128, torch.bfloat16, torch.float32),
+                      (2, 128, 8, 64, 128, torch.bfloat16, torch.bfloat16),
+                      (2, 1, 3, 64, 8, torch.bfloat16, torch.float32),
+                      (2, 128, 9, 64, 8, torch.bfloat16, torch.bfloat16),
+                      (2, 128, 8, 64, 32, torch.bfloat16, torch.float32)]
 
 
 def _gpu_operands(cuda, G, q, H, P, N, xdt, ddt, seed):
@@ -398,10 +483,17 @@ def test_backward_kernel_vs_plain_on_gpu(cuda, G, q, H, P, N, xdt, ddt):
 
 
 @pytest.mark.gpu
-def test_backward_route_on_gpu(cuda):
-    for xdt in (torch.bfloat16, torch.float32):
-        t = _gpu_operands(cuda, 1, 128, 2, 64, 128, xdt, torch.float32, 5)
-        assert sc.backward_route(*t[:5]) == "fma"
+@pytest.mark.parametrize("xdt,q,P,N,want", [
+    (torch.bfloat16, 128, 64, 128, "wgmma"),     # mamba2's training
+    (torch.bfloat16, 40, 64, 8, "wgmma"),        # ragged q, N of 8
+    (torch.bfloat16, 256, 64, 128, "fma"),       # q past 128
+    (torch.bfloat16, 77, 72, 200, "fma"),        # P and N it does not take
+    (torch.float32, 128, 64, 128, "fma")])       # f32 inputs
+def test_backward_route_on_gpu(cuda, xdt, q, P, N, want):
+    """Each input's backward route: the forward's tensor-core domain takes
+    wgmma, the rest the FMA kernels."""
+    t = _gpu_operands(cuda, 1, q, 2, P, N, xdt, torch.float32, 5)
+    assert sc.backward_route(*t[:5]) == want
 
 
 @pytest.mark.gpu
