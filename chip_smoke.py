@@ -189,10 +189,11 @@ Phases (any failure exits non-zero and prints no result line):
 16-19. the 2x2 grid (run last): four ranks, one process a grid position,
    spawned after the parent prints its reserved memory and empties its
    cache; ``nccl`` when there is a card a rank, else ``gloo`` (one card:
-   NCCL refuses two ranks on one GPU, so each exchange is staged through
-   pinned host memory), the backend printed. 16: phase 3's graph (written
-   under build/grid/) on 2x2, the planner's pick and rotate with overlap
-   on and off, alltoall and bcast, each giving scipy's and phase 3's
+   NCCL refuses two ranks on one GPU, so a gather crosses through the
+   card's memory, ``comm.CardMailbox``, and every other exchange is staged
+   through pinned host memory), the backend printed. 16: phase 3's graph
+   (written under build/grid/) on 2x2, the planner's pick and rotate with
+   overlap on and off, alltoall and bcast, each giving scipy's and phase 3's
    triangles; rotate's C bitwise equal with overlap on and off; (c)
    ``spgemm_2d_batched`` of the masked product in 4 column batches, their
    sums adding to the triangles and their entries together bitwise equal
@@ -209,10 +210,10 @@ Phases (any failure exits non-zero and prints no result line):
    18: FastSV (phase 12's labels), maximal matching (consistent,
    maximal) and SpMM (``spmm_15d`` and ``spmm_2d`` within phase 15's f32
    bound, bitwise equal under MAX_PLUS). 19: HipMCL on 8,192 planted
-   proteins (cut from phase 14's 32,768: the gloo path stages every
-   exchange through host memory) read from a LABEL file: the float64
-   MCL's partition and the 1x1 run's, purity 1. Each phase prints its
-   wall beside the 1x1 phase's (four processes sharing one card: no
+   proteins (cut from phase 14's 32,768: the gloo path stages its
+   all-to-alls and permutes through host memory) read from a LABEL file:
+   the float64 MCL's partition and the 1x1 run's, purity 1. Each phase
+   prints its wall beside the 1x1 phase's (four processes sharing one card: no
    scaling result), each rank's peak memory, segreduce launches by route
    and semiring_matmul's, descent flag (which must be clear) and
    exchanges (calls, bytes, host seconds, from ``core/comm.py``'s
@@ -316,6 +317,29 @@ Phases (any failure exits non-zero and prints no result line):
    ``--smoke --steps 30``, for mamba2-2.7b and jamba-1.5-large-398b (its
    smoke runs ssd_chunk and its backward, attention forward and backward
    and bsr_spmm with its gradients): the loss falls.
+28. the sharding layer: qwen2-moe-a2.7b under ``make_plan(mesh=(data=2,
+   model=2), moe_ep=True)``, four ranks sharing the card (gloo; gathers
+   cross through the card's memory, ``comm.CardMailbox``, as on phases
+   16-22's grids), each rank holding its block of every leaf
+   (``init_params(plan=)``, leaf by leaf). (a) the 2-layer f32 cut, batch 4
+   x 64: each data shard's logits within E2E_LOGIT_TOL of the plan-less
+   forward of its rows on the card, aux within 1e-6 of the mean of those
+   forwards' (the reference's mean over the data axes), bitwise across each
+   model group and across two runs, every bsr_spmm call held against the
+   plain version; a 64 MiB gather timed through the mailbox and staged
+   over gloo. (d) (a)'s parameters saved from (2, 2) and
+   restored onto (4, 1) and (1, 4) (``reshard_restore``), every rank's
+   block bitwise the saved leaf's. (b) full width and depth in bf16 (each
+   rank 32 of the 64 padded experts): phase 7's prompt through
+   ``greedy_generate``, 8 tokens, a cold run (every bsr_spmm call and the
+   first flash_attention call held against the plain version) and a warm
+   run (the main path alone); logits finite, tokens in range, every rank's
+   the same, the last-position prefill logits and the tokens bitwise those
+   of phase 7's model on each shard's rows alone; per rank the walls,
+   peak, launches per forward and the exchanges split into leaf gathers
+   and expert sums. (c) rank 0's layer-0 ``we_g`` and ``we_2`` launches of
+   (b)'s prefill and first decode step (R = 32) held against the plain
+   version and timed beside the bound and ``torch.bmm``.
 
 In phases 12-15 every segreduce call of one run is recorded by shape
 (route, dtype, tag, N, D, S); each shape's first call is run again, held
@@ -325,8 +349,8 @@ the phase counted.
 
 Phases run in the order 1, 2, 2b, 3-5, 10-13, 15, 14, 6, 7, 23, 6b, 6c,
 6d, 7b, 23b, 24, 24b, 25, 25b, 26, 26b, 26c, 8, 8b, 9, 9b, 27, 27b, 27c,
-16-22; the script
-prints its wall last before the records.
+16-22, 28 (its parts a, d, b, c); the script prints its wall last before
+the records.
 
 Phases 2-5 and 10-15 fail if a sorted-route launch saw its ids descend (a
 caller's broken ``sorted_ids`` promise: ``segreduce.descents()``). The two
@@ -335,7 +359,9 @@ lines before the last are a JSON object with one record per kernel
 and bound, phases 10-15's launches by route, each rank's launches on
 the 2x2 and the 2x2x2 grids, phase 21's and phase 22's; flash_attention's
 and bsr_spmm's a ``backward`` record of the same keys, its launches phase
-26's run; ssd_chunk's likewise, its launches phase 27's run) and the card's
+26's run; ssd_chunk's likewise, its launches phase 27's run; phase 28's
+launches by rank under ``launches_by_path``, bsr_spmm's EP shape under
+``ep_shape``) and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 The script imports nothing of JAX.
 """
@@ -429,7 +455,7 @@ KERNELS = ("segreduce", "semiring_matmul", "flash_attention", "bsr_spmm",
 # They read phase 3's and phase 10's graphs from GRID_DIR and are held
 # against the 1x1 phases' answers and walls, kept in ONE_BY_ONE. HipMCL
 # runs 8,192 proteins on the grid (a quarter of phase 14's 32,768): the
-# gloo path stages every exchange through host memory
+# gloo path stages its all-to-alls and permutes through host memory
 GRID_Q = 2
 GRID_DIR = ROOT / "build" / "grid"
 GRID_HIPMCL_PROTEINS = 8192
@@ -452,6 +478,22 @@ ELASTIC_LOSS = f"loop.device_loss:crash:at={ELASTIC_AT}"
 ELASTIC_DIR = ROOT / "build" / "elastic"
 ELASTIC_TRACE = ROOT / "chiprun_out" / "phase22_trace.json"
 ONE_BY_ONE: dict = {}
+# phase 28: qwen2-moe-a2.7b under a ShardingPlan with expert-parallel MoE on
+# a (data=2, model=2) mesh, four ranks sharing the card. (a) the E2E_LAYERS
+# f32 cut, batch EP_BATCH x EP_E2E_PROMPT; (b) full width and depth in bf16,
+# phase 7's prompt, EP_TOKENS greedy tokens; (c) bsr_spmm at the EP shape
+# (R = 64 padded experts / 2); (d) (a)'s parameters restored onto EP_RESTORE
+EP_MESH, EP_AXES = (2, 2), ("data", "model")
+EP_GROUPS = ((0, 1), (2, 3))       # the ranks of each model group
+EP_BATCH, EP_PROMPT, EP_TOKENS = SERVE_BATCH, SERVE_PROMPT, 8
+EP_E2E_PROMPT = E2E_PROMPT
+EP_PREFILL_TOL = 2.0 ** -4         # (b)'s printed scale of max |logit|
+EP_R = 32
+EP_TIMED = ("we_g", "we_2", "we_g decode", "we_2 decode")   # (c)'s launches
+EP_RESTORE = ((4, 1), (1, 4))
+EP_DIR = ROOT / "build" / "ep"
+EP_TIMEOUT_S = 600             # a part's limit on every rank
+EP_REFERENCE: dict = {}        # (b)'s, from phase 7
 
 
 def log(*a):
@@ -2987,7 +3029,8 @@ def grid_phases() -> tuple[list, dict]:
     log(f"phases 16-19: {world} ranks on {torch.cuda.device_count()} card(s), "
         f"backend {backend}"
         + ("" if backend == "nccl" else " (NCCL refuses two ranks on one "
-           "card: exchanges are staged through pinned host memory)")
+           "card: gathers cross through the card's memory, other "
+           "exchanges are staged through pinned host memory)")
         + "; four processes share one card, so no wall here is a scaling "
         "result")
     ctx = mp.get_context("spawn")
@@ -3315,7 +3358,8 @@ def grid3_phase() -> tuple[list, dict]:
     log(f"phase 20: {world} ranks on {torch.cuda.device_count()} card(s), "
         f"backend {backend}"
         + ("" if backend == "nccl" else " (NCCL refuses two ranks on one "
-           "card: exchanges are staged through pinned host memory)")
+           "card: gathers cross through the card's memory, other "
+           "exchanges are staged through pinned host memory)")
         + "; eight processes share one card, so no wall here is a scaling "
         "result")
     ctx = mp.get_context("spawn")
@@ -4236,6 +4280,572 @@ def elastic_phase(graph, mesh) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 28: the sharding layer — qwen2-moe-a2.7b under a ShardingPlan with
+# expert-parallel MoE on a (data=2, model=2) mesh, four ranks sharing the card
+# --------------------------------------------------------------------------
+
+def _ep_cut_cfg():
+    """(a)'s and (d)'s model: phase 7's cut to E2E_LAYERS layers in f32."""
+    from repro_torch.configs import get_config
+    return get_config(SERVE_ARCH).scaled(n_layers=E2E_LAYERS,
+                                         dtype="float32",
+                                         param_dtype="float32")
+
+
+def _ep_prompt(vocab, S, seed):
+    return np.random.default_rng(seed).integers(0, vocab, (EP_BATCH, S))
+
+
+def _ep_half() -> int:
+    return EP_BATCH // EP_MESH[0]
+
+
+def ep_reference(model, params, prompt) -> None:
+    """Phase 28 (b)'s reference, run by phase 7 on its model: each data
+    shard's rows alone (rows 0-1, then 2-3) through ``greedy_generate``
+    (prefill + EP_TOKENS tokens); their last-position prefill logits and
+    tokens kept on the host in EP_REFERENCE."""
+    from repro_torch.serve import greedy_generate
+    half, logits, tokens = _ep_half(), [], []
+    for d in range(EP_MESH[0]):
+        first = []
+        tok = greedy_generate(
+            model, params, prompt[d * half:(d + 1) * half],
+            EP_PROMPT + EP_TOKENS + 1, EP_TOKENS, device="cuda",
+            on_logits=lambda lg: first.append(lg.float().cpu())
+            if not first else None)
+        logits.append(first[0])
+        tokens.append(tok.cpu())
+    EP_REFERENCE.update(prefill=torch.cat(logits), tokens=torch.cat(tokens))
+    log(f"phase 28 (b)'s reference: rows 0-{half - 1} and {half}-"
+        f"{EP_BATCH - 1} alone, prefill + {EP_TOKENS} tokens each; tokens "
+        f"{EP_REFERENCE['tokens'].tolist()}")
+
+
+def ep_alone() -> dict:
+    """Phase 28 without the phases before it: phase 7's model made on the
+    card from the same seed for (b)'s reference, then ``ep_phase``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, init_params
+    cfg = get_config(SERVE_ARCH).scaled(param_dtype="bfloat16")
+    params = init_params(cfg, seed=0, device="cuda")
+    ep_reference(Model(cfg), params,
+                 _ep_prompt(cfg.vocab, SERVE_PROMPT, 0))
+    del params
+    torch.cuda.empty_cache()
+    return ep_phase()
+
+
+def _digest_t(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()[:16]
+
+
+def _ep_transport(mesh) -> dict:
+    """One 64 MiB gather over 'model' through the card's mailbox (3 calls)
+    and staged through pinned host memory over gloo (1 call, the staged
+    path's own function), host seconds each: what the mailbox saves a
+    gather."""
+    from repro_torch.core import comm
+    mc = comm.mesh_comm(mesh)
+    x = torch.ones(32 << 20, dtype=torch.bfloat16, device="cuda")
+
+    def staged():
+        return comm._from_wire(comm._gathered_wire(x, mc, "model"),
+                               x).view(x.dtype)
+
+    out = {}
+    for what, gather, n in (
+            ("card", lambda: comm.all_gather(x, mc, "model"), 3),
+            ("staged", staged, 1)):
+        if what == "card" and comm._CARD is None:
+            continue
+        secs = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = gather()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        if not bool((y == 1).all()):
+            raise AssertionError(f"the {what} gather moved wrong bytes")
+        out[what] = min(secs)
+    return out
+
+
+def _held_record(held) -> dict:
+    """``_bsr_hold``'s record without the kept operands."""
+    return dict(calls=held["calls"], rows=sorted(held["rows"]),
+                max_abs_err=held["max_abs_err"])
+
+
+def _check_held(part, rk, held, launches) -> None:
+    """Every ``bsr_spmm`` launch of a rank's run held, each at R = EP_R."""
+    if held["calls"] != launches or held["rows"] != [EP_R]:
+        raise AssertionError(f"({part}) rank {rk}: {held['calls']} bsr_spmm "
+                             f"calls held at R {held['rows']}, for "
+                             f"{launches} launches at R = {EP_R}")
+
+
+def _ep_cut(mesh, rank):
+    """(a) on one rank: the 2-layer f32 cut under the plan, two forwards of
+    the global EP_BATCH x EP_E2E_PROMPT batch. Returns (the record, the
+    parameters, the plan)."""
+    from repro_torch.dist import shardings as sh
+    from repro_torch.kernels import bsr_spmm as bs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_plan
+    from repro_torch.models import Model, init_params
+    cfg = _ep_cut_cfg()
+    plan = make_plan(cfg, mesh=mesh, moe_ep=True)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda", plan=plan)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tokens = torch.as_tensor(_ep_prompt(cfg.vocab, EP_E2E_PROMPT, 2),
+                             device="cuda")
+    model = Model(cfg, plan)
+    _zero_launches()
+    runs = []
+    with _bsr_hold() as held:
+        for _ in range(2):
+            with torch.no_grad():
+                lg, aux, _ = model(params, dict(tokens=tokens))
+            whole = sh.gather(lg, axes=(plan.model_axis,))  # its shard's rows
+            runs.append((whole, float(aux)))
+    launches = (fa.launches, bs.launches)
+    d = sh.dp_index(plan)
+    ref, _ = torch.load(EP_DIR / f"ref_a_{d}.pt")
+    # the plan's aux is the mean of the data shards' (the reference's pmean)
+    ref_aux = sum(torch.load(EP_DIR / f"ref_a_{k}.pt")[1]
+                  for k in range(EP_MESH[0])) / EP_MESH[0]
+    err = float((runs[0][0].cpu() - ref).abs().max())
+    # a call that needs a gradient raises (the expert sum carries none)
+    from repro_torch.models import layers as L
+    x = torch.zeros(1, 8, cfg.d_model, device="cuda", requires_grad=True)
+    layer = {k: sh.local(v)[0] for k, v in params["blocks"]["pos0"].items()}
+    try:
+        L.moe_block_ep(x, layer, cfg, plan)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    rec = dict(data=d, launches=launches, t_init=t_init, err=err,
+               refused=refused, bsr_held=_held_record(held),
+               aux=runs[0][1], aux_err=abs(runs[0][1] - ref_aux),
+               scale=float(ref.abs().max()),
+               digests=[_digest_t(w) for w, _ in runs],
+               finite=all(bool(torch.isfinite(w).all()) for w, _ in runs),
+               shape=tuple(runs[0][0].shape),
+               transport=_ep_transport(mesh))
+    return rec, params, plan
+
+
+def _ep_restore(params, cfg, rank):
+    """(d) on one rank: (a)'s parameters saved from (2, 2), restored onto
+    (4, 1) and (1, 4) (``reshard_restore``); each rank's block of each leaf
+    against the saved global leaf (gathered from (2, 2)) sliced by the new
+    spec, bitwise."""
+    import shutil
+    from repro_torch.core import comm
+    from repro_torch.dist import shardings as sh
+    from repro_torch.launch.elastic import reshard_restore
+    from repro_torch.launch.mesh import make_mesh, make_plan
+    from repro_torch.models.model import init_param_specs
+    from repro_torch.train.checkpoint import save_checkpoint
+    ckpt = EP_DIR / "ckpt"
+    t0 = time.perf_counter()
+    save_checkpoint(str(ckpt), 0, params)
+    rec = {"save": time.perf_counter() - t0, "leaves": 0}
+    meshes = {shape: make_mesh(shape, EP_AXES, device="cuda")
+              for shape in EP_RESTORE}
+    for shape, m in meshes.items():
+        specs = init_param_specs(cfg, make_plan(cfg, mesh=m, moe_ep=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, step = reshard_restore(str(ckpt), params, mesh=m, specs=specs)
+        torch.cuda.synchronize()
+        rec[f"restore {shape}"] = time.perf_counter() - t0
+        n = 0
+        for got, saved, spec in zip(_leaves(tree), _leaves(params),
+                                    _leaves(specs)):
+            want = sh.local_shard(sh.gather(saved), spec, m)
+            if got.placements != sh.placements(spec, m) or \
+                    not torch.equal(sh.local(got), want):
+                raise AssertionError(f"(d): a block on {shape} differs "
+                                     f"from the saved leaf's")
+            n += 1
+        rec["leaves"] = n
+        if step != 0:
+            raise AssertionError(f"(d): restored step {step}")
+        del tree
+    comm.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return rec
+
+
+def _ep_full(mesh, rank):
+    """(b) on one rank: qwen2-moe-a2.7b at full width and depth in bf16,
+    each rank drawing each leaf and keeping its block; phase 7's prompt
+    through ``greedy_generate``, a cold run and a measured warm run (every
+    launch count and the exchange accounting set to 0 just before it). The
+    cold run holds every bsr_spmm call and the first flash_attention call
+    against the plain version, and on rank 0 keeps layer 0's we_g and we_2
+    operands of the prefill and of the first decode step for (c); the warm
+    run is the main path alone. Returns (the record, (c)'s operands)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm
+    from repro_torch.dist import shardings as sh
+    from repro_torch.kernels import bsr_spmm as bs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_plan
+    from repro_torch.models import Model, init_params
+    from repro_torch.serve import greedy_generate
+    cfg = get_config(SERVE_ARCH).scaled(param_dtype="bfloat16")
+    plan = make_plan(cfg, mesh=mesh, moe_ep=True)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda", plan=plan)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    held_bytes = sum(sh.local(v).numel() * sh.local(v).element_size()
+                     for v in _leaves(params))
+    model = Model(cfg, plan)
+    prompt = _ep_prompt(cfg.vocab, EP_PROMPT, 0)         # phase 7's
+    max_len = EP_PROMPT + EP_TOKENS + 1
+    run = lambda hook: greedy_generate(model, params, prompt, max_len,  # noqa
+                                       EP_TOKENS, device="cuda",
+                                       on_logits=hook)
+    m = 3 * sum(cfg.layer_moe())         # bsr_spmm calls a forward
+    keep = (0, 2, m, m + 2) if rank == 0 else ()
+    cold = _Clock((fa, bs), keep_logits=False)
+    with _bsr_hold(keep) as bheld, _flash_hold() as held:
+        cold.start()
+        run(cold)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset_stats()
+    _zero_launches()
+    clock = _Clock((fa, bs))
+    clock.start()
+    t0 = time.perf_counter()
+    tokens = run(clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = dict(before=before, t_init=t_init, held_bytes=held_bytes,
+               wall=wall,
+               cold_prefill=cold.walls[0], walls=clock.walls,
+               launches=(fa.launches, bs.launches),
+               per_forward=clock.launches, other=_other_launches((fa, bs)),
+               peak=torch.cuda.max_memory_allocated(),
+               comm=copy.deepcopy(comm.stats), held=dict(held),
+               bsr_held=_held_record(bheld),
+               prefill=clock.logits[0], tokens=tokens.cpu(),
+               finite=all(bool(torch.isfinite(lg).all())
+                          for lg in clock.logits))
+    del params
+    torch.cuda.empty_cache()
+    return rec, bheld["ops"]
+
+
+def _ep_hold_bsr(ops) -> dict:
+    """(c) on rank 0, the other ranks waiting: layer 0's we_g and we_2
+    launches of (b)'s prefill and first decode step (this rank's
+    E / model_size experts) held against the plain version and timed
+    beside the bound and ``torch.bmm`` (its E_loc experts)."""
+    from repro_torch.kernels import bsr_spmm as bs
+    out = {}
+    before = bs.launches
+    for what, op in zip(EP_TIMED, ops):
+        cols, vals, x = (t.cuda() for t in op)
+        R, _, C, bk = vals.shape
+        got, want = bs.bsr_spmm(cols, vals, x), bs.bsr_spmm_plain(cols, vals,
+                                                                  x)
+        err = _bsr_close(got, want, cols, vals, x)
+        xe, w = vals[:, 0], x.reshape(R, bk, -1)
+        ms = cuda_time_ms(lambda: bs.bsr_spmm(cols, vals, x), iters=10)
+        lib = cuda_time_ms(lambda: torch.bmm(xe, w), iters=10)
+        plain = cuda_time_ms(lambda: bs.bsr_spmm_plain(cols, vals, x),
+                             iters=3, warmup=1)
+        bound, by, flops, nbytes, nblocks = _bsr_bound(cols, vals, x)
+        out[what] = dict(R=R, C=C, bk=bk, n=x.shape[1], experts=nblocks,
+                         ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bound, bound_by=by, max_abs_err=err,
+                         gflop=flops / 1e9, mb=nbytes / 1e6)
+    bs.launches = before                # the held launches do not count
+    return out
+
+
+def ep_rank(rank, port, backend, out) -> None:
+    """One rank of phase 28: joins the world, makes the (2, 2) mesh on its
+    card and puts (a), (d), (b) and (c)'s records on ``out`` (a failure
+    puts its traceback there instead)."""
+    import gc
+    import traceback
+    from repro_torch.core import comm
+    from repro_torch.launch.mesh import make_mesh
+    try:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        comm.init_world(rank, math.prod(EP_MESH), port, backend)
+        mesh = make_mesh(EP_MESH, EP_AXES, device="cuda")
+        mem = lambda: f"{torch.cuda.memory_allocated() / 2**30:.3f}"  # noqa
+        rec, params, plan = _ep_cut(mesh, rank)
+        out.put((rank, "a", rec))
+        log(f"  phase 28 rank {rank}: (a) done, {mem()} GiB allocated")
+        out.put((rank, "d", _ep_restore(params, _ep_cut_cfg(), rank)))
+        del params, plan
+        gc.collect()                      # DTensor trees hold cycles
+        torch.cuda.empty_cache()
+        log(f"  phase 28 rank {rank}: (d) done, {mem()} GiB allocated")
+        rec, ops = _ep_full(mesh, rank)
+        out.put((rank, "b", rec))
+        comm.barrier()                    # the card is rank 0's alone
+        if rank == 0:
+            out.put((rank, "c", _ep_hold_bsr(ops)))
+        comm.barrier()
+        comm.close_world()
+    except BaseException:                                  # noqa: BLE001
+        out.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _ep_collect(procs, out, world, checks) -> dict:
+    """Each part's records from ``out``, by part and rank, each part checked
+    (``checks[part](records)``) as soon as every rank has reported it;
+    fails on a rank's error or on a part not reported within
+    EP_TIMEOUT_S."""
+    import queue
+    got = {k: {} for k in checks}
+    need = {k: 1 if k == "c" else world for k in checks}
+    try:
+        for part in checks:
+            while len(got[part]) < need[part]:
+                try:
+                    rk, key, rec = out.get(timeout=EP_TIMEOUT_S)
+                except queue.Empty:
+                    raise AssertionError(
+                        f"phase 28 ({part}): ranks did not report within "
+                        f"{EP_TIMEOUT_S} s") from None
+                if key == "error":
+                    raise AssertionError(f"phase 28: rank {rk} failed:\n"
+                                         f"{rec}")
+                got[key][rk] = rec
+            checks[part](got[part])
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"phase 28: ranks exited with {bad}")
+    return got
+
+
+def _tag(c, name) -> str:
+    t = c["tags"].get(name, {"calls": 0, "bytes": 0, "seconds": 0.0})
+    return (f"{t['calls']} calls, {t['bytes'] / 1e9:.3f} GB sent, "
+            f"{t['seconds']:.3f} s")
+
+
+def _check_ep_cut(recs) -> None:
+    want = (2 * E2E_LAYERS, 2 * 3 * E2E_LAYERS)
+    for rk, r in sorted(recs.items()):
+        tr = r["transport"]
+        log(f"  (a) rank {rk} (data shard {r['data']}): init_params "
+            f"{r['t_init']:.2f} s; logits {r['shape']} max |dlogit| "
+            f"{r['err']:.3g} against the plan-less forward of its rows "
+            f"(tolerance {E2E_LOGIT_TOL}, logits up to {r['scale']:.2f}); "
+            f"aux {r['aux']:.6f} (|d| {r['aux_err']:.2g}); launches "
+            f"(flash_attention, bsr_spmm) {r['launches']}; digests "
+            f"{r['digests']}; a 64 MiB gather over 'model': card mailbox "
+            f"{tr.get('card', float('nan')) * 1e3:.2f} ms, staged over gloo "
+            f"{tr['staged'] * 1e3:.1f} ms; a CUDA call that needs a "
+            f"gradient: {r['refused']!r}; {_held_text(r['bsr_held'])}")
+        _check_held("a", rk, r["bsr_held"], r["launches"][1])
+        if not r["finite"] or not r["err"] <= E2E_LOGIT_TOL:
+            raise AssertionError(f"(a) rank {rk}: logits off by {r['err']}")
+        if not r["aux_err"] <= 1e-6:
+            raise AssertionError(f"(a) rank {rk}: aux off by {r['aux_err']}")
+        if r["digests"][0] != r["digests"][1]:
+            raise AssertionError(f"(a) rank {rk}: two runs differ")
+        if r["launches"] != want:
+            raise AssertionError(f"(a) rank {rk}: launches {r['launches']}, "
+                                 f"not {want}")
+        if not (r["refused"] or "").startswith("moe_block_ep"):
+            raise AssertionError(f"(a) rank {rk}: moe_block_ep on a CUDA "
+                                 f"input that needs a gradient did not "
+                                 f"refuse it ({r['refused']})")
+    for a, b in EP_GROUPS:
+        if recs[a]["digests"] != recs[b]["digests"]:
+            raise AssertionError(f"(a): ranks {a} and {b} (one model group) "
+                                 f"hold different logits")
+
+
+def _held_text(h) -> str:
+    return (f"{h['calls']} bsr_spmm calls at R {h['rows']} held against the "
+            f"plain version (max abs err {h['max_abs_err']:.3g})")
+
+
+def _check_ep_restore(recs) -> None:
+    for rk, r in sorted(recs.items()):
+        log(f"  (d) rank {rk}: save from {EP_MESH} {r['save']:.2f} s; "
+            + "; ".join(f"restore onto {s} {r[f'restore {s}']:.2f} s"
+                        for s in EP_RESTORE)
+            + f"; {r['leaves']} leaves, every block bitwise the saved "
+            "leaf's")
+
+
+def _check_ep_full(recs) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import vocab_padded
+    ref = EP_REFERENCE
+    cfg = get_config(SERVE_ARCH)
+    moe_layers = sum(cfg.layer_moe())
+    want_prefill = (cfg.n_layers, 3 * moe_layers)
+    for rk, r in sorted(recs.items()):
+        decode = sorted(r["walls"][1:])
+        med = decode[len(decode) // 2]
+        c = r["comm"]
+        log(f"  (b) rank {rk}: {r['before'] / 2**30:.3f} GiB allocated "
+            f"before; init_params {r['t_init']:.2f} s holding "
+            f"{r['held_bytes'] / 1e9:.2f} GB; prefill cold (holds "
+            f"included) {r['cold_prefill'] * 1e3:.1f} ms, warm "
+            f"{r['walls'][0] * 1e3:.1f}"
+            f" ms; decode per token (median of {len(decode)}) "
+            f"{med * 1e3:.1f} ms (min {decode[0] * 1e3:.1f}, max "
+            f"{decode[-1] * 1e3:.1f}); warm run {r['wall']:.3f} s; peak "
+            f"{r['peak'] / 2**30:.3f} GiB; launches (flash_attention, "
+            f"bsr_spmm) {r['launches']}, per forward {r['per_forward'][0]} "
+            f"then {sorted(set(r['per_forward'][1:]))}; exchanges: leaf "
+            f"gathers {_tag(c, 'leaf_gather')}, expert sums "
+            f"{_tag(c, 'expert_sum')}; all {c['calls']} calls "
+            f"{c['seconds']:.3f} s ({100 * c['seconds'] / r['wall']:.1f}% of "
+            f"the wall); in the cold run, the first flash_attention call "
+            f"held (max abs err "
+            f"{r['held'].get('max_abs_err', float('nan')):.3g}) and "
+            f"{_held_text(r['bsr_held'])}")
+        _check_held("b", rk, r["bsr_held"], r["launches"][1])
+        if not r["finite"]:
+            raise AssertionError(f"(b) rank {rk}: non-finite logits")
+        tok = r["tokens"]
+        if int(tok.min()) < 0 or int(tok.max()) >= vocab_padded(cfg):
+            raise AssertionError(f"(b) rank {rk}: tokens out of range")
+        if r["per_forward"][0] != want_prefill or any(
+                f != (0, 3 * moe_layers) for f in r["per_forward"][1:]) \
+                or r["other"]:
+            raise AssertionError(f"(b) rank {rk}: launches "
+                                 f"{r['per_forward']}, other {r['other']}")
+        if not r["held"]:
+            raise AssertionError(f"(b) rank {rk}: no flash_attention held")
+    first = recs[0]
+    for rk, r in recs.items():
+        if not torch.equal(r["tokens"], first["tokens"]) or \
+                not torch.equal(r["prefill"], first["prefill"]):
+            raise AssertionError(f"(b): rank {rk}'s tokens or prefill logits "
+                                 f"differ from rank 0's")
+    err = float((first["prefill"] - ref["prefill"]).abs().max())
+    scale = float(ref["prefill"].abs().max())
+    agree = float((first["tokens"] == ref["tokens"]).float().mean())
+    bitwise = torch.equal(first["prefill"], ref["prefill"])
+    log(f"  (b): last-position prefill logits within {err:.4g} of phase 7's "
+        f"rows alone (2^-4 of max |logit| {scale:.2f} = "
+        f"{EP_PREFILL_TOL * scale:.4g}; bitwise: {bitwise}); tokens agree at "
+        f"{100 * agree:.1f}%: {first['tokens'].tolist()} vs "
+        f"{ref['tokens'].tolist()}")
+    # each (token, choice) row has one owner, so the sum over 'model' is
+    # exact and the combine is moe_block's: the plan-less model's bits
+    if not bitwise or not torch.equal(first["tokens"], ref["tokens"]):
+        raise AssertionError(f"(b): prefill logits (off by {err}) or tokens "
+                             f"differ from phase 7's rows alone")
+    return {"prefill_err": err, "token_agreement": agree}
+
+
+def _check_ep_shape(c) -> None:
+    if tuple(c) != EP_TIMED:
+        raise AssertionError(f"(c): timed {tuple(c)}, not {EP_TIMED}")
+    for what, r in c.items():
+        log(f"  (c) rank 0's layer-0 {what} at the EP shape (R={r['R']} K=1 "
+            f"bm=C={r['C']} bk={r['bk']} n={r['n']} bf16, {r['experts']} "
+            f"experts with tokens): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, torch.bmm ({r['R']} experts) "
+            f"{r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({r['gflop']:.1f} GFLOP, {r['mb']:.1f} MB), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it; held (max abs err "
+            f"{r['max_abs_err']:.3g})")
+        if r["R"] != EP_R:
+            raise AssertionError(f"(c): R = {r['R']}, not {EP_R}")
+
+
+def ep_phase() -> dict:
+    """Phase 28: (a)'s reference here (the plan-less forward of each data
+    shard's rows on the card), then four ranks. Returns the launches by
+    rank of flash_attention and bsr_spmm over (a) and (b), (c)'s records
+    and the held max abs errors."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.models import Model, init_params
+    t0 = time.perf_counter()
+    if "prefill" not in EP_REFERENCE:
+        raise AssertionError("phase 28 needs phase 7's reference")
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    EP_DIR.mkdir(parents=True)
+    cfg = _ep_cut_cfg()
+    params = init_params(cfg, seed=0, device="cuda")
+    prompt = torch.as_tensor(_ep_prompt(cfg.vocab, EP_E2E_PROMPT, 2),
+                             device="cuda")
+    half = _ep_half()
+    with torch.no_grad():
+        for d in range(EP_MESH[0]):
+            lg, aux, _ = Model(cfg)(params, dict(
+                tokens=prompt[d * half:(d + 1) * half]))
+            torch.save((lg.cpu(), float(aux)), EP_DIR / f"ref_a_{d}.pt")
+    del params, lg
+    torch.cuda.empty_cache()
+    world = math.prod(EP_MESH)
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    log(f"phase 28: {SERVE_ARCH} under make_plan(mesh=(data={EP_MESH[0]}, "
+        f"model={EP_MESH[1]}), moe_ep=True), {world} ranks on "
+        f"{torch.cuda.device_count()} card(s), backend {backend}"
+        + ("" if backend == "nccl" else " (leaf gathers and expert sums "
+           "cross through the card's memory: comm.CardMailbox)"))
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=ep_rank, daemon=True,
+                         args=(rk, port, backend, out))
+             for rk in range(world)]
+    for p in procs:
+        p.start()
+    b = {}
+    got = _ep_collect(procs, out, world, {
+        "a": _check_ep_cut, "d": _check_ep_restore,
+        "b": lambda recs: b.update(_check_ep_full(recs)),
+        "c": lambda recs: _check_ep_shape(recs[0])})
+    c = got["c"][0]
+    launches = {rk: tuple(a + b_ for a, b_ in zip(got["a"][rk]["launches"],
+                                                  got["b"][rk]["launches"]))
+                for rk in range(world)}
+    flash_err = max(got["b"][rk]["held"]["max_abs_err"]
+                    for rk in range(world))
+    log(f"phase 28: {time.perf_counter() - t0:.1f} s with the ranks' "
+        f"start-up; launches (flash_attention, bsr_spmm) of (a) and (b) by "
+        f"rank {launches}")
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    return {"flash_attention": [launches[rk][0] for rk in range(world)],
+            "bsr_spmm": [launches[rk][1] for rk in range(world)],
+            "ep_shape": c, "flash_max_abs_err": flash_err,
+            "bsr_max_abs_err": max(
+                [r["max_abs_err"] for r in c.values()]
+                + [got[part][rk]["bsr_held"]["max_abs_err"]
+                   for part in "ab" for rk in range(world)]),
+            **b}
+
+
+# --------------------------------------------------------------------------
 # phase 6: flash_attention kernel vs plain
 # --------------------------------------------------------------------------
 
@@ -5024,6 +5634,34 @@ def _bsr_capture(keep):
 
 
 @contextlib.contextmanager
+def _bsr_hold(keep=()):
+    """While open, every ``bsr_spmm`` call is held against the plain version
+    on the same operands (``_bsr_close``), and the operands of the calls
+    whose index (from 0) is in ``keep`` are copied to the host. The yielded
+    dict gets the calls held, their block-row counts R, the max abs error
+    and the kept operands (``ops``)."""
+    from repro_torch.kernels import bsr_spmm as bs
+    rec = dict(calls=0, rows=set(), max_abs_err=0.0, ops=[])
+    wrapped = bs.bsr_spmm
+
+    def hold(cols, vals, x):
+        out = wrapped(cols, vals, x)
+        if rec["calls"] in keep:
+            rec["ops"].append(tuple(t.cpu() for t in (cols, vals, x)))
+        rec["calls"] += 1
+        rec["rows"].add(vals.shape[0])
+        err = _bsr_close(out, bs.bsr_spmm_plain(cols, vals, x), cols, vals, x)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        return out
+
+    bs.bsr_spmm = hold
+    try:
+        yield rec
+    finally:
+        bs.bsr_spmm = wrapped
+
+
+@contextlib.contextmanager
 def _flash_hold(tol=(2.0 ** -7, 2.0 ** -7)):
     """While open, the first ``flash_attention`` call is held against the
     plain version on the same operands (bf16 tolerance of phase 6); the
@@ -5199,6 +5837,7 @@ def serve_path():
                     f"capacity_factor {E / cfg.top_k:g}, no drops")
     del nd
     _profile_cached(model, params, prompt, tokens, max_len)
+    ep_reference(model, params, prompt)
     del params
     torch.cuda.empty_cache()
     return launched, tuple(ops)
@@ -6543,6 +7182,16 @@ def main() -> int:
     elastic = elastic_phase(graph, mesh)
     seg_record["elastic_launches_by_route"] = elastic
     del graph
+    torch.cuda.empty_cache()
+    ep = ep_phase()
+    path = f"{SERVE_ARCH} on the {EP_MESH} mesh, (a) and (b), by rank"
+    fa_record["launches_by_path"][path] = ep["flash_attention"]
+    bsr_record["launches_by_path"][path] = ep["bsr_spmm"]
+    bsr_record["ep_shape"] = ep["ep_shape"]
+    fa_record["max_abs_err"] = max(fa_record["max_abs_err"],
+                                   ep["flash_max_abs_err"])
+    bsr_record["max_abs_err"] = max(bsr_record["max_abs_err"],
+                                    ep["bsr_max_abs_err"])
     for rec in (seg_record, smm_record):
         rec["max_abs_err"] = max(rec["max_abs_err"], errs[rec["name"]],
                                  errs3[rec["name"]])

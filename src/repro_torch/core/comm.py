@@ -4,11 +4,14 @@ This is the port's counterpart of the named-axis collectives that the JAX
 package's bodies call under ``shard_map`` (``jax.lax.all_gather``,
 ``psum``, ``psum_scatter``, ``all_to_all``, ``ppermute``,
 ``axis_index``), and the only module of the port that imports
-``torch.distributed``. As in CombBLAS (MPI, one process per grid
-position), every grid position is one process: on a ``pr`` x ``pc`` grid
-of ``L`` layers, rank ``r`` is position ``(l, i, j)``, row-major over
-``(layer, row, col)``, as JAX orders the devices of its mesh (on one layer,
-``(i, j) = divmod(r, pc)``).
+``torch.distributed``: ``launch/mesh.py``'s named ``DeviceMesh`` and
+``dist/shardings.py``'s DTensors (the LM stack's parameter blocks) take
+their types from here, and their exchanges are this module's, over the
+mesh's groups (``MeshComm``). As in CombBLAS (MPI, one process per grid
+position), every grid position is one process: on a
+``pr`` x ``pc`` grid of ``L`` layers, rank ``r`` is position ``(l, i, j)``,
+row-major over ``(layer, row, col)``, as JAX orders the devices of its
+mesh (on one layer, ``(i, j) = divmod(r, pc)``).
 
 Axes are named as in JAX. Axis ``'col'`` varies ``j`` within process row
 ``i`` of one layer; axis ``'row'`` varies ``i`` within process column
@@ -38,7 +41,13 @@ Transport follows the process group's backend. NCCL moves CUDA tensors
 directly. Gloo moves host tensors only, so on a gloo group a CUDA payload
 is copied to pinned host memory, exchanged, and copied back; that is the
 configuration of several ranks sharing one card, where NCCL refuses two
-ranks on one GPU. The kernels run on the card either way.
+ranks on one GPU. The kernels run on the card either way. When every
+rank of a gloo world holds the same card, a gather of a CUDA payload
+crosses through the card's memory instead, on a grid and a named mesh
+alike (``CardMailbox``: each rank's buffer, opened by the others through
+CUDA IPC when the world forms, ``init_world``), since gloo over a slow
+loopback moves a few hundred MB/s a rank and the LM stack gathers
+gigabytes a forward; the other collectives stay staged.
 
 Data-moving collectives (gathers, all-to-alls, permutes, broadcasts) view
 their payload as bytes, so any dtype (bool included) moves in one call and
@@ -49,16 +58,25 @@ reduction order.
 
 ``stats`` books every exchange by axis as well as in total, so a caller
 can tell one layer's SUMMA (``'row'``, ``'col'``, ``PLANE``) from the
-inter-layer exchanges (``'layer'``).
+inter-layer exchanges (``'layer'``); inside ``tagged(name)`` an exchange is
+booked under ``stats["tags"][name]`` too (the LM stack's leaf gathers and
+expert sums share the mesh's axes).
+
+A named mesh (``MeshComm``, from a ``DeviceMesh``) is an object these
+collectives take in place of a ``GridComm``: its axes are the mesh's dim
+names, each with the mesh's process group.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..obs import recorder as _obs
 from .coo import COO
@@ -185,6 +203,125 @@ class GridComm:
         return GridComm(pr, pc, rank, dist.get_backend(), groups, layers)
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshComm:
+    """A named mesh's axes as the collectives below take them: each axis'
+    process group, size, this rank's index on it and its members' world
+    ranks in axis order (``mesh_comm``)."""
+
+    backend: str
+    groups: dict                # axis name -> ProcessGroup
+    sizes: dict                 # axis name -> size
+    coords: dict                # axis name -> this rank's index
+    ranks: dict                 # axis name -> world ranks in axis order
+
+    def size(self, axis) -> int:
+        return self.sizes[axis]
+
+    def index(self, axis) -> int:
+        return self.coords[axis]
+
+    def global_rank(self, axis, k: int) -> int:
+        """The world rank of member ``k`` of this process's ``axis``."""
+        return self.ranks[axis][k]
+
+
+_MESHES: dict = {}
+
+
+def mesh_comm(mesh) -> MeshComm:
+    """The ``MeshComm`` of a ``torch.distributed`` ``DeviceMesh`` with named
+    dims (``launch/mesh.make_mesh``), on a rank of it; made once a mesh."""
+    got = _MESHES.get(id(mesh))
+    if got is not None and got[0] is mesh:
+        return got[1]
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    groups = {a: mesh.get_group(a) for a in names}
+    mc = MeshComm(dist.get_backend(), groups, dict(zip(names, mesh.shape)),
+                  dict(zip(names, coord)),
+                  {a: dist.get_process_group_ranks(g)
+                   for a, g in groups.items()})
+    _MESHES[id(mesh)] = (mesh, mc)
+    return mc
+
+
+class CardMailbox:
+    """Ranks that share one card exchange through it: each rank's buffer on
+    the card (``nbytes``), opened by every other rank through CUDA IPC.
+
+    Gloo moves host tensors only, and on a host whose loopback is slow its
+    staged exchanges run at a few hundred MB/s a rank (``chip_smoke.py``
+    phase 28 times both); a copy between two buffers of one card runs at
+    the card's memory rate. An exchange over a group writes this rank's
+    bytes into its own buffer, waits for the group (a gloo barrier: every
+    member's bytes are there), copies the members' buffers, and waits for
+    the group again (every member has read this rank's buffer, which the
+    next exchange overwrites); a payload larger than the buffer goes in
+    pieces. Opened by ``init_world`` (collective over the world)."""
+
+    def __init__(self, nbytes: int):
+        from torch.multiprocessing.reductions import reduce_tensor
+        self.mine = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        torch.cuda.synchronize()
+        n, me = dist.get_world_size(), dist.get_rank()
+        # a handle for each other rank: CUDA IPC counts each one's release
+        sent = [None if r == me else reduce_tensor(self.mine)
+                for r in range(n)]
+        handles = [None] * n
+        dist.all_gather_object(handles, sent)
+        self.boxes = [self.mine if r == me else
+                      handles[r][me][0](*handles[r][me][1]) for r in range(n)]
+
+    def all_gather(self, b: torch.Tensor, ranks, group) -> torch.Tensor:
+        """The members' bytes ``b`` (uint8 on the card), stacked in the
+        order of ``ranks`` (their world ranks)."""
+        n, cap = b.numel(), self.mine.numel()
+        out = torch.empty((len(ranks), n), dtype=torch.uint8, device=b.device)
+        stream = torch.cuda.current_stream()
+        for lo in range(0, n, cap):
+            k = min(cap, n - lo)
+            self.mine[:k].copy_(b[lo:lo + k])
+            stream.synchronize()
+            dist.barrier(group=group)
+            for i, r in enumerate(ranks):
+                out[i, lo:lo + k].copy_(self.boxes[r][:k])
+            stream.synchronize()
+            dist.barrier(group=group)
+        return out
+
+    def close(self) -> None:
+        """Drop the other ranks' buffers, then (after every rank has) this
+        rank's own: its producer outlives every use of it."""
+        torch.cuda.synchronize()
+        self.boxes = []
+        dist.barrier()
+        torch.cuda.ipc_collect()
+        self.mine = None
+
+
+_CARD: "CardMailbox | None" = None
+CARD_MAILBOX_BYTES = 64 << 20
+
+
+def _open_card_mailbox() -> None:
+    """Open the world's ``CardMailbox`` when the backend is gloo and every
+    world rank has taken the same card (CUDA initialized, same host, same
+    device UUID). Collective over a gloo world: every rank calls it."""
+    global _CARD
+    if dist.get_backend() != "gloo" or dist.get_world_size() == 1:
+        return
+    import socket
+    me = None
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        me = (socket.gethostname(), str(torch.cuda.get_device_properties(
+            torch.cuda.current_device()).uuid))
+    where = [None] * dist.get_world_size()
+    dist.all_gather_object(where, me)
+    if me is not None and len(set(where)) == 1:
+        _CARD = CardMailbox(CARD_MAILBOX_BYTES)
+
+
 _GRIDS: dict = {}
 
 
@@ -192,15 +329,25 @@ def init_world(rank: int, world: int, port: int, backend: str) -> None:
     """Join this process to a world of ``world`` ranks on this host
     (``tcp://localhost:<port>``), as rank ``rank``, over ``backend``
     ('nccl' with a card a rank, 'gloo' otherwise). The flight recorder
-    learns the rank, to name this process's trace file."""
+    learns the rank, to name this process's trace file. On gloo, when every
+    rank took the same card before joining (``torch.cuda.set_device``), the
+    world opens that card's ``CardMailbox``, which then carries every
+    gather of a CUDA payload."""
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
     _obs.set_rank(rank, world)
+    _open_card_mailbox()
 
 
 def close_world() -> None:
-    """Leave the world and forget its grids."""
+    """Leave the world and forget its grids and meshes (and the card's
+    mailbox, after every rank has let go of it)."""
+    global _CARD
     _GRIDS.clear()
+    _MESHES.clear()
+    if _CARD is not None:
+        _CARD.close()
+        _CARD = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -270,11 +417,23 @@ def of(grid) -> GridComm:
 # them, staging copies included (for an exchange in flight, the seconds to
 # issue it and to wait for it: the time it was not hidden); in total and
 # by axis ('row', 'col', 'layer', 'plane' for PLANE, 'world')
-stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "axes": {}}
+stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "axes": {}, "tags": {}}
+_TAGS: list = []
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, bytes=0, seconds=0.0, axes={})
+    stats.update(calls=0, bytes=0, seconds=0.0, axes={}, tags={})
+
+
+@contextlib.contextmanager
+def tagged(name: str):
+    """Book the exchanges made inside under ``stats["tags"][name]`` as well
+    (the innermost tag, where they nest)."""
+    _TAGS.append(name)
+    try:
+        yield
+    finally:
+        _TAGS.pop()
 
 
 def _axis_name(axis) -> str:
@@ -286,8 +445,12 @@ def _axis_name(axis) -> str:
 
 
 def _book(nbytes: int, seconds: float, axis) -> None:
-    for rec in (stats, stats["axes"].setdefault(
-            _axis_name(axis), {"calls": 0, "bytes": 0, "seconds": 0.0})):
+    recs = [stats, stats["axes"].setdefault(
+        _axis_name(axis), {"calls": 0, "bytes": 0, "seconds": 0.0})]
+    if _TAGS:
+        recs.append(stats["tags"].setdefault(
+            _TAGS[-1], {"calls": 0, "bytes": 0, "seconds": 0.0}))
+    for rec in recs:
         rec["calls"] += 1
         rec["bytes"] += int(nbytes)
         rec["seconds"] += seconds
@@ -297,6 +460,12 @@ def _staged(g: GridComm, x: torch.Tensor) -> bool:
     """Whether ``x`` crosses the wire through host memory: a CUDA payload
     on a gloo group (gloo moves host tensors only)."""
     return g.backend == "gloo" and x.is_cuda
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether a gathered ``x`` crosses through the card's memory: a CUDA
+    payload in a world whose ranks share one card (``CardMailbox``)."""
+    return _CARD is not None and x.is_cuda
 
 
 def _to_wire(g: GridComm, x: torch.Tensor) -> torch.Tensor:
@@ -375,7 +544,14 @@ def all_gather(x: torch.Tensor, g: GridComm, axis, *, tiled: bool = False):
     n = g.size(axis)
     if n == 1:
         return x if tiled else x[None]
-    out = _from_wire(_gathered_wire(x, g, axis), x)
+    if _on_card(x):
+        t0 = time.perf_counter()
+        out = _CARD.all_gather(_bytes(x), [g.global_rank(axis, k)
+                                           for k in range(n)],
+                               g.groups[axis])
+        _book(x.numel() * x.element_size(), time.perf_counter() - t0, axis)
+    else:
+        out = _from_wire(_gathered_wire(x, g, axis), x)
     out = _unbytes(out, x.dtype, (n,) + tuple(x.shape))
     return out.reshape((n * x.shape[0],) + tuple(x.shape[1:])) if tiled \
         else out

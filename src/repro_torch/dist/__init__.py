@@ -1,8 +1,6 @@
 """repro_torch.dist — wire compression for the sparse exchanges and the
-dense reductions (``compression``).
-
-The JAX package's ``dist/shardings.py`` (the parameter sharding plan of the
-LM stack) is not ported yet (ROADMAP.md, "the rest of the LM stack").
+dense reductions (``compression``), and the LM stack's sharding plans and
+parameter blocks on a named mesh (``shardings``).
 """
 from . import compression
 from .compression import (dequantize_payload, int8_quantize,

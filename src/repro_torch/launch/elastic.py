@@ -1,4 +1,10 @@
-"""Failure handling of long runs: the straggler watchdog.
+"""Failure handling of long runs: restore onto another mesh, and the
+straggler watchdog (port of ``repro/launch/elastic.py``).
+
+``reshard_restore`` restores a checkpoint onto a mesh of any shape, each
+leaf placed by its spec (``train/checkpoint.restore_checkpoint`` with
+``mesh`` and ``specs``): the LM stack's elastic restart. A sparse matrix
+restores onto any grid through ``core.dist.restore_spmat``.
 
 ``StepWatchdog`` is ``repro.launch.elastic.StepWatchdog``: a wall-time
 budget per step, from the trailing median; ``is_straggling(elapsed)`` is
@@ -6,16 +12,21 @@ True once a step exceeds ``grace`` multiples of it. The caller decides the
 response (``robust/recover.CheckpointedLoop`` warns, counts, and calls its
 ``on_straggler`` hook after ``straggler_patience`` straggling steps in a
 row).
-
-The JAX module's ``reshard_restore`` (a checkpoint restored onto another
-mesh's shardings) waits for the port's sharding layer; a sparse matrix
-restores onto any grid through ``core.dist.restore_spmat``.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from typing import Optional
+
+from ..train.checkpoint import restore_checkpoint
+
+
+def reshard_restore(ckpt_dir: str, like, *, mesh=None, specs=None,
+                    step: Optional[int] = None):
+    """Restore a checkpoint onto a (possibly different) mesh/plan."""
+    return restore_checkpoint(ckpt_dir, like, step=step, mesh=mesh,
+                              specs=specs)
 
 
 class StepWatchdog:

@@ -12,9 +12,12 @@ accumulation with ``--accum``, ``--compress int8`` quantizes the gradients;
 threaded through the step), atomic checkpoints every ``--ckpt-every`` steps
 into ``--ckpt-dir`` and auto-resume from its latest step. ``--smoke`` takes
 the architecture's reduced config with a 2,048-token vocabulary, as the
-reference. Without it the reference builds the production mesh and
-sharding plan (``launch/mesh.py``, ``dist/shardings.py``); those are not
-ported yet, so the port raises. ``--device`` defaults to the GPU and raises
+reference. Without it the reference trains the full config under the
+production mesh's sharding plan; the port has the mesh and the plan
+(``launch/mesh.py``, ``dist/shardings.py``) but not yet a training step
+under a plan (the gradients through its gathers and expert sums) nor the
+dry-run that sizes it (``launch/dryrun.py``, ``launch/roofline.py``), so
+it raises. ``--device`` defaults to the GPU and raises
 when there is none; ``--device cpu`` runs the plain versions of the
 kernels. On a GPU the watchdog times each step to a synchronize.
 """
@@ -55,9 +58,10 @@ def main(argv=None):
 
     if not args.smoke:
         raise NotImplementedError(
-            "training without --smoke needs the production mesh and sharding "
-            "plan (launch/mesh.py, dist/shardings.py), not ported yet "
-            "(ROADMAP queue 1)")
+            "training without --smoke needs a training step under the "
+            "production mesh's sharding plan and the dry-run that sizes it "
+            "(launch/dryrun.py, launch/roofline.py), not ported yet "
+            "(ROADMAP queue 1 item 3)")
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch).scaled(vocab=2048)
     model = Model(cfg)

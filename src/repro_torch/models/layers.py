@@ -19,9 +19,12 @@ JAX promotes mixed float types silently and torch's products refuse them,
 so the Mamba2 mixer writes each cast out (``_mm``, ``_promoted``) and
 returns the type the reference returns for the same input types.
 
-Not ported yet: expert-parallel MoE (``moe_block_ep``, ROADMAP §1 queue 1
-item 6, with ``dist/shardings.py`` over ``torch.distributed``). It raises
-``NotImplementedError``.
+Expert-parallel MoE (``moe_block_ep``) runs one data shard's tokens on one
+rank of a ``ShardingPlan``'s mesh: the rank's experts on ``bsr_spmm``, the
+experts' contributions summed over the model axis with ``core/comm.py``'s
+gather-then-sum, then combined as ``moe_block`` combines them.
+``constrain`` is the reference's sharding constraint for a DTensor
+activation (``dist/shardings.py``), and passes a plain tensor through.
 """
 from __future__ import annotations
 
@@ -31,16 +34,23 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..core import comm
+from ..dist import shardings as _sh
 from ..kernels import bsr_spmm as _bsr
 from ..kernels import flash_attention as _flash
+from ..kernels import refuse_grad
 from ..kernels import ssd_chunk as _ssd
 from .config import ModelConfig
 
 
-def moe_block_ep(*args, **kwargs):
-    raise NotImplementedError(
-        "moe_block_ep is not ported yet (ROADMAP §1 queue 1 item 6: "
-        "expert-parallel MoE over torch.distributed)")
+def constrain(x, spec):
+    """``jax.lax.with_sharding_constraint``: a DTensor redistributed to
+    ``spec``'s placements on its mesh (``dist.shardings.redistribute``); a
+    plain tensor, or a None spec, as it is (the reference returns x outside
+    a mesh)."""
+    if spec is None:
+        return x
+    return _sh.redistribute(x, spec)
 
 
 # --------------------------------------------------------------------------
@@ -287,30 +297,30 @@ def router_top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
-def moe_block(x, params, cfg: ModelConfig):
-    """Top-k MoE with capacity-bounded, sort-based dispatch. Returns
-    (out, aux_loss)."""
-    B, S, D = x.shape
-    T = B * S
-    E = params["router"].shape[-1]      # padded to a multiple of 16
+def _dispatch(xt, router, cfg: ModelConfig):
+    """Route T tokens (xt: (T, D)) to their top-k experts and bucket them
+    by expert with capacity C (sort-based, the sparse tokens x experts
+    matrix). Returns xe (E, C, D) (a slot no token fills is zero), gates
+    (E * C,) float32, slot (T * K,) per sorted choice (E * C: dropped),
+    keep, order (sorted position -> choice), count (E,) (choices per
+    expert, dropped ones too) and the aux load-balancing loss."""
+    T, D = xt.shape
+    E = router.shape[-1]                # padded to a multiple of 16
     K = cfg.top_k
-    dev = x.device
-    xt = x.reshape(T, D)
-    logits = (xt @ params["router"]).float()                 # (T, E)
+    dev = xt.device
+    logits = (xt @ router).float()                          # (T, E)
     if E > cfg.n_experts:               # padding experts never win
         logits[:, cfg.n_experts:] = -1e30
     probs = torch.softmax(logits, -1)
     gate_vals, gate_idx = router_top_k(probs, K)             # (T, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
-
-    # ---- dispatch: the sparse tokens x experts matrix, radix-bucketed ----
     C = max(8, min(int(cfg.capacity_factor * T * K / E + 0.999), T))
     flat_e = gate_idx.reshape(-1)                            # (T*K,)
     order = torch.argsort(flat_e, stable=True)               # by expert
     e_sorted = flat_e[order]
     seg = torch.searchsorted(e_sorted, torch.arange(E + 1, device=dev)) \
         .to(torch.int32)
-    count = seg[1:] - seg[:-1]          # choices per expert, dropped ones too
+    count = seg[1:] - seg[:-1]
     # aux load-balancing loss (Switch-style)
     me = probs.mean(0)
     ce = count.float() / (T * K)
@@ -321,29 +331,131 @@ def moe_block(x, params, cfg: ModelConfig):
     slot = torch.where(keep, e_sorted * C + within, E * C)   # E*C: dropped
     tok_of = order // K
     # row E*C of each buffer takes the dropped entries and is cut off
-    xe = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
+    xe = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=dev)
     xe[slot] = xt[tok_of]
-    xe = xe[:E * C].reshape(E, C, D)
     gates = torch.zeros(E * C + 1, dtype=torch.float32, device=dev)
     gates[slot] = gate_vals.reshape(-1)[order]
-    gates = gates[:E * C]
-    # experts that kept a token, from the bucket bounds (no host read)
-    block_cols = torch.where(count > 0, torch.arange(E, device=dev), -1) \
-        .to(torch.int32).reshape(E, 1)
-    ye = _expert_ffn(xe, params["we_g"], params["we_1"], params["we_2"],
-                     block_cols)
-    # combine: y[t] += gate * ye[slot(t)] (the transpose SpMM), in ye's
-    # type, each token's contributions added in ascending expert order as
-    # the reference's scatter-add applies them
-    ye_flat = ye.reshape(E * C, D) * gates.reshape(E * C, 1).to(ye.dtype)
-    contrib = ye_flat[slot.clamp(max=E * C - 1)]             # sorted order
-    contrib = torch.where(keep[:, None], contrib, 0)
+    return (xe[:E * C].reshape(E, C, D), gates[:E * C], slot, keep, order,
+            count, aux)
+
+
+def _block_cols(count) -> torch.Tensor:
+    """Experts that kept a token (from the bucket counts, no host read):
+    the blocked-ELL ids of ``_expert_ffn``, -1 for an empty expert."""
+    return torch.where(count > 0, torch.arange(count.numel(),
+                                               device=count.device), -1) \
+        .to(torch.int32).reshape(-1, 1)
+
+
+def _contributions(ye_flat, slot, keep) -> torch.Tensor:
+    """Each choice's gate * ye[slot] (the transpose SpMM's terms), in sorted
+    order, zero where the choice is not kept. ye_flat: (slots, D), already
+    scaled by the gates."""
+    contrib = ye_flat[slot.clamp(max=ye_flat.shape[0] - 1)]
+    return torch.where(keep[:, None], contrib, 0)
+
+
+def _combine(contrib, order, T: int, K: int) -> torch.Tensor:
+    """y[t] = the sum of token t's contributions (sorted order, ``contrib``)
+    in contrib's type, added in ascending expert order as the reference's
+    scatter-add applies them."""
     rank = torch.empty_like(order)                           # entry -> sorted
-    rank[order] = torch.arange(T * K, device=dev)
+    rank[order] = torch.arange(T * K, device=order.device)
     by_expert = torch.sort(rank.reshape(T, K), dim=1).values  # (T, K)
-    y = torch.zeros((T, D), dtype=ye.dtype, device=dev)
+    y = torch.zeros((T, contrib.shape[1]), dtype=contrib.dtype,
+                    device=contrib.device)
     for j in range(K):
         y = y + contrib[by_expert[:, j]]
+    return y
+
+
+def moe_block(x, params, cfg: ModelConfig):
+    """Top-k MoE with capacity-bounded, sort-based dispatch. Returns
+    (out, aux_loss)."""
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D)
+    xe, gates, slot, keep, order, count, aux = _dispatch(
+        xt, params["router"], cfg)
+    E, C, _ = xe.shape
+    ye = _expert_ffn(xe, params["we_g"], params["we_1"], params["we_2"],
+                     _block_cols(count))
+    ye_flat = ye.reshape(E * C, D) * gates.reshape(E * C, 1).to(ye.dtype)
+    y = _combine(_contributions(ye_flat, slot, keep), order, T, cfg.top_k)
+    if cfg.n_shared_experts:
+        y = y + _shared_experts(xt, params).to(y.dtype)
+    return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def moe_block_ep(x, params, cfg: ModelConfig, plan):
+    """Expert-parallel MoE on one rank of ``plan.mesh`` (the reference's
+    ``shard_map`` body, run per rank). Returns (out, aux_loss).
+
+    x: (B_loc, S, D), this rank's data shard's rows (the same on each rank
+    of its model group). The rank routes them and buckets them with the
+    capacity of its own T = B_loc * S tokens (so the drops are those of the
+    plan-less ``moe_block`` over this shard's rows alone) and computes its
+    E / model_size experts from ``model_index * E_loc`` on ``bsr_spmm``.
+    Its contributions, one row a (token, choice) and zero where another
+    rank's expert holds the choice, are summed over the model axis as a
+    gather followed by a sum in axis order (each row has one owner, so the
+    sum is exact), then combined in each token's ascending expert order as
+    ``moe_block`` combines them: every rank of a model group gets the same
+    bits, and they are the plan-less ``moe_block``'s on these rows (the
+    reference's ``psum`` of each rank's partial sums is the same sum in
+    another order). The aux loss is the mean of the shards' over the dp
+    axes. ``we_*`` hold all E experts (this rank's are taken) or this
+    rank's E_loc; the other leaves are whole.
+
+    Raises ShardingError when E is not divisible by the model axis, and,
+    in the words of ``kernels.refuse_grad``, on a call that needs a
+    gradient (the sum over the model axis carries none yet).
+    """
+    B, S, D = x.shape
+    m, msize = plan.model_axis, plan.model_size
+    E = params["router"].shape[-1]
+    K = cfg.top_k
+    if E % msize:
+        raise _sh.ShardingError(
+            f"moe_block_ep: {E} (padded) experts not divisible by the "
+            f"expert-parallel axis {m!r} (size {msize})")
+    E_loc = E // msize
+    refuse_grad("moe_block_ep", "its sum over the model axis is a gather "
+                "that carries no gradient yet", x, *params.values())
+    mc = comm.mesh_comm(plan.mesh)
+    ridx = mc.index(m)
+    T = B * S
+    xt = x.reshape(T, D)
+    xe, gates, slot, keep, order, count, aux = _dispatch(
+        xt, params["router"], cfg)
+    C = xe.shape[1]
+    lo = ridx * E_loc
+
+    def mine(w):                        # this rank's experts of a leaf
+        if w.shape[0] == E_loc:
+            return w
+        if w.shape[0] != E:
+            raise _sh.ShardingError(f"moe_block_ep: an expert leaf of "
+                                    f"{w.shape[0]} experts, not {E} or "
+                                    f"{E_loc}")
+        return w[lo:lo + E_loc]
+
+    y_loc = _expert_ffn(xe[lo:lo + E_loc], mine(params["we_g"]),
+                        mine(params["we_1"]), mine(params["we_2"]),
+                        _block_cols(count[lo:lo + E_loc]))  # (E_loc, C, D)
+    g_loc = gates[lo * C:(lo + E_loc) * C]
+    ye_flat = y_loc.reshape(E_loc * C, D) * \
+        g_loc.reshape(E_loc * C, 1).to(y_loc.dtype)
+    # the choices this rank's experts kept, at their local slots
+    in_mine = keep & (slot >= lo * C) & (slot < (lo + E_loc) * C)
+    contrib = _contributions(ye_flat, torch.where(in_mine, slot - lo * C,
+                                                  E_loc * C), in_mine)
+    with comm.tagged("expert_sum"):
+        contrib = comm.psum(contrib, mc, m)
+    y = _combine(contrib, order, T, K)
+    for ax in plan.dp_axes:
+        aux = comm.psum(aux, mc, ax)
+    aux = aux / plan.dp_size
     if cfg.n_shared_experts:
         y = y + _shared_experts(xt, params).to(y.dtype)
     return y.reshape(B, S, D).to(x.dtype), aux

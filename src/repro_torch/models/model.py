@@ -19,6 +19,18 @@ Mamba/attention hybrid (``kind="hybrid"``), each with ``Model.loss``.
 ``forward(remat=True)`` (the default) recomputes each period in the
 backward pass, as the reference's ``jax.checkpoint`` with
 ``nothing_saveable`` over its scan body.
+
+Under a ``ShardingPlan`` on a mesh of ranks (``dist/shardings.py``) every
+rank holds its block of each leaf (``init_params(plan=)``, a DTensor each)
+and runs its data shard's rows: a layer gathers each sharded leaf it uses
+and drops it after (ZeRO-3's gathers at use, so the numbers are the
+plan-less model's), except the routed experts under ``plan.moe_ep``, which
+stay on their rank (``layers.moe_block_ep``). Activations pass through
+``layers.constrain`` where the reference constrains them (the embedding,
+each layer's output, the logits); the logits come back as a DTensor (rows
+over the data axes, the vocabulary over the model axis). The
+tensor-parallel products that GSPMD picks on the TPU are not ported: each
+rank of a model group computes its shard's whole layer.
 """
 from __future__ import annotations
 
@@ -30,6 +42,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.coo import resolve_device
+from ..dist import shardings as sh
+from ..kernels import refuse_grad
 from . import layers as L
 from .config import ModelConfig
 
@@ -141,45 +155,100 @@ def _leaf_generator(seed: int, path: str, device) -> torch.Generator:
     return g
 
 
-def _init_one(path: str, shape, pdt, device, seed: int) -> torch.Tensor:
+def _init_one(path: str, shape, pdt, device, seed: int,
+              take=lambda t: t) -> torch.Tensor:
     """One leaf, with the reference's distribution. A normal leaf under
     ``blocks/`` is drawn one stacked layer at a time in float32 and stored in
-    ``pdt``, so no float32 copy of a whole stack is ever held."""
+    ``pdt``, so no float32 copy of a whole stack is ever held. ``take`` maps
+    the leaf, or each stacked layer drawn (with a leading dim of one), to
+    what is kept of it: all of it, or a rank's block (``init_params``), so
+    that no rank holds a whole stacked leaf either."""
     name = path.split("/")[-1]
     if name.startswith("ln") or name in ("final_norm", "kv_ln", "D_skip"):
-        return torch.ones(shape, dtype=pdt, device=device)
+        return take(torch.ones(shape, dtype=pdt, device=device))
     if name == "A_log":
         row = torch.log(torch.linspace(1.0, 16.0, shape[-1], device=device))
-        return row.to(pdt).expand(shape).clone()
+        return take(row.to(pdt).expand(shape).clone())
     if name == "dt_bias":
         # softplus^-1 of dt in [1e-3, 1e-1], log-spaced
         dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1),
                                       shape[-1], device=device))
-        return torch.log(torch.expm1(dt)).to(pdt).expand(shape).clone()
+        return take(torch.log(torch.expm1(dt)).to(pdt).expand(shape).clone())
     if name.startswith("b"):
-        return torch.zeros(shape, dtype=pdt, device=device)
+        return take(torch.zeros(shape, dtype=pdt, device=device))
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = 0.02 if name in ("embed", "lm_head") else 1.0 / math.sqrt(fan_in)
     g = _leaf_generator(seed, path, device)
-    out = torch.empty(shape, dtype=pdt, device=device)
-    parts = out if path.startswith("blocks/") else out[None]
-    for part in parts:
-        part.copy_(torch.randn(part.shape, generator=g, device=device) * std)
+    if not path.startswith("blocks/"):
+        return take(torch.randn(shape, generator=g, device=device) * std) \
+            .to(pdt)
+    out = None
+    for r in range(shape[0]):
+        part = take(torch.randn((1,) + tuple(shape[1:]), generator=g,
+                                device=device) * std)
+        if out is None:
+            out = torch.empty((shape[0],) + tuple(part.shape[1:]),
+                              dtype=pdt, device=device)
+        out[r] = part[0]
     return out
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None):
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _mesh_of(plan):
+    """The plan's mesh when it is one of ranks, else None."""
+    return plan.mesh if plan is not None and \
+        sh.is_device_mesh(plan.mesh) else None
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None,
+                *, plan=None):
     """The parameter tree of ``param_shapes`` on ``device`` (None: the GPU,
-    raising when there is none), in ``dtype`` (None: ``cfg.param_dtype``)."""
+    raising when there is none), in ``dtype`` (None: ``cfg.param_dtype``).
+
+    With a ``plan`` on a mesh of ranks each leaf is a DTensor holding this
+    rank's block under ``init_param_specs``; each leaf is drawn in turn (a
+    stacked one a layer at a time) and only the block kept, with the
+    numbers of the plan-less init. Every rank of the mesh calls it."""
     dev = resolve_device(device)
     pdt = dtype or _dtype(cfg.param_dtype)
+    mesh = _mesh_of(plan)
+    specs = init_param_specs(cfg, plan) if mesh is not None else None
 
+    def leaf(path, shape, spec):
+        if mesh is None:
+            return _init_one(path, shape, pdt, dev, seed)
+        local = _init_one(path, shape, pdt, dev, seed,
+                          take=lambda t: sh.local_shard(t, spec, mesh))
+        return sh.from_local(local, spec, mesh, shape)
+
+    def build(tree, spec_tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else k
+            spec = None if spec_tree is None else spec_tree[k]
+            out[k] = build(v, spec, path) if isinstance(v, dict) \
+                else leaf(path, v, spec)
+        return out
+
+    return build(param_shapes(cfg), specs)
+
+
+def init_param_specs(cfg: ModelConfig, plan):
+    """PartitionSpec tree matching ``param_shapes`` (see
+    ``dist/shardings.py``)."""
     def build(tree, prefix=""):
         out = {}
         for k, v in tree.items():
             path = f"{prefix}/{k}" if prefix else k
             out[k] = build(v, path) if isinstance(v, dict) \
-                else _init_one(path, v, pdt, dev, seed)
+                else sh.spec_for_param(path, v, cfg, plan)
         return out
 
     return build(param_shapes(cfg))
@@ -204,14 +273,27 @@ class Model(nn.Module):
     layer loop, the ``_KEEP_F32`` leaves excepted (the reference's option:
     there it moves bf16 through the sharded all-gathers; here it is one cast
     a forward instead of one a layer, with the same numbers).
+
+    ``plan`` (a ``ShardingPlan``): on a mesh of ranks the forward runs as
+    the module docstring says, every rank with the global batch; without a
+    mesh of ranks it changes nothing, as the reference's constraints
+    outside a mesh. Under a plan on a mesh a forward that needs a gradient
+    raises (``kernels.refuse_grad``), and so does context parallelism
+    (decode with fewer rows than data shards).
     """
 
     _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "ln1", "ln2", "kv_ln")
 
-    def __init__(self, cfg: ModelConfig, *, cast_early: bool = False):
+    def __init__(self, cfg: ModelConfig, plan=None, *,
+                 cast_early: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
         self.cast_early = cast_early
+
+    def _mesh_plan(self):
+        """The plan when it runs on a mesh of ranks, else None."""
+        return self.plan if _mesh_of(self.plan) is not None else None
 
     # ---------------- embedding / frontend ----------------
     def embed(self, params, batch):
@@ -224,10 +306,13 @@ class Model(nn.Module):
         cfg = self.cfg
         adt = _dtype(cfg.dtype)
         if cfg.frontend == "audio_frames":
-            return batch["features"].to(adt) @ params["frame_proj"].to(adt)
-        x = nn.functional.embedding(batch["tokens"], params["embed"]).to(adt)
+            return batch["features"].to(adt) @ \
+                sh.gather(params["frame_proj"]).to(adt)
+        x = nn.functional.embedding(batch["tokens"],
+                                    sh.gather(params["embed"])).to(adt)
         if cfg.frontend == "vision_patches" and "vision_embeds" in batch:
-            ve = batch["vision_embeds"].to(adt) @ params["vision_proj"].to(adt)
+            ve = batch["vision_embeds"].to(adt) @ \
+                sh.gather(params["vision_proj"]).to(adt)
             vm = batch["vision_mask"].to(torch.bool)
             take = (torch.cumsum(vm, dim=1) - 1).clamp(0, ve.shape[1] - 1)
             ve_at = torch.gather(ve, 1, take[..., None].expand(
@@ -250,19 +335,64 @@ class Model(nn.Module):
 
     def _layer(self, x, p, kind, moe, pos, pos3, cache):
         cfg = self.cfg
-        p = self._cast_params(p)
+        plan = self._mesh_plan()
+        p = self._cast_params(p if plan is None else self._use(p))
         h = L.rmsnorm(x, p["ln1"], cfg.rms_eps)
         mix, new_cache = self._mixer(h, p, kind, pos, pos3, cache)
         x = x + mix.to(x.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if "ln2" in p:                   # mamba2 has no FFN sublayer
             h = L.rmsnorm(x, p["ln2"], cfg.rms_eps)
-            if moe:
+            if moe and plan is not None and plan.moe_ep:
+                ff, aux = L.moe_block_ep(h, p, cfg, plan)
+            elif moe and plan is not None:
+                ff, aux = self._moe_all_rows(h, p, plan)
+            elif moe:
                 ff, aux = L.moe_block(h, p, cfg)
             else:
                 ff = L.mlp_block(h, p, cfg)
             x = x + ff.to(x.dtype)
+        if plan is not None:
+            x = self._boundary(x, plan)
         return x, aux, new_cache
+
+    # ---------------- under a plan on a mesh of ranks ----------------
+    def _use(self, p):
+        """A layer's leaves as it computes with them: the DTensors gathered
+        whole (together: one exchange a mesh dim; dropped with the layer),
+        the routed experts under ``moe_ep`` this rank's block as it is."""
+        ep = self.plan is not None and self.plan.moe_ep
+        keys = [k for k in p if not (ep and k in sh.MOE_EXPERT_PARAMS)]
+        whole = dict(zip(keys, sh.gather_many([p[k] for k in keys])))
+        return {k: whole[k] if k in whole else sh.local(v)
+                for k, v in p.items()}
+
+    def _boundary(self, x, plan, spec=None, keep=False):
+        """This rank's rows ``x`` as a DTensor of rows over the data axes,
+        through ``layers.constrain`` to ``spec`` (None: the plan's
+        act_spec); then whole over the model axis again for the next layer,
+        or, with ``keep``, the DTensor as it is (the logits)."""
+        rows = sh.P(plan.dp(), *([None] * (x.dim() - 1)))
+        shape = (x.shape[0] * plan.dp_size,) + tuple(x.shape[1:])
+        xd = L.constrain(sh.from_local(x, rows, plan.mesh, shape),
+                         spec or plan.act_spec())
+        return xd if keep else sh.gather(xd, axes=(plan.model_axis,))
+
+    def _moe_all_rows(self, h, p, plan):
+        """``moe_block`` over the global batch (every data shard's rows
+        gathered), as the reference's plan without ``moe_ep`` routes it;
+        this shard's rows of the output."""
+        hg = sh.gather_rows(h, plan)
+        ff, aux = L.moe_block(hg, p, self.cfg)
+        return ff[sh.dp_rows(plan, hg.shape[0])], aux
+
+    def _rows(self, batch, plan):
+        """This rank's data shard of a global batch (pos3's rows are its
+        dim 1)."""
+        B = batch["features" if "features" in batch else "tokens"].shape[0]
+        r = sh.dp_rows(plan, B)
+        return {k: (v[:, r] if k == "pos3" else v[r])
+                if torch.is_tensor(v) else v for k, v in batch.items()}
 
     # ---------------- full stack ----------------
     def forward(self, params, batch, *, caches=None, remat=True):
@@ -273,6 +403,16 @@ class Model(nn.Module):
         kept, and the backward pass runs its forward again, kernels
         included."""
         cfg = self.cfg
+        plan = self._mesh_plan()
+        if plan is not None:
+            refuse_grad("Model.forward under a ShardingPlan", "its leaf "
+                        "gathers and expert sums carry no gradient yet",
+                        *_leaves(params))
+            if plan.context_parallel:
+                raise NotImplementedError(
+                    "context parallelism (decode with fewer rows than data "
+                    "shards) is not ported")
+            batch = self._rows(batch, plan)
         if self.cast_early:
             params = self._cast_early(params)
         period = period_of(cfg)
@@ -280,6 +420,8 @@ class Model(nn.Module):
         kinds = cfg.layer_kinds()[:period]
         moes = cfg.layer_moe()[:period]
         x = self.embed(params, batch)
+        if plan is not None:
+            x = self._boundary(x, plan)
         B, S, _ = x.shape
         steps = torch.arange(S, dtype=torch.int32, device=x.device)
         offset = batch.get("offset")
@@ -299,7 +441,8 @@ class Model(nn.Module):
         # then stacks their gradients once, where taking v[r] a repeat at a
         # time would zero-fill a full-size gradient and add it up, a repeat
         # at a time (work quadratic in depth; PERF.md §5, mamba2 training)
-        stacks = [{k: v.unbind(0) for k, v in
+        unstack = (lambda v: v.unbind(0)) if plan is None else sh.unstack
+        stacks = [{k: unstack(v) for k, v in
                    params["blocks"][f"pos{i}"].items()}
                   for i in range(period)]
         for r in range(reps):
@@ -322,9 +465,15 @@ class Model(nn.Module):
                 aux = aux + a
                 if kind == "attn":
                     cc["offset"][r] = nc["offset"]
-        x = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
-        head = params.get("lm_head", params["embed"])
+        norm, head = params["final_norm"], params.get("lm_head",
+                                                      params["embed"])
+        if plan is not None:
+            norm, head = sh.gather_many([norm, head])
+        x = L.rmsnorm(x, norm, cfg.rms_eps)
         logits = x @ head.T.to(x.dtype)
+        if plan is not None:
+            logits = self._boundary(logits, plan, plan.logits_spec(),
+                                    keep=True)
         return logits, aux, caches
 
     # ---------------- loss ----------------
@@ -334,6 +483,7 @@ class Model(nn.Module):
         encoder over its ``mask`` of ``targets``; plus the MoE aux loss.
         ``ntok`` counts the positions, at least 1."""
         logits, aux, _ = self.forward(params, batch)
+        logits = sh.gather(logits)       # whole under a plan
         if self.cfg.kind == "encoder":
             labels = batch["targets"]
             mask = batch["mask"].float()
@@ -370,8 +520,13 @@ class Model(nn.Module):
         2N) in ``dtype`` and ``state`` (reps, B, H, P, N) in float32.
         ``abstract=True`` puts every tensor, offsets too, on the ``meta``
         device (shapes and types without storage, the reference's
-        ``ShapeDtypeStruct``s)."""
+        ``ShapeDtypeStruct``s). Under a plan on a mesh of ranks B is this
+        rank's data shard of ``batch_size`` rows, every head whole."""
         cfg = self.cfg
+        plan = self._mesh_plan()
+        if plan is not None:
+            r = sh.dp_rows(plan, batch_size)
+            batch_size = r.stop - r.start
         dev = torch.device("meta") if abstract else resolve_device(device)
         host = dev if abstract else torch.device("cpu")
         dt = dtype or _dtype(cfg.dtype)

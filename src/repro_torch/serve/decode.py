@@ -10,6 +10,14 @@ from __future__ import annotations
 import torch
 
 from ..core.coo import resolve_device
+from ..dist.shardings import gather
+
+
+def _last(logits):
+    """The last position's logits, whole: under a ``ShardingPlan`` the
+    forward returns a DTensor (rows over the data axes, the vocabulary over
+    the model axis), gathered here on every rank."""
+    return gather(logits[:, -1, :])
 
 
 def make_serve_step(model):
@@ -19,7 +27,7 @@ def make_serve_step(model):
     def serve_step(params, caches, tokens, offset):
         batch = dict(tokens=tokens, offset=offset)
         logits, _, new_caches = model(params, batch, caches=caches)
-        return logits[:, -1, :], new_caches
+        return _last(logits), new_caches
 
     return serve_step
 
@@ -32,7 +40,7 @@ def make_prefill(model):
                              device=tokens.device)
         batch = dict(tokens=tokens, offset=offset)
         logits, _, new_caches = model(params, batch, caches=caches)
-        return logits[:, -1, :], new_caches
+        return _last(logits), new_caches
 
     return prefill
 

@@ -8,7 +8,10 @@ Format: one directory per step —
 The format, the leaf order and the path strings (``"a/b/0"``: dict keys
 sorted, sequence indices) are those of ``repro.train.checkpoint``, so a
 checkpoint written by either package restores in the other. Leaves are
-numpy arrays, numpy or Python scalars, or tensors (copied to the host).
+numpy arrays, numpy or Python scalars, or tensors (copied to the host);
+a DTensor leaf (a rank's block of a leaf placed on a mesh,
+``dist/shardings.py``) is gathered and stored whole, so a checkpoint holds
+logical arrays and restores onto any mesh.
 
 Durability: writes go to a ``.tmp`` directory, fsync'd, then renamed —
 a crash mid-save never corrupts the latest complete checkpoint. ``keep``
@@ -22,14 +25,15 @@ previous retained checkpoint with a loud warning (the ``checkpoint.leaf``
 fault site exercises this).
 
 On a grid of several ranks the state is global arrays, the same on every
-rank: rank 0 writes (the others count each leaf's ``checkpoint.leaf``
-activation, so armed faults stay in step), a barrier over the grid's
-ranks follows, and every rank reads. The barrier spans the grid the
-caller names (``grid``), not the torch world: after an elastic shrink to
-1x1 in a world of four, rank 0 writes and waits for no retired rank.
-``restore_checkpoint`` takes a ``like`` tree only: placing the leaves on
-a mesh (the JAX package's ``mesh``/``specs``) waits for the port's
-sharding layer.
+rank, or sharded leaves that every rank gathers in turn: rank 0 writes
+(the others count each leaf's ``checkpoint.leaf`` activation, so armed
+faults stay in step), a barrier over the grid's ranks follows, and every
+rank reads. The barrier spans the grid the caller names (``grid``), not
+the torch world: after an elastic shrink to 1x1 in a world of four, rank 0
+writes and waits for no retired rank. ``restore_checkpoint`` with a
+``mesh`` and ``specs`` places each leaf on the mesh (the elastic path:
+each rank reads each leaf and keeps its block under the spec, on any mesh
+shape).
 """
 from __future__ import annotations
 
@@ -41,8 +45,10 @@ import zlib
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from ..core import comm
+from ..dist import shardings as _sh
 from ..obs import recorder as _obs
 from ..robust import faults as _faults
 
@@ -91,7 +97,7 @@ def _unflatten(like, leaves):
 
 def _host(leaf) -> np.ndarray:
     if hasattr(leaf, "detach"):                  # a tensor
-        return leaf.detach().cpu().numpy()
+        return _sh.gather(leaf).detach().cpu().numpy()
     return np.asarray(leaf)
 
 
@@ -105,14 +111,16 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
     """Write ``tree`` as step ``step`` of ``ckpt_dir``; returns the step's
     directory. Rank 0 writes and the ranks of ``grid`` (a ``(pr, pc)`` or
     ``(L, pr, pc)`` grid; the whole world by default) wait for it; on a
-    grid of one position no rank waits."""
+    grid of one position no rank waits. A DTensor leaf is gathered, each
+    in turn, by every rank of its mesh."""
     rank, _ = comm.world()
     name = f"step_{step:08d}"
     final = os.path.join(ckpt_dir, name)
     paths, leaves = _flatten_with_paths(tree)
     if rank != 0:
-        for _ in leaves:
-            _faults.fire(LEAF_SITE)
+        for leaf in leaves:
+            _sh.gather(leaf)             # a sharded leaf's gather is
+            _faults.fire(LEAF_SITE)      # collective: rank 0 writes it
         comm.barrier(grid)
         return final
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -221,15 +229,29 @@ def _manifest(step_dir: str) -> dict:
         return json.load(f)
 
 
+def _spec_at(specs, path: str):
+    """The spec at ``path`` of a spec tree shaped like the state tree."""
+    for k in path.split("/") if path else ():
+        specs = specs[int(k) if isinstance(specs, (list, tuple)) and
+                      not isinstance(specs, _sh.PartitionSpec) else k]
+    return specs
+
+
 @_obs.timed("ckpt.restore")
-def restore_checkpoint(ckpt_dir: str, like: Any, *, step: int | None = None):
+def restore_checkpoint(ckpt_dir: str, like: Any, *, step: int | None = None,
+                       mesh=None, specs: Any = None):
     """Restore into the structure of ``like`` (a tree of arrays, or of
-    anything with a ``shape``); returns ``(tree, step)`` with numpy leaves.
+    anything with a ``shape``); returns ``(tree, step)`` with numpy leaves,
+    or, with ``mesh`` (a ``DeviceMesh``) and ``specs`` (a tree of specs
+    shaped like ``like``), each leaf placed on the mesh by its spec: a
+    DTensor holding this rank's block, on the mesh's device, for a mesh of
+    any shape (every rank reads each leaf and keeps its block).
 
     Every leaf is CRC32-verified against the manifest; a failed leaf raises
     :class:`CheckpointError` — unless ``step=None``, where restore falls
     back to the previous retained checkpoint (loudly)."""
     paths, like_leaves = _flatten_with_paths(like)
+    placed = mesh is not None and specs is not None
 
     def read(d):
         by_path = {e["path"]: e for e in _manifest(d)["leaves"]}
@@ -239,6 +261,9 @@ def restore_checkpoint(ckpt_dir: str, like: Any, *, step: int | None = None):
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch at {p}: {arr.shape} vs "
                                  f"{tuple(leaf.shape)}")
+            if placed:
+                arr = _sh.shard(torch.from_numpy(arr), _spec_at(specs, p),
+                                mesh)
             out.append(arr)
         return _unflatten(like, out)
 

@@ -347,4 +347,4 @@ def test_only_comm_imports_torch_distributed():
             if any(n == "torch.distributed" or n.startswith(
                     "torch.distributed.") for n in names):
                 users.append(path.relative_to(root).as_posix())
-    assert users == ["core/comm.py"], users
+    assert sorted(set(users)) == ["core/comm.py"], users

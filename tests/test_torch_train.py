@@ -331,7 +331,7 @@ def test_launcher_smoke_lowers_the_loss(capsys):
 
 
 def test_launcher_without_smoke_names_what_waits():
-    with pytest.raises(NotImplementedError, match="dist/shardings.py"):
+    with pytest.raises(NotImplementedError, match="launch/dryrun.py"):
         launch_train.main(["--arch", "granite-3-2b", "--device", "cpu"])
 
 
